@@ -6,16 +6,25 @@ Phases (any failure exits nonzero, and no result line is printed):
   1. environment: a CUDA device must be present; prints the card's name and
      power limit (nvidia-smi) and the torch / CUDA versions;
   2. build: compiles the CUDA kernels from the sources in this checkout;
-  3. kernel vs plain: the GLCM statistics kernel against its plain PyTorch
-     version at the main path's shape and at edge cases (integer fields
-     bit-equal, dstats[3] to rel 1e-6), and both versions' median times;
+  3. kernel vs plain: each form of the GLCM statistics kernel (B1a
+     maskless, B1b masked, B1c difference histogram, B2 several offsets)
+     against its plain PyTorch version at the main paths' shapes and at edge
+     cases (integer fields bit-equal, dstats[3] to rel 1e-6), and both
+     versions' median times;
   4. the slice: ``run_pipeline`` over 12,000 synthetic 64x64 images with 2
      synthesized noise channels, a 300-step logistic head and permutation
      importance, as bench.py drives the JAX package. It checks the launch
      count, the accuracy and the channel ranking, times untimed runs (img/s)
      and one staged run, and checks a small run's features against the same
      run on the CPU with the plain version;
-  5. prints the kernels' JSON line and, last, the device JSON line.
+  5. the cytometry slice (BASELINE config 4): ``run_pipeline`` over 16,384
+     masked 12-channel 48x48 uint16 objects quantized to 256 levels on the
+     card, donor-grouped split; checks launches, donors, accuracy and the
+     signal channel, times it like phase 4;
+  6. extract_features: the exact, masked hybrid and 4-offset hybrid forms
+     of the public extraction on the card, against each other and against
+     the same calls on the CPU;
+  7. prints the kernels' JSON line and, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -37,6 +46,16 @@ LEVELS = 256
 OFFSET = (0, 5)
 DSTATS3_RTOL = 1e-6  # f32 homogeneity sum: the kernel and plain version sum in another order
 FEATURE_ATOL = 1e-5  # f32 moment/entropy/homogeneity words summed in another order
+CYTO_N, CYTO_HW, CYTO_CH, CYTO_SIGNAL = 16_384, 48, 12, 4
+FOUR_OFFSETS = ((0, 5), (4, 4), (5, 0), (4, -4))  # distance 5 at 0, 45, 90, 135 degrees
+SOURCE = "tpumcia_torch/csrc/glcm_stats.cu"
+# each kernel form and the TPU kernel it replaces
+FORMS = {
+    "B1a": ("glcm_stats maskless", "tpumcia/features/pallas_glcm.py:400"),
+    "B1b": ("glcm_stats masked", "tpumcia/features/pallas_glcm.py:400"),
+    "B1c": ("glcm_stats need_diff", "tpumcia/features/pallas_glcm.py:400"),
+    "B2": ("glcm_stats multi-offset", "tpumcia/features/pallas_glcm.py:878"),
+}
 
 
 def log(*a):
@@ -95,61 +114,145 @@ def _stats_error(got, want) -> float:
     return worst
 
 
-def phase_kernel(device):
-    """Kernel vs plain version on the card; returns the kernel's record."""
-    import numpy as np
-    import torch
-
-    from tpumcia_torch.features import cuda_glcm
-
-    rng = np.random.default_rng(0)
-
-    def case(shape, offset, fill=None):
-        x = rng.integers(0, LEVELS, size=shape, dtype=np.int32)
-        if fill is not None:
-            for (b, c), v in fill.items():
-                x[b, c] = v
-        t = torch.from_numpy(x).to(device)
-        got = cuda_glcm.sufficient_stats(t, levels=LEVELS, offset=offset)
-        want = cuda_glcm.sufficient_stats_reference(t, levels=LEVELS, offset=offset)
-        _sync(device)
-        err = _stats_error(got, want)
-        log(f"  kernel == plain  shape={shape} offset={offset} max_abs_err={err!r}")
-        return err
-
-    # edge cases: all-zero and constant channels, every offset sign, odd and
-    # non-square sizes, and 72x72 (past the cheap-limb gate)
-    for off in [(0, 1), (1, 0), (3, -2), (-2, 1), OFFSET]:
-        case((3, 2, 64, 64), off, fill={(0, 0): 0, (1, 1): 77, (2, 0): LEVELS - 1})
-    case((2, 3, 37, 53), (1, 2))
-    case((2, 2, 72, 72), OFFSET, fill={(1, 1): 0})
-
-    x = torch.from_numpy(
-        rng.integers(0, LEVELS, size=BENCH_SHAPE, dtype=np.int32)
-    ).to(device)
-    err = case(BENCH_SHAPE, OFFSET)
-
-    def run_kernel():
-        cuda_glcm.sufficient_stats(x, levels=LEVELS, offset=OFFSET)
-
-    def run_plain():
-        cuda_glcm.sufficient_stats_reference(x, levels=LEVELS, offset=OFFSET)
-
-    # turns: plain, kernel, kernel, plain
+def _timed_pair(run_kernel, run_plain):
+    """Median ms of the kernel and of the plain version, in turns plain,
+    kernel, kernel, plain; the better of each pair."""
     p1 = _cuda_events_ms(run_plain, max(3, KERNEL_REPS // 4))
     k1 = _cuda_events_ms(run_kernel, KERNEL_REPS)
     k2 = _cuda_events_ms(run_kernel, KERNEL_REPS)
     p2 = _cuda_events_ms(run_plain, max(3, KERNEL_REPS // 4))
-    log(f"  bench shape {BENCH_SHAPE}: kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms (median of runs, CUDA events)")
-    return {
-        "name": "glcm_stats",
-        "route": "cuda",
-        "source": "tpumcia_torch/csrc/glcm_stats.cu",
-        "replaces": "tpumcia/features/pallas_glcm.py:400",
-        "max_abs_err": err,
-        "ms": min(k1, k2),
-        "plain_ms": min(p1, p2),
-    }
+    return (k1, k2), (p1, p2)
+
+
+def cytometry_objects(n, hw=CYTO_HW, channels=CYTO_CH, signal_ch=CYTO_SIGNAL, seed=0):
+    """Imaging-flow-cytometry-like objects (BASELINE config 4), shaped like
+    examples/cytometry_h5.py: uint16 (n, hw, hw, channels) with background
+    U[200, 1500), a cell disk of radius U(10, 16)*hw/48 centred in
+    [0.35, 0.65]*hw, signal on ``signal_ch`` only (activated:
+    exp(-r/(8*hw/48))*38000, resting: disk*6000). Returns (images, shared
+    disk mask, labels (i // 8) % 2 with 0 = activated, donors
+    "donor{i % 8}"): every donor holds both classes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    scale = hw / 48.0
+    img = rng.integers(200, 1500, size=(n, hw, hw, channels)).astype(np.uint16)
+    cy, cx = rng.uniform(hw * 0.35, hw * 0.65, size=(2, n, 1, 1))
+    yy, xx = np.mgrid[:hw, :hw]
+    r = np.hypot(yy[None] - cy, xx[None] - cx)
+    cell = r < rng.uniform(10, 16, size=(n, 1, 1)) * scale
+    labels = (np.arange(n) // 8) % 2
+    boost = np.where(
+        labels[:, None, None] == 0, np.exp(-r / (8 * scale)) * 38000, cell * 6000.0
+    ).astype(np.uint16)
+    img[..., signal_ch] = np.clip(
+        img[..., signal_ch].astype(np.int64) + boost, 0, 65535
+    ).astype(np.uint16)
+    donors = np.array([f"donor{i % 8}" for i in range(n)])
+    return img, cell, labels, donors
+
+
+def phase_kernel(device):
+    """Every kernel form vs its plain version on the card; returns the
+    forms' records (without launches)."""
+    import numpy as np
+    import torch
+
+    from tpumcia_torch.features import cuda_glcm
+    from tpumcia_torch.features.stats import prepare_mask
+
+    rng = np.random.default_rng(0)
+    errs = {form: 0.0 for form in FORMS}
+
+    def case(shape, offsets, fill=None, mask=None, need_diff=False, x=None):
+        """``mask``: None or a channels-last numpy mask, laid out with
+        prepare_mask as the entry points do."""
+        if x is None:
+            x = rng.integers(0, LEVELS, size=shape, dtype=np.int32)
+        if fill is not None:
+            for (b, c), v in fill.items():
+                x[b, c] = v
+        t = torch.from_numpy(x).to(device) if isinstance(x, np.ndarray) else x
+        B, C, H, W = t.shape
+        m = None if mask is None else prepare_mask(mask, (B, H, W, C), device)
+        if len(offsets) == 1:
+            got = [cuda_glcm.sufficient_stats(t, m, levels=LEVELS, offset=offsets[0], need_diff=need_diff)]
+            want = [cuda_glcm.sufficient_stats_reference(t, m, levels=LEVELS, offset=offsets[0], need_diff=need_diff)]
+        else:
+            got = cuda_glcm.sufficient_stats_multi(t, m, levels=LEVELS, offsets=offsets, need_diff=need_diff)
+            want = cuda_glcm.sufficient_stats_multi_reference(t, m, levels=LEVELS, offsets=offsets, need_diff=need_diff)
+        _sync(device)
+        err = max(_stats_error(g, w) for g, w in zip(got, want))
+        form = cuda_glcm.kernel_form(masked=m is not None, need_diff=need_diff, num_offsets=len(offsets))
+        errs[form] = max(errs[form], err)
+        log(f"  {form} kernel == plain  shape={tuple(t.shape)} offsets={list(offsets)} "
+            f"mask={'none' if mask is None else tuple(np.shape(mask))} max_abs_err={err!r}")
+        return t, m
+
+    # B1a edge cases: all-zero and constant channels, every offset sign, odd
+    # and non-square sizes, and 72x72 (past the cheap-limb gate)
+    for off in [(0, 1), (1, 0), (3, -2), (-2, 1), OFFSET]:
+        case((3, 2, 64, 64), [off], fill={(0, 0): 0, (1, 1): 77, (2, 0): LEVELS - 1})
+    case((2, 3, 37, 53), [(1, 2)])
+    case((2, 2, 72, 72), [OFFSET], fill={(1, 1): 0})
+
+    # the other forms' edge cases: an empty mask, a one-pixel mask (no
+    # pairs), a mask touching the edge with offsets of both signs, shared
+    # (B, H, W) and per-channel masks in bool and uint8, the generic limbs
+    # at 72x72, and several offsets re-zeroing G in turn
+    edge = rng.random((3, 64, 64, 2)) < 0.8
+    edge[0, :, :, 0] = False
+    edge[1, :, :, 1] = False
+    edge[1, 0, 0, 1] = True
+    edge[2, :, :, :] = False
+    edge[2, :24, -20:, :] = True
+    for off in [(3, -2), (-2, 1), (0, 5)]:
+        case((3, 2, 64, 64), [off], fill={(0, 1): 0}, mask=edge)
+        case((3, 2, 64, 64), [off], mask=edge[..., 0].astype(np.uint8))
+        case((3, 2, 64, 64), [off], mask=edge, need_diff=True)
+    case((2, 2, 72, 72), [OFFSET], need_diff=True)
+    case((2, 2, 72, 72), [OFFSET], mask=rng.random((2, 72, 72)) < 0.5)
+    for nd in (False, True):
+        case((3, 2, 64, 64), [(3, -2), (-2, 1), (0, 5), (5, 0)], mask=edge, need_diff=nd)
+        case((2, 3, 37, 53), [(0, 1), (1, 1), (-1, 2)], need_diff=nd)
+
+    records = {}
+
+    def bench(form, shape, offsets, mask=None, need_diff=False):
+        t, m = case(shape, offsets, mask=mask, need_diff=need_diff)
+        if len(offsets) == 1:
+            def run_kernel():
+                cuda_glcm.sufficient_stats(t, m, levels=LEVELS, offset=offsets[0], need_diff=need_diff)
+
+            def run_plain():
+                cuda_glcm.sufficient_stats_reference(t, m, levels=LEVELS, offset=offsets[0], need_diff=need_diff)
+        else:
+            def run_kernel():
+                cuda_glcm.sufficient_stats_multi(t, m, levels=LEVELS, offsets=offsets, need_diff=need_diff)
+
+            def run_plain():
+                cuda_glcm.sufficient_stats_multi_reference(t, m, levels=LEVELS, offsets=offsets, need_diff=need_diff)
+        (k1, k2), (p1, p2) = _timed_pair(run_kernel, run_plain)
+        log(f"  {form} at {shape} offsets={list(offsets)} mask={mask is not None} need_diff={need_diff}: "
+            f"kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms (median of runs, CUDA events)")
+        rec = records.setdefault(form, {"name": FORMS[form][0], "route": "cuda", "source": SOURCE,
+                                        "replaces": FORMS[form][1], "shapes": []})
+        at = "x".join(map(str, shape)) + f" offsets {list(offsets)}" + (" masked" if mask is not None else "")
+        rec["shapes"].append({"at": at, "ms": min(k1, k2), "plain_ms": min(p1, p2)})
+        rec.setdefault("ms", min(k1, k2))
+        rec.setdefault("plain_ms", min(p1, p2))
+
+    mask80 = rng.random((BENCH_SHAPE[0], 64, 64, 3)) > 0.2  # config 1: 80 % of pixels
+    _, cell, _, _ = cytometry_objects(BENCH_SHAPE[0], seed=1)
+    bench("B1a", BENCH_SHAPE, [OFFSET])
+    bench("B1b", BENCH_SHAPE, [OFFSET], mask=mask80)
+    bench("B1b", (BENCH_SHAPE[0], CYTO_CH, CYTO_HW, CYTO_HW), [OFFSET], mask=cell)
+    bench("B1c", BENCH_SHAPE, [OFFSET], need_diff=True)
+    bench("B1c", BENCH_SHAPE, [OFFSET], mask=mask80, need_diff=True)
+    bench("B2", BENCH_SHAPE, list(FOUR_OFFSETS))
+    for form, rec in records.items():
+        rec["max_abs_err"] = errs[form]
+    return records
 
 
 def _slice_config():
@@ -195,16 +298,18 @@ def phase_slice(device, n_images=N_IMAGES, timed_runs=TIMED_RUNS):
     tt.run_pipeline(gray, labels, config=cfg, device=device)  # warm-up
     _sync(device)
 
-    cuda_glcm.LAUNCHES = 0
+    cuda_glcm.reset_launch_counts()
     times, result = [], None
     for _ in range(timed_runs):
         t0 = time.perf_counter()
         result = tt.run_pipeline(gray, labels, config=cfg, device=device)
         _sync(device)
         times.append(time.perf_counter() - t0)
-    launches = cuda_glcm.LAUNCHES
-    if launches != per_run * timed_runs:
-        raise AssertionError(f"kernel launched {launches} times, want {per_run} per run")
+    launches = cuda_glcm.LAUNCHES_BY_FORM["B1a"]
+    if launches != per_run * timed_runs or cuda_glcm.LAUNCHES != launches:
+        raise AssertionError(
+            f"kernel launched {cuda_glcm.LAUNCHES_BY_FORM}, want B1a only, {per_run} per run"
+        )
 
     X = result.features.values
     if X.shape != (len(gray), 69) or not np.isfinite(np.nan_to_num(X)).all():
@@ -265,6 +370,139 @@ def phase_reference(device, n_images=180):
         f"rankings {card.channel_result.ranking.tolist()} / {cpu.channel_result.ranking.tolist()}")
 
 
+def phase_cytometry(device, n=CYTO_N, timed_runs=4):
+    """BASELINE config 4 through ``run_pipeline``: masked 12-channel uint16
+    objects quantized on the card, donor-grouped split; returns
+    (B1b launches, record)."""
+    import numpy as np
+    import torch
+
+    import tpumcia_torch as tt
+    from tpumcia_torch.features import cuda_glcm
+    from tpumcia_torch.utils.profiling import StageTimer
+
+    t0 = time.perf_counter()
+    raw, mask, labels, donors = cytometry_objects(n)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw_dev = torch.from_numpy(raw).to(device)
+    x = tt.quantize_to_levels(raw_dev, levels=LEVELS, src_levels=65536)
+    _sync(device)
+    upload_s = time.perf_counter() - t0
+    # the card's quantization against the host's v >> 8, on a slice
+    if not np.array_equal(x[:64].cpu().numpy(), (raw[:64] >> 8).astype(np.int32)):
+        raise AssertionError("quantize_to_levels on the card differs from v >> 8")
+    del raw_dev
+    cfg = tt.PipelineConfig(
+        head=tt.HeadConfig(kind="logistic", num_steps=300),
+        split=tt.SplitConfig(test_size=0.25, seed=0, group_by="donor"),
+        fast_path="always",
+        batch_size=BATCH,
+    )
+    per_run = -(-n // BATCH)
+
+    def run(timer=None):
+        return tt.run_pipeline(x, labels, mask=mask, groups=donors, config=cfg,
+                               device=device, timer=timer)
+
+    run()  # warm-up
+    _sync(device)
+    cuda_glcm.reset_launch_counts()
+    times, result = [], None
+    for _ in range(timed_runs):
+        t0 = time.perf_counter()
+        result = run()
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    launches = cuda_glcm.LAUNCHES_BY_FORM["B1b"]
+    if launches != per_run * timed_runs or cuda_glcm.LAUNCHES != launches:
+        raise AssertionError(
+            f"kernel launched {cuda_glcm.LAUNCHES_BY_FORM}, want B1b only, {per_run} per run"
+        )
+
+    X = result.features.values
+    F = CYTO_CH * 23
+    if X.shape != (n, F) or not np.isfinite(np.nan_to_num(X)).all():
+        raise AssertionError(f"feature matrix {X.shape} is not finite ({n}, {F})")
+    train_donors = {str(d) for d in donors[result.train_idx]}
+    test_donors = {str(d) for d in donors[result.test_idx]}
+    if train_donors & test_donors or not test_donors:
+        raise AssertionError(f"donor split leaks: train {train_donors}, test {test_donors}")
+    total = np.asarray(result.channel_result.total)
+    if int(np.argmax(total)) != CYTO_SIGNAL or not total[CYTO_SIGNAL] > 0:
+        raise AssertionError(f"signal channel {CYTO_SIGNAL} not first: {total.tolist()}")
+    if result.test_accuracy < 0.95:
+        raise AssertionError(f"test accuracy {result.test_accuracy} < 0.95")
+
+    timer = StageTimer(device)
+    run(timer)
+    med = statistics.median(times)
+    log(f"  data: {n} objects {CYTO_HW}x{CYTO_HW}x{CYTO_CH} uint16 made in {gen_s!r} s; "
+        f"upload + quantize on the card {upload_s!r} s")
+    log(f"  runs (s): {times!r}")
+    log(f"  median {med!r} s = {n / med!r} img/s over {n} objects")
+    log(f"  test_accuracy {result.test_accuracy!r}; test donors {sorted(test_donors)}; "
+        f"channel totals {total.tolist()!r}")
+    log(f"  staged run (synchronised at each stage, s): {json.dumps(timer.totals)}")
+    return launches, {
+        "img_per_s": n / med, "median_s": med, "runs_s": times,
+        "test_accuracy": result.test_accuracy, "stages_s": timer.totals,
+        "channel_totals": total.tolist(), "test_donors": sorted(test_donors),
+    }
+
+
+def phase_extract(device, n=BENCH_SHAPE[0], n_cpu=64):
+    """``extract_features`` on config-1 masked images (64x64x3, 80 % mask):
+    exact on the card equals exact on the CPU bit for bit (the same
+    integers through the same float64 code), the masked hybrid result is
+    within FEATURE_ATOL of the exact one, and a 4-offset hybrid call is
+    within FEATURE_ATOL of its CPU run. Returns ({form: launches}, record)."""
+    import numpy as np
+
+    import tpumcia_torch as tt
+    from tpumcia_torch.features import cuda_glcm
+
+    rng = np.random.default_rng(0)
+    imgs = (rng.random((n, 64, 64, 3)) * 256).astype(np.uint8)
+    mask = rng.random((n, 64, 64, 3)) > 0.2
+    exact = tt.FeatureConfig(precision="exact")
+    multi = tt.FeatureConfig(glcm=tt.GLCMConfig(distance=5, angle=(0.0, np.pi / 4, np.pi / 2, 3 * np.pi / 4)))
+    if [tuple(o) for o in multi.glcm.offsets] != list(FOUR_OFFSETS):
+        raise AssertionError(f"4-angle config gives offsets {multi.glcm.offsets}")
+
+    cuda_glcm.reset_launch_counts()
+    t0 = time.perf_counter()
+    card_exact = tt.extract_features(imgs, mask, device=device, config=exact)
+    exact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card_hybrid = tt.extract_features(imgs, mask, device=device)
+    hybrid_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card_multi = tt.extract_features(imgs, mask, device=device, config=multi)
+    multi_s = time.perf_counter() - t0
+    launches = dict(cuda_glcm.LAUNCHES_BY_FORM)
+    if launches["B1c"] != 1 or launches["B1b"] != 1 or launches["B2"] != 1:
+        raise AssertionError(f"extract_features launched {launches}, want B1c, B1b and B2 once each")
+
+    cpu_exact = tt.extract_features(imgs[:n_cpu], mask[:n_cpu], device="cpu", config=exact)
+    cpu_multi = tt.extract_features(imgs[:n_cpu], mask[:n_cpu], device="cpu", config=multi)
+    a, b = card_exact.values[:n_cpu], cpu_exact.values
+    if not (np.array_equal(np.isnan(a), np.isnan(b)) and np.array_equal(np.nan_to_num(a), np.nan_to_num(b))):
+        raise AssertionError(f"exact features on the card differ from the CPU by {np.nanmax(np.abs(a - b))}")
+    hyb_err = float(np.nanmax(np.abs(card_hybrid.values - card_exact.values)))
+    if not hyb_err <= FEATURE_ATOL:
+        raise AssertionError(f"masked hybrid differs from exact by {hyb_err}")
+    multi_err = float(np.nanmax(np.abs(card_multi.values[:n_cpu] - cpu_multi.values)))
+    if not multi_err <= FEATURE_ATOL or card_multi.shape != (n, 3 * (17 + 4 * 6)):
+        raise AssertionError(f"4-offset hybrid {card_multi.shape} differs from the CPU by {multi_err}")
+    log(f"  {n} masked 64x64x3 images: exact {exact_s!r} s, hybrid {hybrid_s!r} s, "
+        f"4-offset hybrid {multi_s!r} s (first calls, host clock)")
+    log(f"  exact card == CPU on {n_cpu} images (max abs 0); hybrid vs exact {hyb_err!r}; "
+        f"4-offset card vs CPU {multi_err!r}")
+    return launches, {"exact_s": exact_s, "hybrid_s": hybrid_s, "multi_offset_s": multi_s,
+                      "hybrid_vs_exact": hyb_err, "multi_card_vs_cpu": multi_err}
+
+
 def main() -> int:
     try:
         import torch
@@ -311,21 +549,33 @@ def main() -> int:
                 log("  " + line.strip())
 
     log("== kernel vs plain")
-    kernel = phase_kernel(device)
+    kernels = phase_kernel(device)
 
     log("== slice")
     launches, slice_rec = phase_slice(device)
-    kernel["launches"] = launches
+    kernels["B1a"]["launches"] = launches
     phase_reference(device)
 
+    log("== cytometry slice")
+    launches, cyto_rec = phase_cytometry(device)
+    kernels["B1b"]["launches"] = launches
+
+    log("== extract_features")
+    launches, extract_rec = phase_extract(device)
+    kernels["B1c"]["launches"] = launches["B1c"]
+    kernels["B2"]["launches"] = launches["B2"]
+
     print(gpu_line, flush=True)
-    print(json.dumps({"kernels": [kernel], "slice": slice_rec}), flush=True)
+    print(json.dumps({
+        "kernels": [{"form": form, **kernels[form]} for form in FORMS],
+        "slice": slice_rec, "cytometry": cyto_rec, "extract_features": extract_rec,
+    }), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
+            "count": 1,  # the devices this run used
         },
     }), flush=True)
     return 0

@@ -1,5 +1,7 @@
-"""tpumcia_torch on the GPU: the CUDA kernel against its plain version, the
-wrapper's checks, and the slice on the card against the slice on the CPU.
+"""tpumcia_torch on the GPU: the CUDA kernel in each of its forms (B1a
+maskless, B1b masked, B1c with the difference histogram, B2 several
+offsets) against its plain version, the wrapper's checks, and the slice and
+``extract_features`` on the card against the same calls on the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The file
 imports neither jax nor tpumcia, so it also runs where only torch is
@@ -25,6 +27,30 @@ pytestmark = pytest.mark.cuda
 INT_FIELDS = ("hist", "count", "vmax", "marg_l", "marg_r", "glcm_sumsq", "pair_count")
 
 
+def _assert_stats_equal(got, want):
+    for name in INT_FIELDS:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    if want.diff_hist is not None:
+        assert got.dstats is None and torch.equal(got.diff_hist, want.diff_hist)
+    else:
+        assert got.diff_hist is None
+        assert torch.equal(got.dstats[..., :3], want.dstats[..., :3])
+        torch.testing.assert_close(got.dstats[..., 3], want.dstats[..., 3], rtol=1e-6, atol=0)
+
+
+def _edge_mask(rng, shape, shared):
+    """A random mask with an empty (image, channel), a one-pixel one and a
+    full one: (B, 1 or C, H, W) uint8."""
+    B, C, H, W = shape
+    m = (rng.random((B, 1 if shared else C, H, W)) < 0.8).astype(np.uint8)
+    m[0, 0] = 0
+    m[-1, -1] = 0
+    m[-1, -1, H // 2, W // 2] = 1
+    if B > 1:
+        m[1, 0] = 1
+    return m
+
+
 @pytest.mark.parametrize("shape,offset", [
     ((2048, 3, 64, 64), (0, 5)),
     ((3, 2, 64, 64), (3, -2)),
@@ -44,10 +70,61 @@ def test_kernel_matches_plain_on_card(shape, offset):
     want = cuda_glcm.sufficient_stats_reference(t, levels=256, offset=offset)
     torch.cuda.synchronize()
     assert cuda_glcm.LAUNCHES == before + 1
-    for name in INT_FIELDS:
-        assert torch.equal(getattr(got, name), getattr(want, name)), name
-    assert torch.equal(got.dstats[..., :3], want.dstats[..., :3])
-    torch.testing.assert_close(got.dstats[..., 3], want.dstats[..., 3], rtol=1e-6, atol=0)
+    _assert_stats_equal(got, want)
+
+
+@pytest.mark.parametrize("shape,offset,mask,need_diff", [
+    ((64, 3, 64, 64), (0, 5), "per_channel", False),
+    ((64, 12, 48, 48), (0, 5), "shared", False),
+    ((3, 2, 64, 64), (3, -2), "per_channel", False),
+    ((3, 2, 37, 53), (-2, 1), "shared", False),
+    ((64, 3, 64, 64), (0, 5), None, True),
+    ((3, 2, 64, 64), (-2, 1), "shared", True),
+    ((2, 2, 72, 72), (0, 5), None, True),
+])
+def test_masked_and_diff_forms_match_plain_on_card(shape, offset, mask, need_diff):
+    """B1b (masked) and B1c (need_diff, masked or not) against the plain
+    version; the edge mask has empty, one-pixel and full (image, channel)s."""
+    dev = require_cuda()
+    rng = np.random.default_rng(1)
+    x = rng.integers(0, 256, size=shape, dtype=np.int32)
+    x[0, -1] = 0  # all-zero channel
+    t = torch.from_numpy(x).to(dev)
+    m = None
+    if mask is not None:
+        m = torch.from_numpy(_edge_mask(rng, shape, mask == "shared")).to(dev)
+    form = "B1c" if need_diff else "B1b"
+    before = dict(cuda_glcm.LAUNCHES_BY_FORM)
+    got = cuda_glcm.sufficient_stats(t, m, levels=256, offset=offset, need_diff=need_diff)
+    want = cuda_glcm.sufficient_stats_reference(t, m, levels=256, offset=offset, need_diff=need_diff)
+    torch.cuda.synchronize()
+    assert cuda_glcm.LAUNCHES_BY_FORM[form] == before[form] + 1
+    _assert_stats_equal(got, want)
+    if m is not None:
+        assert int(got.vmax[0, 0]) == -1 and float(got.count[0, 0]) == 0
+        assert float(got.pair_count[-1, -1]) == 0 and float(got.count[-1, -1]) == 1
+
+
+@pytest.mark.parametrize("masked,need_diff", [(False, False), (True, False), (True, True)])
+def test_multi_offset_form_matches_plain_on_card(masked, need_diff):
+    """B2: four offsets of both signs in one pass, each offset's statistics
+    equal to the plain version's (G re-zeroed between offsets)."""
+    dev = require_cuda()
+    rng = np.random.default_rng(2)
+    shape = (64, 3, 64, 64)
+    x = torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.int32)).to(dev)
+    m = torch.from_numpy(_edge_mask(rng, shape, True)).to(dev) if masked else None
+    offsets = [(0, 5), (4, 4), (5, 0), (4, -4)]
+    before = cuda_glcm.LAUNCHES_BY_FORM["B2"]
+    got = cuda_glcm.sufficient_stats_multi(x, m, levels=256, offsets=offsets, need_diff=need_diff)
+    want = cuda_glcm.sufficient_stats_multi_reference(
+        x, m, levels=256, offsets=offsets, need_diff=need_diff
+    )
+    torch.cuda.synchronize()
+    assert cuda_glcm.LAUNCHES_BY_FORM["B2"] == before + 1
+    assert len(got) == 4
+    for g, w in zip(got, want):
+        _assert_stats_equal(g, w)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -57,15 +134,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         cuda_glcm.sufficient_stats(x.to(torch.int64), levels=256, offset=(0, 1))
     with pytest.raises(ValueError, match="contiguous"):
         cuda_glcm.sufficient_stats(x.transpose(2, 3), levels=256, offset=(0, 1))
-    with pytest.raises(ValueError, match="levels"):
+    with pytest.raises(NotImplementedError, match="B1d"):
         cuda_glcm.sufficient_stats(x, levels=512, offset=(0, 1))
-    with pytest.raises(ValueError, match="65536"):
+    with pytest.raises(NotImplementedError, match="B1d"):
         cuda_glcm.sufficient_stats(
             torch.zeros((1, 1, 256, 256), dtype=torch.int32, device=dev),
             levels=256, offset=(0, 1),
         )
-    with pytest.raises(NotImplementedError, match="B1c"):
-        cuda_glcm.sufficient_stats(x, levels=256, offset=(0, 1), need_diff=True)
+    with pytest.raises(ValueError, match="mask"):
+        cuda_glcm.sufficient_stats(x, torch.ones((1, 1, 8, 8), dtype=torch.bool, device=dev),
+                                   levels=256, offset=(0, 1))
+    with pytest.raises(ValueError, match="offsets"):
+        cuda_glcm.sufficient_stats_multi(x, levels=256, offsets=[(0, 1)] * 17)
+    # the need_diff form launches and equals its plain version
+    got = cuda_glcm.sufficient_stats(x, levels=256, offset=(0, 1), need_diff=True)
+    want = cuda_glcm.sufficient_stats_reference(x, levels=256, offset=(0, 1), need_diff=True)
+    _assert_stats_equal(got, want)
 
 
 def test_slice_on_card_matches_cpu():
@@ -88,3 +172,25 @@ def test_slice_on_card_matches_cpu():
     assert card.channel_result.ranking[0] == 0 and cpu.channel_result.ranking[0] == 0
     with pytest.raises(ValueError, match="CUDA kernel"):
         tt.run_pipeline(x, labels, config={**cfg, "features": {"use_pallas": "never"}}, device=dev)
+
+
+def test_extract_features_on_card_matches_cpu():
+    """Masked exact extraction (B1c) on the card equals the CPU's bit for
+    bit; masked hybrid (B1b) and a 4-offset hybrid call (B2) agree with the
+    CPU to 1e-5."""
+    dev = require_cuda()
+    import tpumcia_torch as tt
+
+    rng = np.random.default_rng(4)
+    x = (rng.random((40, 64, 64, 3)) * 256).astype(np.uint8)
+    m = rng.random((40, 64, 64, 3)) > 0.2
+    m[0, :, :, 0] = False  # empty mask
+    multi = tt.FeatureConfig(glcm=tt.GLCMConfig(distance=5, angle=(0.0, 0.785398, 1.570796, 2.356194)))
+    for cfg, atol in [(tt.FeatureConfig(precision="exact"), 0.0), (tt.FeatureConfig(), 1e-5), (multi, 1e-5)]:
+        card = tt.extract_features(x, m, device=dev, config=cfg)
+        cpu = tt.extract_features(x, m, device="cpu", config=cfg)
+        np.testing.assert_array_equal(np.isnan(card.values), np.isnan(cpu.values))
+        np.testing.assert_allclose(card.values, cpu.values, rtol=0, atol=atol)
+        np.testing.assert_array_equal(card.degenerate, cpu.degenerate)
+    dev_vals = tt.extract_features(x, m, device=dev, config=tt.FeatureConfig(precision="device"))
+    assert dev_vals.values.device.type == "cuda" and dev_vals.values.dtype == torch.float32

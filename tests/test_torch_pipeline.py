@@ -102,8 +102,8 @@ def test_slice_with_synthesized_noise_channels():
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"features": {"precision": "exact"}}, "A9"),
-    ({"features": {"glcm": {"distance": [1, 5]}}}, "A9"),
+    ({"features": {"precision": "exact"}}, "A10"),
+    ({"features": {"glcm": {"distance": [1, 5]}}}, "A10"),
     ({"head": {"kind": "mlp"}}, "A10"),
     ({"importance": {"channel_method": "ablation"}}, "A10"),
     ({"fast_path": "never"}, "A10"),
@@ -117,9 +117,67 @@ def test_unported_configs_raise_named_errors(images, change, match):
 
 
 def test_masks_raise_named_error(images):
+    """Masks run on the fast path (an all-ones mask changes nothing); the
+    mask uses tpumcia refuses raise its named errors."""
     x, labels = images
-    with pytest.raises(NotImplementedError, match="B1b"):
-        run_pipeline(x, labels, mask=np.ones(x.shape[:3], np.uint8), config=_kw(), device="cpu")
+    plain = run_pipeline(x, labels, config=_kw(), device="cpu")
+    masked = run_pipeline(x, labels, mask=np.ones(x.shape[:3], np.uint8), config=_kw(), device="cpu")
+    np.testing.assert_array_equal(masked.features.values, plain.features.values)
+    assert masked.channel_result.ranking.tolist() == plain.channel_result.ranking.tolist()
+    with pytest.raises(ValueError, match="mask shape .* must equal"):
+        run_pipeline(x, labels, mask=np.ones(x.shape[:2], np.uint8), config=_kw(), device="cpu")
+    with pytest.raises(ValueError, match="noise_channels does not compose with masks"):
+        run_pipeline(x[..., 0], labels, mask=np.ones(x.shape[:3], np.uint8),
+                     config={**_kw(), "synth": {"noise_channels": 2}}, device="cpu")
+
+
+def _cyto_kw():
+    return dict(
+        head={"kind": "logistic", "num_steps": 300},
+        split={"test_size": 0.25, "seed": 0, "group_by": "donor"},
+        fast_path="always",
+        batch_size=64,
+    )
+
+
+def test_masked_cytometry_matches_jax_pipeline(monkeypatch):
+    """BASELINE config 4 at test size: 192 12-channel 32x32 uint16 objects
+    quantized to 256 levels, a shared cell mask, donor-grouped split; batch
+    64 (the last batch is wrap-padded)."""
+    from torch_parity import cytometry_objects
+    from tpumcia.config import PipelineConfig as JPipelineConfig
+    from tpumcia.pipeline.run import run_pipeline as jax_run_pipeline
+    from tpumcia.preprocess.normalize import quantize_to_levels as jax_quantize
+    from tpumcia_torch.preprocess.normalize import quantize_to_levels
+
+    raw, mask, labels, donors = cytometry_objects(192, hw=32, seed=0)
+    levels = quantize_to_levels(raw, levels=256, src_levels=65536).numpy()
+    np.testing.assert_array_equal(levels, np.asarray(jax_quantize(raw, levels=256, src_levels=65536)))
+    x = levels[:190]  # 190 = 2*64 + 62: the last batch is wrap-padded
+    mask, labels, donors = mask[:190], labels[:190], donors[:190]
+    want = jax_run_pipeline(
+        x, labels, mask=mask, groups=donors,
+        config=JPipelineConfig.from_dict({**_cyto_kw(), "mesh": {"data": 1}}),
+    )
+    monkeypatch.setattr(
+        fused, "init_weights",
+        lambda f, k, *, seed, device: torch.from_numpy(jax_init_weights(seed, f, k)),
+    )
+    monkeypatch.setattr(
+        fused, "draw_permutations",
+        lambda num_draws, n, *, seed, device: torch.from_numpy(
+            jax_permutations(seed, num_draws, n)).long(),
+    )
+    got = run_pipeline(x, labels, mask=mask, groups=donors, config=_cyto_kw(), device="cpu")
+
+    assert got.features.shape == want.features.shape == (190, 12 * 23)
+    a, b = got.features.values, np.asarray(want.features.values)
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got.test_idx, want.test_idx)
+    assert not set(donors[got.train_idx]) & set(donors[got.test_idx])
+    assert got.channel_result.ranking.tolist() == want.channel_result.ranking.tolist()
+    assert got.channel_result.ranking[0] == 4 and got.channel_result.total[4] > 0
 
 
 @pytest.mark.parametrize("change,match", [

@@ -44,6 +44,33 @@ def jax_init_weights(seed: int, num_features: int, num_classes: int) -> np.ndarr
     )
 
 
+def cytometry_objects(n: int, hw: int = 48, channels: int = 12, signal_ch: int = 4, seed: int = 0):
+    """Imaging-flow-cytometry-like objects (BASELINE config 4), shaped like
+    examples/cytometry_h5.py and scaled to ``hw``: uint16 (n, hw, hw,
+    channels) stacks with background U[200, 1500), a cell disk of radius
+    U(10, 16)*hw/48 centred in [0.35, 0.65]*hw, and signal on ``signal_ch``
+    only (activated: exp(-r/(8*hw/48))*38000, resting: disk*6000). Returns
+    (images, shared (n, hw, hw) disk mask, labels (i // 8) % 2 with 0 =
+    activated, donors "donor{i % 8}"): every donor holds both classes, so a
+    donor-grouped test set does too. Vectorised numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    scale = hw / 48.0
+    img = rng.integers(200, 1500, size=(n, hw, hw, channels)).astype(np.uint16)
+    cy, cx = rng.uniform(hw * 0.35, hw * 0.65, size=(2, n, 1, 1))
+    yy, xx = np.mgrid[:hw, :hw]
+    r = np.hypot(yy[None] - cy, xx[None] - cx)
+    cell = r < rng.uniform(10, 16, size=(n, 1, 1)) * scale
+    labels = (np.arange(n) // 8) % 2
+    boost = np.where(
+        labels[:, None, None] == 0, np.exp(-r / (8 * scale)) * 38000, cell * 6000.0
+    ).astype(np.uint16)
+    img[..., signal_ch] = np.clip(
+        img[..., signal_ch].astype(np.int64) + boost, 0, 65535
+    ).astype(np.uint16)
+    donors = np.array([f"donor{i % 8}" for i in range(n)])
+    return img, cell, labels, donors
+
+
 def require_cuda():
     """Skip the calling test unless a CUDA device is present (decided at run
     time, never at import, so every worker collects the same tests)."""

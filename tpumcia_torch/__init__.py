@@ -1,9 +1,12 @@
 """tpumcia_torch — the PyTorch/CUDA port of tpumcia for NVIDIA Hopper.
 
 It runs tpumcia's fused fast path on one device: seeded noise-channel
-synthesis, the 23-per-channel intensity + GLCM feature matrix (GLCM
-statistics from a hand-written CUDA kernel, ``csrc/glcm_stats.cu``), a
-logistic head, and grouped + per-feature permutation channel importance.
+synthesis or masked multichannel input, the 23-per-channel intensity + GLCM
+feature matrix (GLCM statistics from a hand-written CUDA kernel,
+``csrc/glcm_stats.cu``), a logistic head, and grouped + per-feature
+permutation channel importance. ``extract_features`` runs tpumcia's
+single-device extraction in every precision (hybrid, exact, device), masked
+or not, at one GLCM offset or several.
 Module paths and function names mirror ``tpumcia`` so each counterpart is
 easy to find. It imports neither ``jax`` nor ``tpumcia``.
 
@@ -23,8 +26,14 @@ from tpumcia_torch.config import (
     SplitConfig,
     SynthConfig,
 )
-from tpumcia_torch.features.extract import FeatureMatrix, extract_features_pending
+from tpumcia_torch.features.extract import (
+    FeatureMatrix,
+    extract_features,
+    extract_features_batched,
+    extract_features_pending,
+)
 from tpumcia_torch.pipeline.run import PipelineResult, run_pipeline
+from tpumcia_torch.preprocess.normalize import quantize_to_levels
 
 __all__ = [
     "__version__",
@@ -36,7 +45,10 @@ __all__ = [
     "SplitConfig",
     "SynthConfig",
     "FeatureMatrix",
+    "extract_features",
+    "extract_features_batched",
     "extract_features_pending",
     "PipelineResult",
     "run_pipeline",
+    "quantize_to_levels",
 ]

@@ -34,9 +34,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "tpumcia_glcm_stats": (
         _I,
-        # img, lut, items, H, W, L, dr, dc, cheap,
-        # hist, count, vmax, marg_l, marg_r, dstats, sumsq, pairs, stream
-        [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        # img, mask, mask_channels, lut, batch, channels, H, W, L,
+        # offsets (host ints), num_offsets, need_diff, cheap,
+        # hist, count, vmax, marg_l, marg_r, dout, sumsq, pairs, stream
+        [_P, _P, _I, _P, _I, _I, _I, _I, _I,
+         ctypes.POINTER(_I), _I, _I, _I,
+         _P, _P, _P, _P, _P, _P, _P, _P, _P],
     ),
     "tpumcia_cuda_error_string": (ctypes.c_char_p, [_I]),
 }

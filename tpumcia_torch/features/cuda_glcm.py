@@ -1,24 +1,39 @@
 """GLCM sufficient statistics: the CUDA kernel, its wrapper and its plain
 PyTorch version.
 
-The kernel (``tpumcia_torch/csrc/glcm_stats.cu``) replaces the TPU kernel
-``tpumcia/features/pallas_glcm.py::_kernel`` (driven by
-``_pallas_stats_core``) in its maskless ``need_diff=False`` form, the one the
-fused extraction path runs. One thread block reduces one (image, channel):
-shared-memory atomic histograms for the raw levels, the two marginals and
-the difference histogram, and the co-occurrence matrix G as a 128 KB table
-of u16 counts from which the exact ``sum(G^2)`` limbs are read. On an H100
-what bounds it is the 16 KB of int32 pixels each (image, channel) reads
-(twice), the shared-memory atomics, and the zeroing and scan of G, whose
-128 KB also hold each SM to one resident block; the source says more (the
-split between them is not measured yet).
+The kernel (``tpumcia_torch/csrc/glcm_stats.cu``) replaces the TPU kernels
+of ``tpumcia/features/pallas_glcm.py`` in the four forms the single-device
+extraction runs, each counted on its own in :data:`LAUNCHES_BY_FORM`:
 
-:func:`sufficient_stats` takes the kernel for a CUDA tensor and the plain
-version only for a CPU tensor; anything else raises. :data:`LAUNCHES`
-counts kernel launches, so a run can show that it went through the kernel.
+- ``B1a``: ``_kernel`` maskless, ``need_diff=False`` (the fused fast path);
+- ``B1b``: ``_kernel`` masked (``has_mask=True``), one offset;
+- ``B1c``: ``_kernel`` with ``need_diff=True`` (the difference histogram of
+  ``precision='exact'``), masked or not, one offset;
+- ``B2``: ``_kernel_multi``, several offsets in one pass (masked or not,
+  either ``need_diff``).
+
+One thread block reduces one (image, channel): shared-memory atomic
+histograms for the raw levels, the two marginals and the difference
+histogram, and the co-occurrence matrix G as a 128 KB table of u16 counts
+from which the exact ``sum(G^2)`` limbs are read; several offsets reuse the
+one histogram pass and, in turn, the one table. On an H100 what bounds it is
+the 16 KB of int32 pixels each (image, channel) reads (once, then once per
+offset), the shared-memory atomics, and the zeroing and scan of G per
+offset, whose 128 KB also hold each SM to one resident block; the source
+says more.
+
+:func:`sufficient_stats` and :func:`sufficient_stats_multi` take the kernel
+for a CUDA tensor and the plain version only for a CPU tensor; anything
+else raises. Sizes the kernel cannot take (H*W >= 65536, where G's u16 cells
+could overflow, or more than 256 levels, where G outgrows shared memory)
+raise a ``NotImplementedError`` naming ROADMAP B1d. :data:`LAUNCHES` counts
+kernel launches over all forms, so a run can show that it went through the
+kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,13 +44,45 @@ from tpumcia_torch.features.stats import (
     rescale_lut_device,
 )
 
-# kernel launches by sufficient_stats; reset it to 0 before a run to count
+# kernel launches by sufficient_stats*, over all forms and per form; reset
+# both with reset_launch_counts() before a run to count its launches
 LAUNCHES = 0
+LAUNCHES_BY_FORM = {"B1a": 0, "B1b": 0, "B1c": 0, "B2": 0}
 
-_MAX_KERNEL_LEVELS = 256  # G as L*L u16 counts must fit in shared memory
+MAX_KERNEL_LEVELS = 256  # G as L*L u16 counts must fit in shared memory
+MAX_KERNEL_PIXELS = 65535  # H*W; each G cell counts < 2^16 pairs
+MAX_OFFSETS = 16  # the kernel's fixed-size offset argument
 # co-occurrence cells the plain version counts at once: 512 images' G at
 # 256 levels, 256 MB of int64
 _G_CELLS_PER_CHUNK = 1 << 25
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+    for form in LAUNCHES_BY_FORM:
+        LAUNCHES_BY_FORM[form] = 0
+
+
+def kernel_form(*, masked: bool, need_diff: bool, num_offsets: int) -> str:
+    """The name of the kernel form a call runs (see the module doc)."""
+    if num_offsets > 1:
+        return "B2"
+    if need_diff:
+        return "B1c"
+    return "B1b" if masked else "B1a"
+
+
+def check_kernel_size(H: int, W: int, levels: int) -> None:
+    """Raise the named ``NotImplementedError`` for sizes past the kernel
+    (ROADMAP B1d)."""
+    if H * W > MAX_KERNEL_PIXELS or levels > MAX_KERNEL_LEVELS:
+        raise NotImplementedError(
+            f"{H}x{W} images at {levels} levels are past the CUDA GLCM kernel "
+            f"(H*W < 65536 for u16 co-occurrence counts, levels <= "
+            f"{MAX_KERNEL_LEVELS} for shared memory); that form is not ported "
+            "yet (ROADMAP B1d)"
+        )
 
 
 def _window(H: int, W: int, offset) -> tuple[int, int, int, int]:
@@ -48,135 +95,232 @@ def _window(H: int, W: int, offset) -> tuple[int, int, int, int]:
 
 
 def sufficient_stats(
-    img: torch.Tensor, *, levels: int, offset: tuple[int, int],
-    need_diff: bool = False,
+    img: torch.Tensor, mask: torch.Tensor | None = None, *, levels: int,
+    offset: tuple[int, int], need_diff: bool = False,
 ) -> SuffStats:
     """(B, C, H, W) int32 levels in [0, levels) -> :class:`SuffStats` at one
-    GLCM ``offset`` (dr, dc), maskless.
+    GLCM ``offset`` (dr, dc).
 
-    A CUDA tensor launches the kernel (``need_diff=False`` only); a CPU
-    tensor takes :func:`sufficient_stats_reference`."""
-    global LAUNCHES
+    ``mask``: None, or the (B, 1 or C, H, W) uint8 plane of
+    ``stats.prepare_mask`` (nonzero selects a pixel). ``need_diff``: emit
+    the difference histogram (``diff_hist``) instead of ``dstats``. A CUDA
+    tensor launches the kernel; a CPU tensor takes
+    :func:`sufficient_stats_reference`."""
     if img.device.type == "cpu":
         return sufficient_stats_reference(
-            img, levels=levels, offset=offset, need_diff=need_diff
+            img, mask, levels=levels, offset=offset, need_diff=need_diff
         )
+    return _launch(img, mask, levels, [tuple(offset)], need_diff)[0]
+
+
+def sufficient_stats_multi(
+    img: torch.Tensor, mask: torch.Tensor | None = None, *, levels: int,
+    offsets, need_diff: bool = False,
+) -> tuple[SuffStats, ...]:
+    """:func:`sufficient_stats` for several offsets in one pass: one
+    :class:`SuffStats` per offset, all sharing one ``hist``, ``count`` and
+    ``vmax`` (as the Pallas multi-offset kernel returns them)."""
+    offsets = [tuple(o) for o in offsets]
+    if img.device.type == "cpu":
+        return sufficient_stats_multi_reference(
+            img, mask, levels=levels, offsets=offsets, need_diff=need_diff
+        )
+    return _launch(img, mask, levels, offsets, need_diff)
+
+
+def _launch(img, mask, levels, offsets, need_diff) -> tuple[SuffStats, ...]:
+    global LAUNCHES
     if img.device.type != "cuda":
         raise ValueError(f"sufficient_stats takes a CPU or CUDA tensor; got {img.device}")
-    if need_diff:
-        raise NotImplementedError(
-            "the need_diff=True kernel (difference histogram for the exact "
-            "backend) is not ported yet (ROADMAP B1c)"
-        )
     if img.dtype != torch.int32 or img.dim() != 4 or not img.is_contiguous():
         raise ValueError(
             "sufficient_stats wants a contiguous (B, C, H, W) int32 tensor; "
             f"got {img.dtype} shape {tuple(img.shape)} "
             f"contiguous={img.is_contiguous()}"
         )
-    if not 1 <= levels <= _MAX_KERNEL_LEVELS:
-        raise ValueError(f"the CUDA kernel takes 1..{_MAX_KERNEL_LEVELS} levels; got {levels}")
     B, C, H, W = img.shape
-    if H * W >= 65536:
-        raise ValueError(
-            f"the CUDA kernel needs H*W < 65536 (u16 co-occurrence counts); got {H}x{W}"
-        )
-    _window(H, W, offset)
+    if levels < 1:
+        raise ValueError(f"levels must be >= 1; got {levels}")
+    check_kernel_size(H, W, levels)
+    if not 1 <= len(offsets) <= MAX_OFFSETS:
+        raise ValueError(f"the CUDA kernel takes 1..{MAX_OFFSETS} offsets; got {len(offsets)}")
+    for off in offsets:
+        _window(H, W, off)
+    if mask is not None:
+        if (
+            mask.device != img.device or mask.dtype != torch.uint8
+            or mask.dim() != 4 or mask.shape[0] != B
+            or mask.shape[1] not in (1, C) or tuple(mask.shape[2:]) != (H, W)
+            or not mask.is_contiguous()
+        ):
+            raise ValueError(
+                "the mask must be a contiguous (B, 1 or C, H, W) uint8 tensor on "
+                f"{img.device} (stats.prepare_mask); got {mask.dtype} shape "
+                f"{tuple(mask.shape)} on {mask.device} for images {tuple(img.shape)}"
+            )
     from tpumcia_torch import _build
 
     dev = img.device
     f32 = torch.float32
-    L = levels
-    out = SuffStats(
-        hist=torch.empty((B, C, L), dtype=f32, device=dev),
-        count=torch.empty((B, C), dtype=f32, device=dev),
-        vmax=torch.empty((B, C), dtype=torch.int32, device=dev),
-        marg_l=torch.empty((B, C, L), dtype=f32, device=dev),
-        marg_r=torch.empty((B, C, L), dtype=f32, device=dev),
-        diff_hist=None,
-        glcm_sumsq=torch.empty((B, C, 4), dtype=torch.int32, device=dev),
-        pair_count=torch.empty((B, C), dtype=f32, device=dev),
-        dstats=torch.empty((B, C, 4), dtype=f32, device=dev),
-    )
+    L, O = levels, len(offsets)
+    hist = torch.empty((B, C, L), dtype=f32, device=dev)
+    count = torch.empty((B, C), dtype=f32, device=dev)
+    vmax = torch.empty((B, C), dtype=torch.int32, device=dev)
+    marg_l = torch.empty((O, B, C, L), dtype=f32, device=dev)
+    marg_r = torch.empty((O, B, C, L), dtype=f32, device=dev)
+    dout = torch.empty((O, B, C, 2 * L - 1 if need_diff else 4), dtype=f32, device=dev)
+    sumsq = torch.empty((O, B, C, 4), dtype=torch.int32, device=dev)
+    pairs = torch.empty((O, B, C), dtype=f32, device=dev)
+    flat_offsets = (ctypes.c_int * (2 * O))(*[int(v) for off in offsets for v in off])
     lut = rescale_lut_device(L, dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         code = lib.tpumcia_glcm_stats(
-            img.data_ptr(), lut.data_ptr(), B * C, H, W, L,
-            int(offset[0]), int(offset[1]), int(cheap_limbs(H * W, L)),
-            out.hist.data_ptr(), out.count.data_ptr(), out.vmax.data_ptr(),
-            out.marg_l.data_ptr(), out.marg_r.data_ptr(),
-            out.dstats.data_ptr(), out.glcm_sumsq.data_ptr(),
-            out.pair_count.data_ptr(),
+            img.data_ptr(), None if mask is None else mask.data_ptr(),
+            1 if mask is None else mask.shape[1], lut.data_ptr(),
+            B, C, H, W, L, flat_offsets, O, int(need_diff),
+            int(cheap_limbs(H * W, L)),
+            hist.data_ptr(), count.data_ptr(), vmax.data_ptr(),
+            marg_l.data_ptr(), marg_r.data_ptr(), dout.data_ptr(),
+            sumsq.data_ptr(), pairs.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(code, "glcm_stats kernel launch")
     if B * C:
         LAUNCHES += 1
-    return out
+        form = kernel_form(masked=mask is not None, need_diff=need_diff, num_offsets=O)
+        LAUNCHES_BY_FORM[form] += 1
+    return tuple(
+        SuffStats(
+            hist=hist, count=count, vmax=vmax, marg_l=marg_l[o], marg_r=marg_r[o],
+            diff_hist=dout[o] if need_diff else None,
+            glcm_sumsq=sumsq[o], pair_count=pairs[o],
+            dstats=None if need_diff else dout[o],
+        )
+        for o in range(O)
+    )
 
 
-def _row_bincount(keys: torch.Tensor, size: int) -> torch.Tensor:
-    """(n, P) int64 keys in [0, size) -> (n, size) int64 counts per row."""
+# --- the plain version -------------------------------------------------------
+
+
+def _row_bincount(keys: torch.Tensor, size: int, keep: torch.Tensor | None = None) -> torch.Tensor:
+    """(n, P) int64 keys in [0, size) -> (n, size) int64 counts per row;
+    with ``keep`` ((n, P) bool), only the kept keys are counted."""
     n = keys.shape[0]
-    base = torch.arange(n, device=keys.device)[:, None] * size
-    return torch.bincount((keys + base).reshape(-1), minlength=n * size).reshape(n, size)
+    if keep is not None:
+        keys, size_in = torch.where(keep, keys, size), size + 1
+    else:
+        size_in = size
+    base = torch.arange(n, device=keys.device)[:, None] * size_in
+    counts = torch.bincount((keys + base).reshape(-1), minlength=n * size_in)
+    return counts.reshape(n, size_in)[:, :size]
 
 
-def sufficient_stats_reference(
-    img: torch.Tensor, *, levels: int, offset: tuple[int, int],
-    need_diff: bool = False,
-) -> SuffStats:
-    """The plain PyTorch version of the kernel: the same outputs from
-    ``torch.bincount`` on flat keys, with an explicit G per (image, channel)
-    built a chunk of images at a time, so that a 2048-image batch stays
-    within a few GB. Used by the CPU tests and, on the card, only to check
-    the kernel."""
+def _prologue(img: torch.Tensor, mask: torch.Tensor | None, L: int):
+    """The offset-independent half: hist, count, vmax (as (B, C) fields),
+    the rescaled levels (n, H, W) and the flat mask (n, H*W) bool or None."""
     B, C, H, W = img.shape
+    n = B * C
+    x = img.reshape(n, H * W).to(torch.int64)
+    in_range = (x >= 0) & (x < L)
+    # a level outside [0, L) is dropped from the histogram and rescales to
+    # 0, as the kernel (and a one-hot) treats it
+    if mask is None:
+        m = None
+        counted = in_range
+        count = torch.full((n,), float(H * W), device=img.device)
+        vmax = x.amax(1)
+    else:
+        m = (mask != 0).expand(B, C, H, W).reshape(n, H * W)
+        counted = in_range & m
+        count = counted.sum(1).to(torch.float32)
+        vmax = torch.where(m, x, -1).amax(1)
+    hist = _row_bincount(x.clamp(0, L - 1), L, keep=counted)
+    row = rescale_lut_device(L, img.device).to(torch.int64)[vmax.clamp(0, L - 1)]
+    resc = torch.where(in_range, torch.gather(row, 1, x.clamp(0, L - 1)), 0)
+    shape = (B, C)
+    return (
+        hist.to(torch.float32).reshape(*shape, L), count.reshape(shape),
+        vmax.to(torch.int32).reshape(shape), resc.reshape(n, H, W), m,
+    )
+
+
+def _offset_stats(resc, m, offset, *, shape, levels, need_diff, hist, count, vmax):
+    """One offset's marginals, limbs, pair count and difference fields."""
+    n, H, W = resc.shape
     L = levels
     r0, r1, c0, c1 = _window(H, W, offset)
     dr, dc = offset
-    dev = img.device
-    n = B * C
-    x = img.reshape(n, H * W).to(torch.int64)
-    valid = (x >= 0) & (x < L)
-    xc = x.clamp(0, L - 1)
-
-    # a level outside [0, L) is dropped from the histograms and rescales
-    # to 0, as the kernel (and a one-hot) treats it
-    hist = _row_bincount(torch.where(valid, x, L), L + 1)[:, :L]
-    vmax = x.amax(1)
-    row = rescale_lut_device(L, dev).to(torch.int64)[vmax.clamp(0, L - 1)]
-    resc = torch.where(valid, torch.gather(row, 1, xc), 0).reshape(n, H, W)
+    dev = resc.device
     left = resc[:, r0:r1, c0:c1].reshape(n, -1)
     right = resc[:, r0 + dr:r1 + dr, c0 + dc:c1 + dc].reshape(n, -1)
-    marg_l = _row_bincount(left, L)
-    marg_r = _row_bincount(right, L)
-    dh = _row_bincount(left - right + (L - 1), 2 * L - 1)
+    if m is None:
+        keep = None
+        pair_count = torch.full(shape, float((r1 - r0) * (c1 - c0)), device=dev)
+    else:
+        mm = m.reshape(n, H, W)
+        keep = (mm[:, r0:r1, c0:c1] & mm[:, r0 + dr:r1 + dr, c0 + dc:c1 + dc]).reshape(n, -1)
+        pair_count = keep.sum(1).to(torch.float32).reshape(shape)
+    marg_l = _row_bincount(left, L, keep)
+    marg_r = _row_bincount(right, L, keep)
+    dh = _row_bincount(left - right + (L - 1), 2 * L - 1, keep)
 
     cheap = cheap_limbs(H * W, L)
     step = max(1, _G_CELLS_PER_CHUNK // (L * L))
     sumsq = torch.cat([
-        glcm_sumsq_limbs(_row_bincount(left[s:s + step] * L + right[s:s + step], L * L), cheap)
+        glcm_sumsq_limbs(_row_bincount(
+            left[s:s + step] * L + right[s:s + step], L * L,
+            None if keep is None else keep[s:s + step],
+        ), cheap)
         for s in range(0, n, step)
     ]) if n else torch.zeros((0, 4), dtype=torch.int32, device=dev)
 
     f32 = torch.float32
-    shape = (B, C)
     if need_diff:
         diff_hist, dstats = dh.to(f32).reshape(*shape, -1), None
     else:
         diff_hist, dstats = None, dstats_from_diff_hist(dh, cheap).reshape(*shape, 4)
     return SuffStats(
-        hist=hist.to(f32).reshape(*shape, L),
-        count=torch.full(shape, float(H * W), dtype=f32, device=dev),
-        vmax=vmax.to(torch.int32).reshape(shape),
+        hist=hist, count=count, vmax=vmax,
         marg_l=marg_l.to(f32).reshape(*shape, L),
         marg_r=marg_r.to(f32).reshape(*shape, L),
         diff_hist=diff_hist,
         glcm_sumsq=sumsq.reshape(*shape, 4),
-        pair_count=torch.full(shape, float((r1 - r0) * (c1 - c0)), dtype=f32, device=dev),
+        pair_count=pair_count,
         dstats=dstats,
+    )
+
+
+def sufficient_stats_reference(
+    img: torch.Tensor, mask: torch.Tensor | None = None, *, levels: int,
+    offset: tuple[int, int], need_diff: bool = False,
+) -> SuffStats:
+    """The plain PyTorch version of the kernel: the same outputs from
+    ``torch.bincount`` on flat keys (masked-out pixels and pairs are not
+    counted), with an explicit G per (image, channel) built a chunk of
+    images at a time, so that a 2048-image batch stays within a few GB. Used
+    by the CPU tests and, on the card, only to check the kernel."""
+    return sufficient_stats_multi_reference(
+        img, mask, levels=levels, offsets=[offset], need_diff=need_diff
+    )[0]
+
+
+def sufficient_stats_multi_reference(
+    img: torch.Tensor, mask: torch.Tensor | None = None, *, levels: int,
+    offsets, need_diff: bool = False,
+) -> tuple[SuffStats, ...]:
+    """The plain version of :func:`sufficient_stats_multi`: the
+    offset-independent prologue once, then each offset in turn; every
+    offset's :class:`SuffStats` shares ``hist``, ``count`` and ``vmax``."""
+    B, C = img.shape[:2]
+    hist, count, vmax, resc, m = _prologue(img, mask, levels)
+    return tuple(
+        _offset_stats(
+            resc, m, tuple(off), shape=(B, C), levels=levels, need_diff=need_diff,
+            hist=hist, count=count, vmax=vmax,
+        )
+        for off in offsets
     )
 
 

@@ -1,17 +1,33 @@
-"""Batched feature extraction on the fused fast path:
-(N, H, W[, C]) images -> (N, 23*C) features (counterpart of
+"""Batched feature extraction: (N, H, W, C) level images (optionally
+masked) -> (N, 23*C) features (the counterpart of
 ``tpumcia.features.extract``).
 
-Each fixed-size batch runs noise synthesis (optional), the GLCM statistics
-kernel, the u32 wire reduction and the f32 device feature block back to
-back on the device; the wires are then copied to the host and assembled in
-float64. Only the hybrid single-offset maskless path is ported; the exact
-and device backends, multi-offset GLCM, masks and morphology raise with the
-ROADMAP item that will bring them.
+:func:`extract_features` runs every single-device form of tpumcia's entry:
+
+- ``precision='hybrid'``, one offset: statistics -> u32 wire on the device,
+  one copy to the host, float64 assembly (:func:`_batch_fused_dispatch`);
+- ``'hybrid'`` with a GLCM offset list: the multi-offset kernel form and the
+  multi-offset wire back to back on the device, one copy to the host;
+- ``'exact'`` (difference histograms, float64 on the host, < 1e-9 against
+  the notebook) and ``'device'`` (float32 on the device), one offset at a
+  time or an offset list in one pass, and intensity-only or GLCM-only
+  configs.
+
+:func:`extract_features_pending` is the fused fast path of ``run_pipeline``:
+fixed-size batches, each running (noise synthesis), the statistics kernel,
+the wire and the f32 device feature block back to back, with the wires
+copied to the host at the end. :func:`extract_features_batched` takes it
+when the config allows and runs :func:`extract_features` per batch
+otherwise.
+
+Sizes past the CUDA kernel (H*W >= 65536 or more than 256 levels, ROADMAP
+B1d), morphology (A9) and a device mesh (A14) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
 from dataclasses import dataclass, field
 from typing import Any
@@ -23,14 +39,21 @@ from tpumcia_torch.config import FeatureConfig
 from tpumcia_torch.features import registry
 
 
+def _to_host(a):
+    """A tensor (any device) or array-like -> numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 @dataclass
 class FeatureMatrix:
     """Feature values plus column metadata."""
 
-    values: Any  # (B, F) float64 np.ndarray
+    values: Any  # (B, F) float64 np.ndarray, or a f32 tensor (precision='device')
     names: list[str]
     num_channels: int
-    degenerate: Any = None  # (B, C) bool flags
+    degenerate: Any = None  # (B, C) bool flags, numpy
     config: FeatureConfig = field(default_factory=FeatureConfig)
     channel_names: list[str] | None = None
     # the NaN-cleaned f32 copy of the matrix that stays on the device for
@@ -44,9 +67,67 @@ class FeatureMatrix:
     def __len__(self):
         return self.values.shape[0]
 
+    def column(self, name: str):
+        return self.values[:, self.names.index(name)]
+
     def channel_columns(self) -> list[list[int]]:
-        """Per-channel column groups from the positional block layout."""
-        return registry.columns_by_channel_positional(self.num_channels)
+        """Per-channel column groups from the positional block layout (one
+        GLCM block per offset of the config)."""
+        labels = self.config.glcm.pair_labels
+        return registry.columns_by_channel_positional(
+            self.num_channels,
+            include_intensity=self.config.include_intensity,
+            include_glcm=self.config.include_glcm,
+            num_glcm_blocks=len(labels) if labels else 1,
+            include_morphology=self.config.include_morphology,
+        )
+
+    def to_numpy(self) -> np.ndarray:
+        return _to_host(self.values)
+
+    def to_pandas(self):
+        import pandas as pd
+
+        return pd.DataFrame(self.to_numpy(), columns=self.names)
+
+    def save(self, path) -> None:
+        """Persist to .npz: values, names, flags, the config (so that a
+        loaded multi-offset matrix groups its columns right) and channel
+        names."""
+        payload = dict(
+            values=self.to_numpy(),
+            names=np.array(self.names),
+            num_channels=self.num_channels,
+            degenerate=(
+                _to_host(self.degenerate) if self.degenerate is not None
+                else np.zeros((len(self), self.num_channels), bool)
+            ),
+            config_json=np.asarray(json.dumps(dataclasses.asdict(self.config))),
+        )
+        if self.channel_names is not None:
+            payload["channel_names"] = np.array(self.channel_names)
+        np.savez_compressed(path, **payload)
+
+    @classmethod
+    def load(cls, path) -> "FeatureMatrix":
+        from tpumcia_torch.config import build_config
+
+        with np.load(path, allow_pickle=False) as z:
+            cfg = (
+                build_config(FeatureConfig, json.loads(str(z["config_json"])))
+                if "config_json" in z else FeatureConfig()
+            )
+            return cls(
+                values=z["values"],
+                names=[str(n) for n in z["names"]],
+                num_channels=int(z["num_channels"]),
+                degenerate=z["degenerate"],
+                config=cfg,
+                channel_names=(
+                    [str(c) for c in z["channel_names"]]
+                    if "channel_names" in z else None
+                ),
+            )
 
 
 # the one statement of the eligibility rules for error messages — edit it
@@ -57,8 +138,9 @@ FAST_PATH_REQS = (
 )
 
 
-def hybrid_wire_ok(cfg: FeatureConfig, images_shape=None) -> bool:
-    """The u32-wire eligibility: hybrid precision, one GLCM offset,
+def hybrid_wire_ok(cfg: FeatureConfig, images_shape=None, *, multi_offset: bool = False) -> bool:
+    """The u32-wire eligibility: hybrid precision, one GLCM offset (any
+    number with ``multi_offset=True``, the multi-offset wire),
     intensity+GLCM, <= 256 levels and (when the shape is known) < 2^16
     pixels per channel, the wire's exact-integer bounds."""
     offsets = cfg.glcm.offsets if cfg.include_glcm else [cfg.glcm.offset]
@@ -67,7 +149,7 @@ def hybrid_wire_ok(cfg: FeatureConfig, images_shape=None) -> bool:
         and cfg.glcm.levels <= 256
         and cfg.include_intensity
         and cfg.include_glcm
-        and len(offsets) == 1
+        and (multi_offset or len(offsets) == 1)
         and (images_shape is None or images_shape[1] * images_shape[2] < 65536)
     )
 
@@ -89,12 +171,29 @@ def check_use_pallas(cfg: FeatureConfig, device: torch.device) -> None:
         )
 
 
+def _to_device(images, device: torch.device) -> torch.Tensor:
+    """Level images -> a tensor on ``device``; uint8 crosses as is, other
+    host integer types as int32."""
+    if isinstance(images, torch.Tensor):
+        return images.to(device)
+    host = images if images.dtype == np.uint8 else images.astype(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(host)).to(device)
+
+
+def _chw_levels(imgs: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) levels -> the kernel's contiguous (B, C, H, W) int32."""
+    from tpumcia_torch.preprocess.normalize import as_int32
+
+    return as_int32(imgs.permute(0, 3, 1, 2)).contiguous()
+
+
 def _batch_fused_dispatch(
-    imgs: torch.Tensor, generator, *, levels, offset, keep_device,
+    imgs: torch.Tensor, mask, generator, *, levels, offset, keep_device,
     synth_noise=0, synth_var=0.01, timer=None,
 ):
     """One batch on the device: (optional noise synth) -> sufficient
-    statistics -> u32 wire (+ optionally the NaN-cleaned f32 feature block,
+    statistics (masked when ``mask``, the (B, 1 or C, H, W) uint8 plane, is
+    given) -> u32 wire (+ optionally the NaN-cleaned f32 feature block,
     which never leaves the device)."""
     from tpumcia_torch.features import cuda_glcm
     from tpumcia_torch.features.finalize import _finalize
@@ -105,10 +204,10 @@ def _batch_fused_dispatch(
 
         img = noise_channels_chw(imgs, generator, num_noise=synth_noise, var=synth_var)
     else:
-        img = imgs.permute(0, 3, 1, 2).to(torch.int32).contiguous()
+        img = _chw_levels(imgs)
     if timer is not None:
         timer.stamp("synth")
-    st = cuda_glcm.sufficient_stats(img, levels=levels, offset=offset)
+    st = cuda_glcm.sufficient_stats(img, mask, levels=levels, offset=offset)
     if timer is not None:
         timer.stamp("stats_kernel")
     wire = _device_reduce_wire(st)
@@ -116,6 +215,147 @@ def _batch_fused_dispatch(
     if timer is not None:
         timer.stamp("wire_features")
     return wire, feats
+
+
+def _prepare(images, mask, cfg: FeatureConfig, device: torch.device):
+    """The entry checks every extraction shares -> (validated images,
+    images on ``device``, mask plane on ``device`` or None)."""
+    from tpumcia_torch.features.cuda_glcm import check_kernel_size
+    from tpumcia_torch.features.stats import prepare_mask
+
+    check_use_pallas(cfg, device)
+    images = _as_level_array(images, cfg.glcm.levels)
+    if images.ndim != 4:
+        raise ValueError(f"expected (B, H, W, C) images; got shape {tuple(images.shape)}")
+    check_kernel_size(images.shape[1], images.shape[2], cfg.glcm.levels)
+    m = prepare_mask(mask, images.shape, device) if mask is not None else None
+    return images, _to_device(images, device), m
+
+
+def extract_features(
+    images,
+    mask=None,
+    *,
+    device,
+    config: FeatureConfig | None = None,
+    channel_names: list[str] | None = None,
+    mesh=None,
+) -> FeatureMatrix:
+    """Extract the 23-per-channel feature set from a batch of level images
+    on ``device`` (a CUDA device for the kernel; a CPU device runs its
+    plain version).
+
+    ``images``: (B, H, W, C) integer levels in [0, glcm.levels) (16-bit
+    data goes through ``preprocess.quantize_to_levels`` first). ``mask``:
+    optional (B, H, W, C) or (B, H, W) mask, nonzero selects a pixel (numpy,
+    a sequence or a tensor). ``config.precision``: ``'hybrid'`` (float64
+    values from the exact u32 wire, ~1e-7 relative on its float words),
+    ``'exact'`` (difference histograms, float64 on the host) or
+    ``'device'`` (float32 values as a tensor on ``device``).
+    """
+    cfg = config or FeatureConfig()
+    if mesh is not None:
+        raise NotImplementedError(
+            "extraction over a device mesh is not ported yet (ROADMAP A14); "
+            "tpumcia_torch runs on the one device it is given"
+        )
+    if cfg.include_morphology:
+        raise NotImplementedError(
+            "morphology features are not ported to tpumcia_torch yet (ROADMAP A9)"
+        )
+    if not (cfg.include_intensity or cfg.include_glcm):
+        raise ValueError("at least one feature family must be enabled")
+    backends = {"exact": "host", "hybrid": "hybrid", "device": "device"}
+    if cfg.precision not in backends:
+        raise ValueError(f"unknown precision {cfg.precision!r}; one of {sorted(backends)}")
+    backend = backends[cfg.precision]
+    device = torch.device(device)
+    images, imgs, m = _prepare(images, mask, cfg, device)
+    # only the host backend reads the difference histogram: every other
+    # size that tpumcia sends there (>= 2^16 pixels, > 256 levels) raised
+    # B1d above
+    need_dh = backend == "host"
+    levels = cfg.glcm.levels
+    offsets = [tuple(o) for o in (cfg.glcm.offsets if cfg.include_glcm else [cfg.glcm.offset])]
+
+    from tpumcia_torch.features import cuda_glcm
+    from tpumcia_torch.features.finalize import finalize_features
+    from tpumcia_torch.features.hybrid import assemble_reduced
+
+    value_blocks, degenerate = [], None
+
+    def add_block(values, flags):
+        nonlocal degenerate
+        value_blocks.append(values)
+        flags = _to_host(flags)
+        degenerate = flags if degenerate is None else degenerate | flags
+
+    if backend == "hybrid" and hybrid_wire_ok(cfg):
+        from tpumcia_torch.features.hybrid import unpack_wire
+
+        wire, _ = _batch_fused_dispatch(
+            imgs, m, None, levels=levels, offset=offsets[0], keep_device=False,
+        )
+        done = assemble_reduced(unpack_wire(_to_host(wire).view(np.uint32)), levels=levels)
+        add_block(done.values, done.degenerate)
+    elif len(offsets) > 1:
+        all_stats = cuda_glcm.sufficient_stats_multi(
+            _chw_levels(imgs), m, levels=levels, offsets=offsets, need_diff=need_dh,
+        )
+        if backend == "hybrid" and hybrid_wire_ok(cfg, images.shape, multi_offset=True):
+            # the whole offset list in one wire and one copy to the host
+            from tpumcia_torch.features.hybrid import (
+                _device_reduce_wire_multi,
+                unpack_wire_multi,
+            )
+
+            wire = _to_host(_device_reduce_wire_multi(all_stats)).view(np.uint32)
+            for i, r in enumerate(unpack_wire_multi(wire, len(all_stats))):
+                done = assemble_reduced(
+                    r, levels=levels, include_intensity=cfg.include_intensity and i == 0,
+                    include_glcm=True,
+                )
+                add_block(done.values, done.degenerate)
+        else:
+            for i, stats in enumerate(all_stats):
+                done = finalize_features(
+                    stats, include_intensity=cfg.include_intensity and i == 0,
+                    include_glcm=True, backend=backend,
+                )
+                add_block(done.values, done.degenerate)
+    else:
+        # one offset (or intensity only): one statistics pass
+        stats = cuda_glcm.sufficient_stats(
+            _chw_levels(imgs), m, levels=levels, offset=offsets[0], need_diff=need_dh,
+        )
+        done = finalize_features(
+            stats, include_intensity=cfg.include_intensity,
+            include_glcm=cfg.include_glcm, backend=backend,
+        )
+        add_block(done.values, done.degenerate)
+
+    num_channels = images.shape[-1]
+    names = registry.feature_names(
+        num_channels,
+        include_intensity=cfg.include_intensity,
+        include_glcm=cfg.include_glcm,
+        channel_names=channel_names,
+        glcm_pair_labels=cfg.glcm.pair_labels,
+    )
+    if len(value_blocks) == 1:
+        values = value_blocks[0]
+    elif isinstance(value_blocks[0], torch.Tensor):
+        values = torch.cat(value_blocks, dim=1)
+    else:
+        values = np.concatenate(value_blocks, axis=1)
+    return FeatureMatrix(
+        values=values,
+        names=names,
+        num_channels=num_channels,
+        degenerate=degenerate,
+        config=cfg,
+        channel_names=list(channel_names) if channel_names else None,
+    )
 
 
 @dataclass
@@ -175,21 +415,18 @@ def extract_features_pending(
     """Run the batched hybrid extraction on ``device`` and return before the
     wires are copied to the host.
 
-    ``images``: (N, H, W, C) levels, or (N, H, W) grayscale with
-    ``synth_noise > 0`` noise channels synthesized per batch (batch ``i``
-    draws from ``synth.synth_batch_seed(synth_seed, i)``). The last batch is
-    padded by wrapping around to the first images, so every batch has one
-    shape; the pad rows are dropped from the result.
+    ``images``: (N, H, W, C) levels with an optional (N, H, W[, C]) mask,
+    or (N, H, W) grayscale with ``synth_noise > 0`` noise channels
+    synthesized per batch (batch ``i`` draws from
+    ``synth.synth_batch_seed(synth_seed, i)``; no mask). The last batch is
+    padded by wrapping around to the first images (and their mask rows), so
+    every batch has one shape; the pad rows are dropped from the result.
     """
+    from tpumcia_torch.features.stats import prepare_mask
     from tpumcia_torch.preprocess.synth import synth_batch_seed
 
     device = torch.device(device)
     cfg = config or FeatureConfig()
-    if mask is not None:
-        raise NotImplementedError(
-            "masks are not ported to tpumcia_torch yet (ROADMAP A11, masked "
-            "kernel B1b)"
-        )
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1; got {batch_size}")
     check_use_pallas(cfg, device)
@@ -197,21 +434,26 @@ def extract_features_pending(
     n = len(images)
     if synth_noise and images.ndim != 3:
         raise ValueError("synth_noise expects (N, H, W) grayscale input")
+    if synth_noise and mask is not None:
+        raise ValueError("synth_noise does not compose with masks")
     if not synth_noise and images.ndim != 4:
         raise ValueError(f"expected (N, H, W, C) images; got shape {tuple(images.shape)}")
     if not batched_fast_path_ok(images.shape, cfg):
-        raise NotImplementedError(
-            "tpumcia_torch runs only the hybrid fast path "
+        # the pending path IS the hybrid wire pipeline: another config
+        # would come back mislabeled; extract_features(_batched) takes it
+        raise ValueError(
+            "extract_features_pending requires the hybrid fast path "
             f"{FAST_PATH_REQS}; got precision={cfg.precision!r}, "
             f"offsets={cfg.glcm.offsets}, morphology={cfg.include_morphology}, "
-            f"image shape {tuple(images.shape)} (ROADMAP A9)"
+            f"image shape {tuple(images.shape)}"
         )
     num_channels = images.shape[-1] if synth_noise == 0 else 1 + synth_noise
-    if isinstance(images, torch.Tensor):
-        imgs = images.to(device)
-    else:  # uint8 crosses to the device as is; wider types as int32
-        host = images if images.dtype == np.uint8 else images.astype(np.int32)
-        imgs = torch.from_numpy(np.ascontiguousarray(host)).to(device)
+    if timer is not None:
+        timer.start()
+    imgs = _to_device(images, device)
+    m = prepare_mask(mask, images.shape, device) if mask is not None else None
+    if timer is not None:
+        timer.stamp("inputs")
 
     batch_size = min(batch_size, n)
     num_batches = math.ceil(n / batch_size)
@@ -219,23 +461,23 @@ def extract_features_pending(
         slice(i * batch_size, min((i + 1) * batch_size, n))
         for i in range(num_batches)
     ]
-    offsets = cfg.glcm.offsets if cfg.include_glcm else [cfg.glcm.offset]
-    offset = tuple(offsets[0])
+    offset = tuple(cfg.glcm.offset)
 
-    if timer is not None:
-        timer.start()
+    def pad_batch(arr, sl):
+        # wrap-around pad: one batch shape for every launch
+        b = arr[sl]
+        short = batch_size - (sl.stop - sl.start)
+        return torch.cat([b, arr[:short]]) if short else b
+
     wires, feats = [], []
     for i, sl in enumerate(slices):
-        b = imgs[sl]
-        short = batch_size - (sl.stop - sl.start)
-        if short:  # wrap-around pad: one batch shape for every launch
-            b = torch.cat([b, imgs[:short]])
         gen = None
         if synth_noise:
             gen = torch.Generator(device=device)
             gen.manual_seed(synth_batch_seed(synth_seed, i))
         wire, f = _batch_fused_dispatch(
-            b, gen, levels=cfg.glcm.levels, offset=offset,
+            pad_batch(imgs, sl), None if m is None else pad_batch(m, sl), gen,
+            levels=cfg.glcm.levels, offset=offset,
             keep_device=keep_device_values, synth_noise=synth_noise,
             synth_var=synth_var, timer=timer,
         )
@@ -254,6 +496,62 @@ def extract_features_pending(
         config=cfg,
         channel_names=list(channel_names) if channel_names else None,
         device_values=device_values,
+    )
+
+
+def extract_features_batched(
+    images,
+    mask=None,
+    *,
+    device,
+    batch_size: int = 2048,
+    config: FeatureConfig | None = None,
+    channel_names: list[str] | None = None,
+    keep_device_values: bool = False,
+) -> FeatureMatrix:
+    """Large-collection extraction in fixed-size batches: the fused fast
+    path (:func:`extract_features_pending`) when the config is eligible,
+    else :func:`extract_features` per batch, concatenated on the host.
+    ``keep_device_values=True`` also returns the device-resident NaN-cleaned
+    f32 matrix (``FeatureMatrix.device_values``) and requires the fast
+    path."""
+    cfg = config or FeatureConfig()
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1; got {batch_size}")
+    images = _as_level_array(images, cfg.glcm.levels)
+    n = len(images)
+    fast = images.ndim == 4 and batched_fast_path_ok(images.shape, cfg)
+    if keep_device_values and not fast:
+        raise ValueError(
+            f"keep_device_values=True requires the hybrid fast path {FAST_PATH_REQS} "
+            "— the other paths have no device-resident feature copy; got "
+            f"precision={cfg.precision!r}, offsets={cfg.glcm.offsets}, "
+            f"morphology={cfg.include_morphology}, image shape {tuple(images.shape)}"
+        )
+    if n <= batch_size and not (fast and keep_device_values):
+        return extract_features(
+            images, mask, device=device, config=cfg, channel_names=channel_names
+        )
+    if fast:
+        return extract_features_pending(
+            images, mask, device=device, batch_size=batch_size, config=cfg,
+            channel_names=channel_names, keep_device_values=keep_device_values,
+        ).result()
+    fms = [
+        extract_features(
+            images[i:i + batch_size],
+            None if mask is None else mask[i:i + batch_size],
+            device=device, config=cfg, channel_names=channel_names,
+        )
+        for i in range(0, n, batch_size)
+    ]
+    return FeatureMatrix(
+        values=np.concatenate([f.to_numpy() for f in fms]),
+        names=fms[0].names,
+        num_channels=fms[0].num_channels,
+        degenerate=np.concatenate([f.degenerate for f in fms]),
+        config=cfg,
+        channel_names=fms[0].channel_names,
     )
 
 

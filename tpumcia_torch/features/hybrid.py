@@ -21,6 +21,13 @@ Wire layout (B, C, 20), as in tpumcia:
   w13-15: s_i s_j dissim_raw
   w16-18: s_i2 s_j2 s_d2                (exact u32)
   w19   : sum(G^2)                      (exact u32)
+
+The multi-offset wire (B, C, 12 + 9*O) ships the intensity words once and
+9 GLCM words per offset, so a whole offset list is one copy to the host:
+  shared w0-2 : as w0, (vmax+1) | count_overflow<<31, total_raw
+  shared w3-7 : percentile pairs      shared w8-11: m2 m3 m4 entropy
+  offset +0-4 : npairs, homog_sum (f32 bits), s_i, s_j, dissim_raw
+  offset +5-8 : s_i2 s_j2 s_d2 sum(G^2)   (exact u32)
 """
 
 from __future__ import annotations
@@ -97,9 +104,9 @@ def _glcm_reduce(stats: SuffStats) -> dict:
     one offset's marginals and difference reductions (``dstats`` contract)
     that the wire carries besides its u32 quadratic sums."""
     if stats.dstats is None:
-        raise NotImplementedError(
-            "the hybrid reduction of a difference histogram belongs to the "
-            "exact backend, not ported yet (ROADMAP A9)"
+        raise ValueError(
+            "the hybrid reduction takes dstats; statistics with a difference "
+            "histogram (need_diff=True) go to the host backend"
         )
     i64 = torch.int64
     L = stats.marg_l.shape[-1]
@@ -171,7 +178,93 @@ def _device_reduce_wire(stats: SuffStats) -> torch.Tensor:
     return _to_i32_bits(words)
 
 
+MULTI_WIRE_SHARED = 12
+MULTI_WIRE_PER_OFFSET = 9
+
+
+def multi_wire_words(num_offsets: int) -> int:
+    return MULTI_WIRE_SHARED + MULTI_WIRE_PER_OFFSET * num_offsets
+
+
+def _device_reduce_wire_multi(all_stats) -> torch.Tensor:
+    """(B, C, 12 + 9*O) int32 holding the multi-offset u32 wire words for a
+    sequence of per-offset :class:`SuffStats` (``all_stats[0]`` carries the
+    intensity histogram; count and vmax are shared)."""
+    r0 = _device_reduce(all_stats[0])
+    i64 = torch.int64
+    n = r0["n"]
+    w0 = n | (r0["min_lev"] << 16) | (r0["max_lev"] << 24)
+    w1 = ((r0["vmax"] + 1) & 0xFFFF) | ((n >= 65536).to(i64) << 31)
+    pair = r0["idx_lo"] | (r0["idx_hi"] << 8)
+    pair = torch.cat([pair, torch.zeros_like(pair[..., :1])], dim=-1)
+    w_pct = pair[..., 0::2] | (pair[..., 1::2] << 16)  # (B, C, 5)
+    w_float = torch.stack(
+        [_fbits(r0[f]) for f in ("m2", "m3", "m4", "entropy")], dim=-1
+    )
+    words = [torch.stack([w0, w1, r0["total_raw"]], dim=-1), w_pct, w_float]
+    for o, stats in enumerate(all_stats):
+        g = r0 if o == 0 else _glcm_reduce(stats)
+        s_i2, s_j2, s_d2, sumsq = _wire_u32_quads(stats)
+        words.append(torch.stack(
+            [g["npairs"], _fbits(g["homog_sum"]), g["s_i"], g["s_j"],
+             g["dissim_raw"], s_i2, s_j2, s_d2, sumsq],
+            dim=-1,
+        ))
+    return _to_i32_bits(torch.cat(words, dim=-1))
+
+
 # --- host side (numpy copies of tpumcia.features.hybrid) -------------------
+
+
+def unpack_wire_multi(packed: np.ndarray, num_offsets: int) -> list[dict]:
+    """Decode the multi-offset u32 wire into one :func:`assemble_reduced`
+    dict per offset (the first carries the intensity fields; every dict
+    carries n and vmax for the degenerate flags). O(B*C) numpy only."""
+    p = np.ascontiguousarray(np.asarray(packed))
+    if p.dtype != np.uint32 or p.shape[-1] != multi_wire_words(num_offsets):
+        raise ValueError(
+            f"expected (..., {multi_wire_words(num_offsets)}) uint32 words for "
+            f"{num_offsets} offsets; got {p.dtype} {p.shape}"
+        )
+    i64 = np.int64
+    shared = {}
+    w0 = p[..., 0]
+    shared["n"] = (w0 & 0xFFFF).astype(i64)
+    shared["min_lev"] = ((w0 >> 16) & 0xFF).astype(i64)
+    shared["max_lev"] = ((w0 >> 24) & 0xFF).astype(i64)
+    w1 = p[..., 1]
+    shared["vmax"] = (w1 & 0x7FFF).astype(i64) - 1
+    shared["count_overflow"] = (w1 >> 31) != 0
+    shared["total_raw"] = p[..., 2].astype(i64)
+    pct = p[..., 3:8]
+    pairs = np.stack([pct & 0xFFFF, pct >> 16], axis=-1).reshape(
+        *pct.shape[:-1], 10
+    )[..., :9]
+    shared["idx_lo"] = (pairs & 0xFF).astype(i64)
+    shared["idx_hi"] = ((pairs >> 8) & 0xFF).astype(i64)
+    shared["rem"] = (
+        _Q10.astype(i64)[None, None, :] * np.maximum(shared["n"] - 1, 0)[..., None]
+    ) % 1000
+    floats = np.ascontiguousarray(p[..., 8:12]).view(np.float32)
+    for i, f in enumerate(("m2", "m3", "m4", "entropy")):
+        shared[f] = floats[..., i]
+    out = []
+    for o in range(num_offsets):
+        base = MULTI_WIRE_SHARED + MULTI_WIRE_PER_OFFSET * o
+        d = dict(shared)
+        d["npairs"] = p[..., base].astype(i64)
+        d["homog_sum"] = np.ascontiguousarray(
+            p[..., base + 1:base + 2]
+        ).view(np.float32)[..., 0]
+        d["s_i"] = p[..., base + 2].astype(i64)
+        d["s_j"] = p[..., base + 3].astype(i64)
+        d["dissim_raw"] = p[..., base + 4].astype(i64)
+        d["s_i2"] = p[..., base + 5].astype(np.float64)
+        d["s_j2"] = p[..., base + 6].astype(np.float64)
+        d["s_d2"] = p[..., base + 7].astype(np.float64)
+        d["sumsq_value"] = p[..., base + 8].astype(np.float64)
+        out.append(d)
+    return out
 
 
 def unpack_wire(packed: np.ndarray) -> dict:

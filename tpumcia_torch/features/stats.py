@@ -7,7 +7,7 @@ difference reductions ``dstats`` and the exact ``sum(G^2)`` limbs of the
 co-occurrence matrix G. :class:`SuffStats` has the fields and dtypes that
 ``tpumcia.features.pallas_glcm._pallas_stats_core`` returns, so the two
 packages can be compared field by field. The statistics themselves are
-computed in ``cuda_glcm``.
+computed in ``cuda_glcm``; :func:`prepare_mask` lays a mask out for it.
 """
 
 from __future__ import annotations
@@ -64,6 +64,28 @@ def rescale_lut_device(levels: int, device: torch.device) -> torch.Tensor:
     """Cached copy of :func:`rescale_lut` on ``device`` (one upload per
     process, not one per batch)."""
     return torch.from_numpy(rescale_lut(levels)).to(device)
+
+
+def prepare_mask(mask, images_shape, device) -> torch.Tensor:
+    """The counterpart of ``tpumcia.features.stats._prep_inputs``' mask
+    half: a (B, H, W) mask shared by every channel, or a (B, H, W, C) mask
+    (numpy, a nested sequence or a tensor; nonzero selects a pixel) ->
+    a contiguous (B, C_m, H, W) uint8 plane on ``device`` with ``C_m`` 1 for
+    a shared mask (never copied C-fold) and C otherwise. ``images_shape``
+    is the (B, H, W, C) shape of the images it masks."""
+    m = mask if isinstance(mask, torch.Tensor) else np.asarray(mask)
+    mshape, ishape = tuple(m.shape), tuple(images_shape)
+    if mshape not in (ishape, ishape[:3]):
+        raise ValueError(
+            f"mask shape {mshape} must equal the images' {ishape} or "
+            f"per-object {ishape[:3]}"
+        )
+    if isinstance(m, torch.Tensor):
+        m = (m != 0).to(torch.uint8).to(device)
+    else:
+        m = torch.from_numpy((m != 0).astype(np.uint8)).to(device)
+    m = m.unsqueeze(1) if m.dim() == 3 else m.permute(0, 3, 1, 2)
+    return m.contiguous()
 
 
 def cheap_limbs(hw: int, levels: int) -> bool:

@@ -4,11 +4,12 @@
     (synthesize noise channels) -> extract features -> split -> scale ->
     fit head -> classification report -> feature + channel importance
 
-Only the fused fast path is ported: per-batch extraction with a
-device-resident f32 feature block, then the logistic fit and both
+Only the fused fast path is ported: per-batch extraction (masked or not)
+with a device-resident f32 feature block, then the logistic fit and both
 permutation sweeps on that block. A configuration the fast path does not
-take raises ``NotImplementedError`` naming the ROADMAP item that will port
-it; nothing falls back to another path or to the CPU.
+take (tpumcia sends it to its classic pipeline) raises
+``NotImplementedError`` naming the ROADMAP item that will port it; nothing
+falls back to another path or to the CPU.
 """
 
 from __future__ import annotations
@@ -55,12 +56,10 @@ class PipelineResult:
         return "\n".join(lines)
 
 
-def _fast_path_block(cfg: PipelineConfig, images, mask) -> str | None:
+def _fast_path_block(cfg: PipelineConfig, images) -> str | None:
     """None when the fused fast path takes this run (tpumcia's
     ``_fast_path_ok`` without the mesh branch); else what the run needs that
     is not ported, with the ROADMAP item that ports it."""
-    if mask is not None:
-        return "masks (ROADMAP A11, masked kernel B1b)"
     if cfg.fast_path == "never":
         return "the classic unfused pipeline, fast_path='never' (ROADMAP A10)"
     if cfg.head.kind != "logistic":
@@ -73,11 +72,13 @@ def _fast_path_block(cfg: PipelineConfig, images, mask) -> str | None:
         return f"channel_method={cfg.importance.channel_method!r} (ROADMAP A10)"
     if not batched_fast_path_ok(images.shape, cfg.features):
         return (
-            f"feature config precision={cfg.features.precision!r}, "
+            "the classic unfused pipeline that tpumcia runs for feature config "
+            f"precision={cfg.features.precision!r}, "
             f"offsets={cfg.features.glcm.offsets}, "
             f"morphology={cfg.features.include_morphology}, levels="
             f"{cfg.features.glcm.levels}, image shape {tuple(images.shape)} "
-            "(exact/multi-offset/morphology backends, ROADMAP A9)"
+            "(ROADMAP A10; morphology A9; extract_features takes the other "
+            "feature configs)"
         )
     if cfg.fast_path != "always" and len(images) <= 4096:
         return (
@@ -88,7 +89,7 @@ def _fast_path_block(cfg: PipelineConfig, images, mask) -> str | None:
 
 
 def _run_pipeline_fast(
-    images, labels, *, cfg, channel_names, groups, device, timer
+    images, labels, *, mask, cfg, channel_names, groups, device, timer
 ) -> PipelineResult:
     from tpumcia_torch.features import registry
     from tpumcia_torch.features.extract import extract_features_pending
@@ -97,7 +98,7 @@ def _run_pipeline_fast(
     timings: dict[str, float] = {}
     t0 = time.perf_counter()
     pending = extract_features_pending(
-        images,
+        images, mask,
         device=device, batch_size=cfg.batch_size, config=cfg.features,
         channel_names=channel_names, keep_device_values=True,
         synth_noise=cfg.synth.noise_channels, synth_var=cfg.synth.var,
@@ -163,10 +164,13 @@ def run_pipeline(
 
     With ``config.synth.noise_channels > 0``, ``images`` is a (B, H, W)
     grayscale batch and the noise channels are synthesized on the device;
-    otherwise it is (B, H, W, C). ``groups``: per-object group ids for a
-    grouped split. ``timer``: an optional ``utils.profiling.StageTimer``
-    that splits the run into synth, stats kernel, wire + f32 features,
-    head + sweeps and device-to-host + assembly.
+    otherwise it is (B, H, W, C). ``mask``: optional (B, H, W) mask shared
+    by every channel or (B, H, W, C), nonzero selects a pixel (numpy or a
+    tensor, e.g. already on the device; not with noise channels).
+    ``groups``: per-object group ids for a grouped split. ``timer``: an
+    optional ``utils.profiling.StageTimer`` that splits the run into inputs
+    (host-to-device copies and the mask layout), synth, stats kernel, wire +
+    f32 features, head + sweeps and device-to-host + assembly.
     """
     cfg = coerce_config(config)
     device = torch.device(device)
@@ -218,12 +222,12 @@ def run_pipeline(
             f"groups length {len(np.asarray(groups))} does not match the "
             f"{n_objects} images"
         )
-    blocked = _fast_path_block(cfg, images_arr, mask)
+    blocked = _fast_path_block(cfg, images_arr)
     if blocked is not None:
         raise NotImplementedError(
             f"tpumcia_torch runs only the fused fast path; this run needs {blocked}"
         )
     return _run_pipeline_fast(
-        images_arr, labels, cfg=cfg, channel_names=channel_names,
+        images_arr, labels, mask=mask, cfg=cfg, channel_names=channel_names,
         groups=groups, device=device, timer=timer,
     )
