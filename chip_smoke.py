@@ -7,10 +7,10 @@ Phases (any failure exits nonzero, and no result line is printed):
      power limit (nvidia-smi) and the torch / CUDA versions;
   2. build: compiles the CUDA kernels from the sources in this checkout;
   3. kernel vs plain: each form of the GLCM statistics kernel (B1a
-     maskless, B1b masked, B1c difference histogram, B2 several offsets)
-     against its plain PyTorch version at the main paths' shapes and at edge
-     cases (integer fields bit-equal, dstats[3] to rel 1e-6), and both
-     versions' median times;
+     maskless, B1b masked, B1c difference histogram, B2 several offsets, B1d
+     at 65536 pixels or more than 256 levels) against its plain PyTorch
+     version at the main paths' shapes and at edge cases (integer fields
+     bit-equal, dstats[3] to rel 1e-6), and both versions' median times;
   4. the slice: ``run_pipeline`` over 12,000 synthetic 64x64 images with 2
      synthesized noise channels, a 300-step logistic head and permutation
      importance, as bench.py drives the JAX package. It checks the launch
@@ -24,7 +24,16 @@ Phases (any failure exits nonzero, and no result line is printed):
   6. extract_features: the exact, masked hybrid and 4-offset hybrid forms
      of the public extraction on the card, against each other and against
      the same calls on the CPU;
-  7. prints the kernels' JSON line and, last, the device JSON line.
+  7. the classic slice at 1024 levels (B1d): the cytometry objects of phase
+     5 quantized to 1024 levels on the card, ``run_pipeline`` with
+     fast_path='auto', which routes them to the classic path (packed f32
+     wire, logistic head, both permutation views); checks launches, donors,
+     accuracy, the signal channel and a card-vs-CPU feature check, times it;
+  8. the classic slice on 256x256 fields (B1d): 1,200 synthetic 256x256
+     images with 2 noise channels synthesized on the card, the host f64
+     backend that hybrid becomes at 65536 pixels, logistic head; then an
+     MLP head, ablation and coefficient importance on its feature matrix;
+  9. prints the kernels' JSON line and, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -47,6 +56,8 @@ OFFSET = (0, 5)
 DSTATS3_RTOL = 1e-6  # f32 homogeneity sum: the kernel and plain version sum in another order
 FEATURE_ATOL = 1e-5  # f32 moment/entropy/homogeneity words summed in another order
 CYTO_N, CYTO_HW, CYTO_CH, CYTO_SIGNAL = 16_384, 48, 12, 4
+CLASSIC_LEVELS = 1024  # phase 7: 16-bit data at 4x finer levels than 256
+FIELD_PER_CLASS, FIELD_HW = 200, 256  # phase 8: 1,200 256x256 fields
 FOUR_OFFSETS = ((0, 5), (4, 4), (5, 0), (4, -4))  # distance 5 at 0, 45, 90, 135 degrees
 SOURCE = "tpumcia_torch/csrc/glcm_stats.cu"
 # each kernel form and the TPU kernel it replaces
@@ -55,6 +66,8 @@ FORMS = {
     "B1b": ("glcm_stats masked", "tpumcia/features/pallas_glcm.py:400"),
     "B1c": ("glcm_stats need_diff", "tpumcia/features/pallas_glcm.py:400"),
     "B2": ("glcm_stats multi-offset", "tpumcia/features/pallas_glcm.py:878"),
+    "B1d": ("glcm_stats_large (u32 G in bands; also replaces :878 at these sizes)",
+            "tpumcia/features/pallas_glcm.py:400"),
 }
 
 
@@ -69,10 +82,10 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _cuda_events_ms(fn, reps):
+def _cuda_events_ms(fn, reps, warm):
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -116,11 +129,13 @@ def _stats_error(got, want) -> float:
 
 def _timed_pair(run_kernel, run_plain):
     """Median ms of the kernel and of the plain version, in turns plain,
-    kernel, kernel, plain; the better of each pair."""
-    p1 = _cuda_events_ms(run_plain, max(3, KERNEL_REPS // 4))
-    k1 = _cuda_events_ms(run_kernel, KERNEL_REPS)
-    k2 = _cuda_events_ms(run_kernel, KERNEL_REPS)
-    p2 = _cuda_events_ms(run_plain, max(3, KERNEL_REPS // 4))
+    kernel, kernel, plain. The plain version is warmed up once (eager
+    PyTorch: the first run fills the allocator's cache; its slowest case
+    takes 1.5 s), the kernel three times."""
+    p1 = _cuda_events_ms(run_plain, max(3, KERNEL_REPS // 4), 1)
+    k1 = _cuda_events_ms(run_kernel, KERNEL_REPS, 3)
+    k2 = _cuda_events_ms(run_kernel, KERNEL_REPS, 3)
+    p2 = _cuda_events_ms(run_plain, max(3, KERNEL_REPS // 4), 1)
     return (k1, k2), (p1, p2)
 
 
@@ -152,6 +167,18 @@ def cytometry_objects(n, hw=CYTO_HW, channels=CYTO_CH, signal_ch=CYTO_SIGNAL, se
     return img, cell, labels, donors
 
 
+def field_batch(device):
+    """Phase 8's data: 1,200 synthetic 256x256 grayscale fields, their
+    labels, and the (N, H, W, 3) uint8 batch on ``device`` with the 2 noise
+    channels synthesized as run_pipeline's classic path synthesizes them
+    (seed 0, batch BATCH), which is what its one B1d launch is given."""
+    from tpumcia_torch.io.synthetic import synthetic_mednist
+    from tpumcia_torch.preprocess.synth import add_noise_channels_batched
+
+    gray, labels, _ = synthetic_mednist(FIELD_PER_CLASS, num_classes=6, hw=FIELD_HW, seed=0)
+    return gray, labels, add_noise_channels_batched(gray, seed=0, batch_size=BATCH, device=device)
+
+
 def phase_kernel(device):
     """Every kernel form vs its plain version on the card; returns the
     forms' records (without launches)."""
@@ -164,11 +191,11 @@ def phase_kernel(device):
     rng = np.random.default_rng(0)
     errs = {form: 0.0 for form in FORMS}
 
-    def case(shape, offsets, fill=None, mask=None, need_diff=False, x=None):
+    def case(shape, offsets, fill=None, mask=None, need_diff=False, x=None, levels=LEVELS):
         """``mask``: None or a channels-last numpy mask, laid out with
         prepare_mask as the entry points do."""
         if x is None:
-            x = rng.integers(0, LEVELS, size=shape, dtype=np.int32)
+            x = rng.integers(0, levels, size=shape, dtype=np.int32)
         if fill is not None:
             for (b, c), v in fill.items():
                 x[b, c] = v
@@ -176,18 +203,19 @@ def phase_kernel(device):
         B, C, H, W = t.shape
         m = None if mask is None else prepare_mask(mask, (B, H, W, C), device)
         if len(offsets) == 1:
-            got = [cuda_glcm.sufficient_stats(t, m, levels=LEVELS, offset=offsets[0], need_diff=need_diff)]
-            want = [cuda_glcm.sufficient_stats_reference(t, m, levels=LEVELS, offset=offsets[0], need_diff=need_diff)]
+            got = [cuda_glcm.sufficient_stats(t, m, levels=levels, offset=offsets[0], need_diff=need_diff)]
+            want = [cuda_glcm.sufficient_stats_reference(t, m, levels=levels, offset=offsets[0], need_diff=need_diff)]
         else:
-            got = cuda_glcm.sufficient_stats_multi(t, m, levels=LEVELS, offsets=offsets, need_diff=need_diff)
-            want = cuda_glcm.sufficient_stats_multi_reference(t, m, levels=LEVELS, offsets=offsets, need_diff=need_diff)
+            got = cuda_glcm.sufficient_stats_multi(t, m, levels=levels, offsets=offsets, need_diff=need_diff)
+            want = cuda_glcm.sufficient_stats_multi_reference(t, m, levels=levels, offsets=offsets, need_diff=need_diff)
         _sync(device)
         err = max(_stats_error(g, w) for g, w in zip(got, want))
-        form = cuda_glcm.kernel_form(masked=m is not None, need_diff=need_diff, num_offsets=len(offsets))
+        form = cuda_glcm.kernel_form(hw=H * W, levels=levels, masked=m is not None,
+                                     need_diff=need_diff, num_offsets=len(offsets))
         errs[form] = max(errs[form], err)
-        log(f"  {form} kernel == plain  shape={tuple(t.shape)} offsets={list(offsets)} "
+        log(f"  {form} kernel == plain  shape={tuple(t.shape)} levels={levels} offsets={list(offsets)} "
             f"mask={'none' if mask is None else tuple(np.shape(mask))} max_abs_err={err!r}")
-        return t, m
+        return t, m, form
 
     # B1a edge cases: all-zero and constant channels, every offset sign, odd
     # and non-square sizes, and 72x72 (past the cheap-limb gate)
@@ -218,26 +246,30 @@ def phase_kernel(device):
 
     records = {}
 
-    def bench(form, shape, offsets, mask=None, need_diff=False):
-        t, m = case(shape, offsets, mask=mask, need_diff=need_diff)
+    def bench(form, shape, offsets, mask=None, need_diff=False, x=None, levels=LEVELS):
+        t, m, ran = case(shape, offsets, mask=mask, need_diff=need_diff, x=x, levels=levels)
+        if ran != form:
+            raise AssertionError(f"{tuple(t.shape)} at {levels} levels runs form {ran}, not {form}")
         if len(offsets) == 1:
             def run_kernel():
-                cuda_glcm.sufficient_stats(t, m, levels=LEVELS, offset=offsets[0], need_diff=need_diff)
+                cuda_glcm.sufficient_stats(t, m, levels=levels, offset=offsets[0], need_diff=need_diff)
 
             def run_plain():
-                cuda_glcm.sufficient_stats_reference(t, m, levels=LEVELS, offset=offsets[0], need_diff=need_diff)
+                cuda_glcm.sufficient_stats_reference(t, m, levels=levels, offset=offsets[0], need_diff=need_diff)
         else:
             def run_kernel():
-                cuda_glcm.sufficient_stats_multi(t, m, levels=LEVELS, offsets=offsets, need_diff=need_diff)
+                cuda_glcm.sufficient_stats_multi(t, m, levels=levels, offsets=offsets, need_diff=need_diff)
 
             def run_plain():
-                cuda_glcm.sufficient_stats_multi_reference(t, m, levels=LEVELS, offsets=offsets, need_diff=need_diff)
+                cuda_glcm.sufficient_stats_multi_reference(t, m, levels=levels, offsets=offsets, need_diff=need_diff)
         (k1, k2), (p1, p2) = _timed_pair(run_kernel, run_plain)
-        log(f"  {form} at {shape} offsets={list(offsets)} mask={mask is not None} need_diff={need_diff}: "
-            f"kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms (median of runs, CUDA events)")
+        log(f"  {form} at {tuple(t.shape)} levels={levels} offsets={list(offsets)} mask={mask is not None} "
+            f"need_diff={need_diff}: kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms "
+            "(median of runs, CUDA events)")
         rec = records.setdefault(form, {"name": FORMS[form][0], "route": "cuda", "source": SOURCE,
                                         "replaces": FORMS[form][1], "shapes": []})
-        at = "x".join(map(str, shape)) + f" offsets {list(offsets)}" + (" masked" if mask is not None else "")
+        at = ("x".join(map(str, t.shape)) + f" L{levels} offsets {list(offsets)}"
+              + (" masked" if mask is not None else ""))
         rec["shapes"].append({"at": at, "ms": min(k1, k2), "plain_ms": min(p1, p2)})
         rec.setdefault("ms", min(k1, k2))
         rec.setdefault("plain_ms", min(p1, p2))
@@ -250,6 +282,33 @@ def phase_kernel(device):
     bench("B1c", BENCH_SHAPE, [OFFSET], need_diff=True)
     bench("B1c", BENCH_SHAPE, [OFFSET], mask=mask80, need_diff=True)
     bench("B2", BENCH_SHAPE, list(FOUR_OFFSETS))
+
+    # B1d: the two main-path batches first (one of phase 7's 1024-level
+    # cytometry batches; phase 8's whole batch, its 1,200 fields with the
+    # noise channels synthesized as run_pipeline synthesizes them), then
+    # random levels at 64x3x256x256 and the edge cases: a constant 300x300
+    # channel whose one G cell holds 89,700 pairs (past u16), a size that is
+    # not square, 3 offsets of both signs at 512 levels, 4096 levels, and a
+    # per-channel mask at 256x256; and 257x255, 65,535 pixels, the largest
+    # size the small kernel (B1c here) takes
+    cyto_raw, cyto_cell, _, _ = cytometry_objects(BENCH_SHAPE[0], seed=2)
+    cyto_lv = (cyto_raw.astype(np.int32) >> 6).transpose(0, 3, 1, 2)  # 1024 levels
+    bench("B1d", cyto_lv.shape, [OFFSET], mask=cyto_cell, x=np.ascontiguousarray(cyto_lv),
+          need_diff=True, levels=CLASSIC_LEVELS)
+    del cyto_raw, cyto_lv
+    fields = field_batch(device)[2].permute(0, 3, 1, 2).to(torch.int32).contiguous()
+    bench("B1d", fields.shape, [OFFSET], x=fields, need_diff=True)
+    del fields
+    bench("B1d", (64, 3, 256, 256), [OFFSET], need_diff=True)
+    const = np.full((2, 1, 300, 300), 200, np.int32)
+    bench("B1d", const.shape, [(0, 1)], x=const, need_diff=True)
+    bench("B1d", (3, 2, 259, 255), [(1, 2)], need_diff=True)
+    case((3, 2, 257, 255), [(1, 2)], need_diff=True, fill={(0, 0): 200})
+    bench("B1d", (8, 2, 64, 64), [(0, 5), (3, -2), (-4, 1)], need_diff=True, levels=512)
+    bench("B1d", (8, 1, 64, 64), [OFFSET], need_diff=True, levels=4096)
+    pc_mask = rng.random((4, 256, 256, 3)) < 0.7
+    pc_mask[0, :, :, 1] = False  # an empty (image, channel)
+    bench("B1d", (4, 3, 256, 256), [OFFSET], mask=pc_mask, need_diff=True)
     for form, rec in records.items():
         rec["max_abs_err"] = errs[form]
     return records
@@ -286,7 +345,6 @@ def phase_slice(device, n_images=N_IMAGES, timed_runs=TIMED_RUNS):
     import torch
 
     import tpumcia_torch as tt
-    from tpumcia_torch.features import cuda_glcm
     from tpumcia_torch.io.synthetic import synthetic_mednist
     from tpumcia_torch.utils.profiling import StageTimer
 
@@ -295,21 +353,12 @@ def phase_slice(device, n_images=N_IMAGES, timed_runs=TIMED_RUNS):
     cfg = _slice_config()
     per_run = -(-len(gray) // min(BATCH, len(gray)))
 
-    tt.run_pipeline(gray, labels, config=cfg, device=device)  # warm-up
-    _sync(device)
-
-    cuda_glcm.reset_launch_counts()
-    times, result = [], None
-    for _ in range(timed_runs):
-        t0 = time.perf_counter()
-        result = tt.run_pipeline(gray, labels, config=cfg, device=device)
+    def run():
+        out = tt.run_pipeline(gray, labels, config=cfg, device=device)
         _sync(device)
-        times.append(time.perf_counter() - t0)
-    launches = cuda_glcm.LAUNCHES_BY_FORM["B1a"]
-    if launches != per_run * timed_runs or cuda_glcm.LAUNCHES != launches:
-        raise AssertionError(
-            f"kernel launched {cuda_glcm.LAUNCHES_BY_FORM}, want B1a only, {per_run} per run"
-        )
+        return out
+
+    launches, times, result = _timed_runs(run, timed_runs, "B1a", per_run)
 
     X = result.features.values
     if X.shape != (len(gray), 69) or not np.isfinite(np.nan_to_num(X)).all():
@@ -370,20 +419,19 @@ def phase_reference(device, n_images=180):
         f"rankings {card.channel_result.ranking.tolist()} / {cpu.channel_result.ranking.tolist()}")
 
 
-def phase_cytometry(device, n=CYTO_N, timed_runs=4):
+def phase_cytometry(device, data, timed_runs=4):
     """BASELINE config 4 through ``run_pipeline``: masked 12-channel uint16
-    objects quantized on the card, donor-grouped split; returns
-    (B1b launches, record)."""
+    objects (``data``: cytometry_objects(CYTO_N) and the seconds it took)
+    quantized on the card, donor-grouped split; returns (B1b launches,
+    record)."""
     import numpy as np
     import torch
 
     import tpumcia_torch as tt
-    from tpumcia_torch.features import cuda_glcm
     from tpumcia_torch.utils.profiling import StageTimer
 
-    t0 = time.perf_counter()
-    raw, mask, labels, donors = cytometry_objects(n)
-    gen_s = time.perf_counter() - t0
+    (raw, mask, labels, donors), gen_s = data
+    n = len(raw)
     t0 = time.perf_counter()
     raw_dev = torch.from_numpy(raw).to(device)
     x = tt.quantize_to_levels(raw_dev, levels=LEVELS, src_levels=65536)
@@ -402,23 +450,12 @@ def phase_cytometry(device, n=CYTO_N, timed_runs=4):
     per_run = -(-n // BATCH)
 
     def run(timer=None):
-        return tt.run_pipeline(x, labels, mask=mask, groups=donors, config=cfg,
-                               device=device, timer=timer)
-
-    run()  # warm-up
-    _sync(device)
-    cuda_glcm.reset_launch_counts()
-    times, result = [], None
-    for _ in range(timed_runs):
-        t0 = time.perf_counter()
-        result = run()
+        out = tt.run_pipeline(x, labels, mask=mask, groups=donors, config=cfg,
+                              device=device, timer=timer)
         _sync(device)
-        times.append(time.perf_counter() - t0)
-    launches = cuda_glcm.LAUNCHES_BY_FORM["B1b"]
-    if launches != per_run * timed_runs or cuda_glcm.LAUNCHES != launches:
-        raise AssertionError(
-            f"kernel launched {cuda_glcm.LAUNCHES_BY_FORM}, want B1b only, {per_run} per run"
-        )
+        return out
+
+    launches, times, result = _timed_runs(run, timed_runs, "B1b", per_run)
 
     X = result.features.values
     F = CYTO_CH * 23
@@ -503,6 +540,181 @@ def phase_extract(device, n=BENCH_SHAPE[0], n_cpu=64):
                       "hybrid_vs_exact": hyb_err, "multi_card_vs_cpu": multi_err}
 
 
+def _timed_runs(run, timed_runs, form, per_run=None):
+    """A warm-up run, then ``timed_runs`` runs with the launch counts set to
+    0 before them. Raises unless ``form`` alone launched, ``per_run`` times
+    per run when given (else at least once). Returns (its launches, seconds
+    per run, the last result)."""
+    from tpumcia_torch.features import cuda_glcm
+
+    run()
+    cuda_glcm.reset_launch_counts()
+    times, result = [], None
+    for _ in range(timed_runs):
+        t0 = time.perf_counter()
+        result = run()
+        times.append(time.perf_counter() - t0)
+    launches = cuda_glcm.LAUNCHES_BY_FORM[form]
+    want = None if per_run is None else per_run * timed_runs
+    if cuda_glcm.LAUNCHES != launches or launches == 0 or want not in (None, launches):
+        raise AssertionError(f"kernel launched {cuda_glcm.LAUNCHES_BY_FORM}, want {form} only"
+                             + (f", {per_run} per run" if per_run else ""))
+    return launches, times, result
+
+
+def phase_classic_levels(device, data, timed_runs=3, n_cpu=64):
+    """The classic slice at 1024 levels: phase 5's objects quantized to
+    CLASSIC_LEVELS on the card, ``run_pipeline`` with fast_path='auto'
+    (tpumcia's classic path for > 256 levels: the packed f32 wire, a
+    logistic head, both permutation views). Returns (B1d launches, record)."""
+    import numpy as np
+    import torch
+
+    import tpumcia_torch as tt
+    from tpumcia_torch.pipeline.run import _fast_path_ok
+    from tpumcia_torch.utils.profiling import StageTimer
+
+    (raw, mask, labels, donors), _ = data
+    n = len(raw)
+    t0 = time.perf_counter()
+    x = tt.quantize_to_levels(torch.from_numpy(raw).to(device), levels=CLASSIC_LEVELS, src_levels=65536)
+    _sync(device)
+    quant_s = time.perf_counter() - t0
+    if not np.array_equal(x[:n_cpu].cpu().numpy(), (raw[:n_cpu] >> 6).astype(np.int32)):
+        raise AssertionError("quantize_to_levels(1024) on the card differs from v >> 6")
+    feats = tt.FeatureConfig(glcm=tt.GLCMConfig(levels=CLASSIC_LEVELS))
+    cfg = tt.PipelineConfig(
+        features=feats,
+        head=tt.HeadConfig(kind="logistic", num_steps=300),
+        split=tt.SplitConfig(test_size=0.25, seed=0, group_by="donor"),
+        fast_path="auto",
+        batch_size=BATCH,
+    )
+    if _fast_path_ok(cfg, x, mask):
+        raise AssertionError("1024 levels should route to the classic path")
+
+    def run(timer=None):
+        out = tt.run_pipeline(x, labels, mask=mask, groups=donors, config=cfg, device=device, timer=timer)
+        _sync(device)
+        return out
+
+    per_run = -(-n // BATCH) if n > 4096 else 1  # run_pipeline batches above 4096 objects
+    launches, times, result = _timed_runs(run, timed_runs, "B1d", per_run)
+    X = result.features.values
+    F = CYTO_CH * 23
+    if X.shape != (n, F) or not np.isfinite(np.nan_to_num(X)).all():
+        raise AssertionError(f"feature matrix {X.shape} is not finite ({n}, {F})")
+    train_donors = {str(d) for d in donors[result.train_idx]}
+    test_donors = {str(d) for d in donors[result.test_idx]}
+    if train_donors & test_donors or not test_donors:
+        raise AssertionError(f"donor split leaks: train {train_donors}, test {test_donors}")
+    total = np.asarray(result.channel_result.total)
+    if int(np.argmax(total)) != CYTO_SIGNAL or not total[CYTO_SIGNAL] > 0:
+        raise AssertionError(f"signal channel {CYTO_SIGNAL} not first: {total.tolist()}")
+    if result.test_accuracy < 0.95:
+        raise AssertionError(f"test accuracy {result.test_accuracy} < 0.95")
+    cpu = tt.extract_features(x[:n_cpu].cpu(), mask[:n_cpu], device="cpu", config=feats)
+    diff = float(np.nanmax(np.abs(X[:n_cpu] - cpu.values)))
+    if not (np.array_equal(np.isnan(X[:n_cpu]), np.isnan(cpu.values)) and diff <= FEATURE_ATOL):
+        raise AssertionError(f"card vs CPU features differ by {diff}")
+
+    timer = StageTimer(device)
+    run(timer)
+    med = statistics.median(times)
+    log(f"  {n} objects at {CLASSIC_LEVELS} levels (quantized on the card in {quant_s!r} s)")
+    log(f"  runs (s): {times!r}")
+    log(f"  median {med!r} s = {n / med!r} objects/s; B1d launches {launches} over {timed_runs} runs")
+    log(f"  test_accuracy {result.test_accuracy!r}; test donors {sorted(test_donors)}; "
+        f"channel totals {total.tolist()!r}")
+    log(f"  card vs CPU on {n_cpu} objects: features max abs diff {diff!r}")
+    log(f"  staged run (synchronised at each stage, s): {json.dumps(timer.totals)}")
+    return launches, {
+        "objects_per_s": n / med, "median_s": med, "runs_s": times, "b1d_launches": launches,
+        "test_accuracy": result.test_accuracy, "stages_s": timer.totals,
+        "channel_totals": total.tolist(), "card_vs_cpu": diff,
+    }
+
+
+def phase_classic_fields(device, timed_runs=3, n_check=8):
+    """The reference notebook's workflow on 256x256 fields: noise channels
+    synthesized on the card, features (hybrid, which is the f64 host
+    backend at 65536 pixels), a logistic head and permutation importance
+    through ``run_pipeline``; then an MLP head and ablation and coefficient
+    importance on its feature matrix. Returns (B1d launches, record)."""
+    import numpy as np
+
+    import tpumcia_torch as tt
+    from tpumcia_torch.importance.channels import channel_importance
+    from tpumcia_torch.models.heads import fit_head
+    from tpumcia_torch.utils.profiling import StageTimer
+
+    gray, labels, fields = field_batch(device)
+    cfg = tt.PipelineConfig(
+        synth=tt.SynthConfig(noise_channels=2, seed=0),
+        head=tt.HeadConfig(kind="logistic", num_steps=300),
+        split=tt.SplitConfig(test_size=0.25, seed=0, stratify=True),
+        fast_path="auto",
+        batch_size=BATCH,
+    )
+
+    def run(timer=None):
+        out = tt.run_pipeline(gray, labels, config=cfg, device=device, timer=timer)
+        _sync(device)
+        return out
+
+    launches, times, result = _timed_runs(run, timed_runs, "B1d")
+    X = result.features.values
+    if X.shape != (len(gray), 69) or not np.isfinite(np.nan_to_num(X)).all():
+        raise AssertionError(f"feature matrix {X.shape} is not finite (N, 69)")
+    if result.test_accuracy < 0.90:
+        raise AssertionError(f"test accuracy {result.test_accuracy} < 0.90")
+    if not _signal_first(result):
+        raise AssertionError(f"signal channel not ranked first: {result.channel_result.total}")
+
+    # the card against the CPU on the run's own synthesized fields: the
+    # exact backend, the same integers through the same float64 code
+    x8 = fields[:n_check]
+    card = tt.extract_features(x8, device=device)
+    cpu = tt.extract_features(x8.cpu(), device="cpu")
+    if not (np.array_equal(np.isnan(card.values), np.isnan(cpu.values))
+            and np.array_equal(np.nan_to_num(card.values), np.nan_to_num(cpu.values))):
+        raise AssertionError(f"card vs CPU features differ by {np.nanmax(np.abs(card.values - cpu.values))}")
+
+    # the other heads and methods on this phase's feature matrix
+    Xf = np.nan_to_num(X.astype(np.float32))
+    tr, te = result.train_idx, result.test_idx
+    t0 = time.perf_counter()
+    mlp = fit_head(Xf[tr], labels[tr], device=device, config=tt.HeadConfig(kind="mlp", num_steps=300))
+    mlp_fit_s = time.perf_counter() - t0
+    mlp_acc = mlp.score(Xf[te], labels[te])
+    fm_test = tt.FeatureMatrix(values=Xf[te], names=result.features.names, num_channels=3)
+    mlp_perm = channel_importance(mlp, fm_test, labels[te], method="permutation")
+    ablation = channel_importance(result.head, fm_test, labels[te], method="ablation")
+    coef = channel_importance(result.head, fm_test, labels[te], method="coef")
+    if mlp_acc < 0.90 or int(mlp_perm.ranking[0]) != 0:
+        raise AssertionError(f"MLP head: accuracy {mlp_acc}, permutation totals {mlp_perm.total}")
+    if not (np.isfinite(ablation.total).all() and np.isfinite(coef.total).all()):
+        raise AssertionError(f"ablation {ablation.total} / coef {coef.total} not finite")
+
+    timer = StageTimer(device)
+    run(timer)
+    med = statistics.median(times)
+    log(f"  runs (s): {times!r}")
+    log(f"  median {med!r} s = {len(gray) / med!r} fields/s over {len(gray)} {FIELD_HW}x{FIELD_HW} "
+        f"fields; B1d launches {launches} over {timed_runs} runs")
+    log(f"  test_accuracy {result.test_accuracy!r}; channel totals {result.channel_result.total.tolist()!r}")
+    log(f"  card == CPU on {n_check} fields (exact backend)")
+    log(f"  MLP head: fit {mlp_fit_s!r} s, accuracy {mlp_acc!r}, permutation totals {mlp_perm.total.tolist()!r}")
+    log(f"  ablation totals {ablation.total.tolist()!r}; coef totals {coef.total.tolist()!r}")
+    log(f"  staged run (synchronised at each stage, s): {json.dumps(timer.totals)}")
+    return launches, {
+        "fields_per_s": len(gray) / med, "median_s": med, "runs_s": times, "b1d_launches": launches,
+        "test_accuracy": result.test_accuracy, "stages_s": timer.totals,
+        "mlp_accuracy": mlp_acc, "mlp_fit_s": mlp_fit_s,
+        "ablation_totals": ablation.total.tolist(), "coef_totals": coef.total.tolist(),
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -557,7 +769,9 @@ def main() -> int:
     phase_reference(device)
 
     log("== cytometry slice")
-    launches, cyto_rec = phase_cytometry(device)
+    t0 = time.perf_counter()
+    cyto = cytometry_objects(CYTO_N), time.perf_counter() - t0
+    launches, cyto_rec = phase_cytometry(device, cyto)
     kernels["B1b"]["launches"] = launches
 
     log("== extract_features")
@@ -565,10 +779,19 @@ def main() -> int:
     kernels["B1c"]["launches"] = launches["B1c"]
     kernels["B2"]["launches"] = launches["B2"]
 
+    log("== classic slice at 1024 levels (B1d)")
+    levels_launches, classic_1024 = phase_classic_levels(device, cyto)
+    del cyto
+
+    log("== classic slice on 256x256 fields (B1d)")
+    fields_launches, classic_256px = phase_classic_fields(device)
+    kernels["B1d"]["launches"] = levels_launches + fields_launches
+
     print(gpu_line, flush=True)
     print(json.dumps({
         "kernels": [{"form": form, **kernels[form]} for form in FORMS],
         "slice": slice_rec, "cytometry": cyto_rec, "extract_features": extract_rec,
+        "classic_1024": classic_1024, "classic_256px": classic_256px,
     }), flush=True)
     print(json.dumps({
         "ok": True,

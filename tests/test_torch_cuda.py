@@ -1,6 +1,7 @@
 """tpumcia_torch on the GPU: the CUDA kernel in each of its forms (B1a
 maskless, B1b masked, B1c with the difference histogram, B2 several
-offsets) against its plain version, the wrapper's checks, and the slice and
+offsets, B1d at 65536 pixels or more than 256 levels) against its plain
+version, the wrapper's checks, and the slice and
 ``extract_features`` on the card against the same calls on the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The file
@@ -127,6 +128,45 @@ def test_multi_offset_form_matches_plain_on_card(masked, need_diff):
         _assert_stats_equal(g, w)
 
 
+@pytest.mark.parametrize("case", ["u16_overflow", "levels_1024_masked", "multi_offset_256px"])
+def test_large_form_matches_plain_on_card(case):
+    """B1d: a constant 300x300 channel whose one G cell holds 89,700 pairs
+    (past u16), 1024 levels under a shared cell mask, and three offsets of
+    both signs at 256x256 with a per-channel mask, each bit-equal to the
+    plain version."""
+    dev = require_cuda()
+    rng = np.random.default_rng(5)
+    m = None
+    offsets = [(0, 1)]
+    if case == "u16_overflow":
+        levels = 256
+        x = rng.integers(0, levels, size=(2, 2, 300, 300), dtype=np.int32)
+        x[0, 0] = 200
+    elif case == "levels_1024_masked":
+        levels = 1024
+        x = rng.integers(0, levels, size=(16, 3, 48, 48), dtype=np.int32)
+        x[1, 2] = 0  # all-zero channel
+        m = torch.from_numpy(_edge_mask(rng, x.shape, True)).to(dev)
+        offsets = [(0, 5)]
+    else:
+        levels = 512
+        x = rng.integers(0, levels, size=(2, 2, 256, 256), dtype=np.int32)
+        m = torch.from_numpy(_edge_mask(rng, x.shape, False)).to(dev)
+        offsets = [(0, 5), (3, -2), (-4, 1)]
+    t = torch.from_numpy(x).to(dev)
+    before = dict(cuda_glcm.LAUNCHES_BY_FORM)
+    got = cuda_glcm.sufficient_stats_multi(t, m, levels=levels, offsets=offsets, need_diff=True)
+    want = cuda_glcm.sufficient_stats_multi_reference(t, m, levels=levels, offsets=offsets, need_diff=True)
+    torch.cuda.synchronize()
+    assert cuda_glcm.LAUNCHES_BY_FORM["B1d"] == before["B1d"] + 1
+    assert {f: n - before[f] for f, n in cuda_glcm.LAUNCHES_BY_FORM.items()} == {
+        f: int(f == "B1d") for f in before}
+    for g, w in zip(got, want):
+        _assert_stats_equal(g, w)
+    if case == "u16_overflow":
+        assert int(got[0].glcm_sumsq[0, 0, 0]) == (89_700 >> 12) ** 2
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     dev = require_cuda()
     x = torch.zeros((1, 1, 8, 8), dtype=torch.int32, device=dev)
@@ -134,12 +174,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         cuda_glcm.sufficient_stats(x.to(torch.int64), levels=256, offset=(0, 1))
     with pytest.raises(ValueError, match="contiguous"):
         cuda_glcm.sufficient_stats(x.transpose(2, 3), levels=256, offset=(0, 1))
-    with pytest.raises(NotImplementedError, match="B1d"):
+    with pytest.raises(ValueError, match="4096 levels"):
+        cuda_glcm.sufficient_stats(x, levels=8192, offset=(0, 1), need_diff=True)
+    with pytest.raises(ValueError, match="need_diff=False"):
         cuda_glcm.sufficient_stats(x, levels=512, offset=(0, 1))
-    with pytest.raises(NotImplementedError, match="B1d"):
-        cuda_glcm.sufficient_stats(
+    with pytest.raises(ValueError, match="need_diff=False"):
+        cuda_glcm.sufficient_stats_multi(
             torch.zeros((1, 1, 256, 256), dtype=torch.int32, device=dev),
-            levels=256, offset=(0, 1),
+            levels=256, offsets=[(0, 1), (1, 0)],
         )
     with pytest.raises(ValueError, match="mask"):
         cuda_glcm.sufficient_stats(x, torch.ones((1, 1, 8, 8), dtype=torch.bool, device=dev),

@@ -168,9 +168,22 @@ def test_hybrid_wire_ok_rules():
     assert not hybrid_wire_ok(FeatureConfig(include_intensity=False))
 
 
+@pytest.mark.parametrize("levels,shape", [(256, (1, 256, 256, 1)), (512, (1, 8, 8, 1))])
+def test_b1d_sizes_run_on_the_cpu(levels, shape):
+    """256x256 images and 512 levels (kernel form B1d) run on a CPU device
+    through the plain statistics and give tpumcia's features (hybrid: the
+    host backend at 256x256, the packed f32 wire at 512 levels)."""
+    from tpumcia.config import GLCMConfig as JGLCMConfig
+
+    x = np.random.default_rng(8).integers(0, levels, size=shape).astype(np.uint16)
+    want = jax_extract(x, config=JFeatureConfig(glcm=JGLCMConfig(levels=levels)))
+    got = extract_features(x, device="cpu", config=FeatureConfig(glcm=GLCMConfig(levels=levels)))
+    np.testing.assert_array_equal(np.isnan(got.values), np.isnan(want.values))
+    np.testing.assert_allclose(got.values, want.values, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got.degenerate, np.asarray(want.degenerate))
+
+
 @pytest.mark.parametrize("kw,shape,exc,match", [
-    ({}, (1, 256, 256, 1), NotImplementedError, "B1d"),
-    ({"glcm": GLCMConfig(levels=512)}, (1, 8, 8, 1), NotImplementedError, "B1d"),
     ({"include_morphology": True}, (1, 8, 8, 1), NotImplementedError, "A9"),
     ({"include_intensity": False, "include_glcm": False}, (1, 8, 8, 1), ValueError, "family"),
     ({"precision": "fast"}, (1, 8, 8, 1), ValueError, "precision"),

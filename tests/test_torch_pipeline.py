@@ -1,5 +1,7 @@
 """The slice end to end: tpumcia_torch.run_pipeline against
-tpumcia.run_pipeline on the same images, plus the port's entry checks.
+tpumcia.run_pipeline on the same images, on the fused path and on the
+classic path that tpumcia takes for every other configuration, plus the
+port's entry checks.
 
 Both run the fused fast path (``fast_path="always"``, batch 64, so the last
 of three batches is wrap-padded) over 180 numpy-made 3-channel images with
@@ -101,13 +103,42 @@ def test_slice_with_synthesized_noise_channels():
     assert res.test_accuracy >= 0.8
 
 
+@pytest.mark.parametrize("change", [
+    {"features": {"precision": "exact"}},
+    {"features": {"glcm": {"distance": [1, 5]}}},
+    {"head": {"kind": "mlp", "num_steps": 60}},
+    {"importance": {"channel_method": "ablation"}},
+    {"fast_path": "never"},
+    {"fast_path": "auto"},
+])
+def test_classic_configs_match_jax_pipeline(images, change, monkeypatch):
+    """The configurations tpumcia's fast path does not take run its classic
+    path in both packages: the same split and channel ranking, the same
+    features (exact 1e-9, otherwise 1e-5), accuracy within 2/N_test; JAX's
+    head init and sweep permutations are replayed into the port."""
+    from torch_parity import replay_jax_draws
+    from tpumcia.config import PipelineConfig as JPipelineConfig
+    from tpumcia.pipeline.run import run_pipeline as jax_run_pipeline
+
+    x, labels = images
+    cfg = {**_kw(), **change}
+    want = jax_run_pipeline(x, labels, config=JPipelineConfig.from_dict({**cfg, "mesh": {"data": 1}}))
+    replay_jax_draws(monkeypatch)
+    got = run_pipeline(x, labels, config=cfg, device="cpu")
+    a, b = got.features.to_numpy(), np.asarray(want.features.values, np.float64)
+    assert got.features.names == want.features.names
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    atol = 1e-9 if change.get("features", {}).get("precision") == "exact" else 1e-5
+    np.testing.assert_allclose(a, b, rtol=0, atol=atol)
+    np.testing.assert_array_equal(got.test_idx, want.test_idx)
+    assert abs(got.test_accuracy - want.test_accuracy) <= 2.0 / len(got.test_idx) + 1e-9
+    assert got.channel_result.method == want.channel_result.method
+    assert got.channel_result.ranking.tolist() == want.channel_result.ranking.tolist()
+    assert got.feature_result.ranking.tolist() == want.feature_result.ranking.tolist()
+    assert got.channel_result.ranking[0] == 0
+
+
 @pytest.mark.parametrize("change,match", [
-    ({"features": {"precision": "exact"}}, "A10"),
-    ({"features": {"glcm": {"distance": [1, 5]}}}, "A10"),
-    ({"head": {"kind": "mlp"}}, "A10"),
-    ({"importance": {"channel_method": "ablation"}}, "A10"),
-    ({"fast_path": "never"}, "A10"),
-    ({"fast_path": "auto"}, "A10"),
     ({"mesh": {"data": 2}}, "A14"),
 ])
 def test_unported_configs_raise_named_errors(images, change, match):

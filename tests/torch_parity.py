@@ -44,6 +44,49 @@ def jax_init_weights(seed: int, num_features: int, num_classes: int) -> np.ndarr
     )
 
 
+def jax_mlp_init(seed: int, dims) -> dict:
+    """tpumcia's MLP head init (heads.py:311-322) as numpy: one key per
+    layer from ``split(key(seed), len(dims) - 1)``, He-normal weights
+    ``normal(k, (d_in, d_out)) * sqrt(2 / d_in)``, zero biases, in the
+    ``{"hidden": (...), "out": ...}`` layout."""
+    import jax
+    import jax.numpy as jnp
+
+    keys = jax.random.split(jax.random.key(seed), len(dims) - 1)
+    layers = [
+        {"w": np.array(jax.random.normal(k, (d_in, d_out), jnp.float32) * jnp.sqrt(2.0 / d_in)),
+         "b": np.zeros((d_out,), np.float32)}
+        for k, d_in, d_out in zip(keys, dims[:-1], dims[1:])
+    ]
+    return {"hidden": tuple(layers[:-1]), "out": layers[-1]}
+
+
+def replay_jax_draws(monkeypatch):
+    """Hand the port tpumcia's own draws: the logistic and MLP heads' init
+    and the permutation sweeps' rows, on every path that draws them."""
+    from tpumcia_torch.importance import permutation
+    from tpumcia_torch.models import fused, heads
+
+    def weights(f, k, *, seed, device):
+        return torch.from_numpy(jax_init_weights(seed, f, k)).to(device)
+
+    def mlp(dims, *, seed, device):
+        def layer(l):
+            return {"w": torch.from_numpy(l["w"]).to(device), "b": torch.from_numpy(l["b"]).to(device)}
+
+        p = jax_mlp_init(seed, list(dims))
+        return {"hidden": tuple(layer(l) for l in p["hidden"]), "out": layer(p["out"])}
+
+    def perms(num_draws, n, *, seed, device):
+        return torch.from_numpy(jax_permutations(seed, num_draws, n)).long().to(device)
+
+    for mod in (fused, heads):
+        monkeypatch.setattr(mod, "init_weights", weights)
+    monkeypatch.setattr(heads, "init_mlp_params", mlp)
+    for mod in (fused, permutation):
+        monkeypatch.setattr(mod, "draw_permutations", perms)
+
+
 def cytometry_objects(n: int, hw: int = 48, channels: int = 12, signal_ch: int = 4, seed: int = 0):
     """Imaging-flow-cytometry-like objects (BASELINE config 4), shaped like
     examples/cytometry_h5.py and scaled to ``hw``: uint16 (n, hw, hw,

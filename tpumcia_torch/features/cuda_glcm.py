@@ -2,7 +2,7 @@
 PyTorch version.
 
 The kernel (``tpumcia_torch/csrc/glcm_stats.cu``) replaces the TPU kernels
-of ``tpumcia/features/pallas_glcm.py`` in the four forms the single-device
+of ``tpumcia/features/pallas_glcm.py`` in the five forms the single-device
 extraction runs, each counted on its own in :data:`LAUNCHES_BY_FORM`:
 
 - ``B1a``: ``_kernel`` maskless, ``need_diff=False`` (the fused fast path);
@@ -10,25 +10,29 @@ extraction runs, each counted on its own in :data:`LAUNCHES_BY_FORM`:
 - ``B1c``: ``_kernel`` with ``need_diff=True`` (the difference histogram of
   ``precision='exact'``), masked or not, one offset;
 - ``B2``: ``_kernel_multi``, several offsets in one pass (masked or not,
-  either ``need_diff``).
+  either ``need_diff``);
+- ``B1d``: either of them at H*W >= 65536 or more than 256 levels, whatever
+  the mask or offset count; always with the difference histogram.
 
 One thread block reduces one (image, channel): shared-memory atomic
 histograms for the raw levels, the two marginals and the difference
-histogram, and the co-occurrence matrix G as a 128 KB table of u16 counts
-from which the exact ``sum(G^2)`` limbs are read; several offsets reuse the
-one histogram pass and, in turn, the one table. On an H100 what bounds it is
-the 16 KB of int32 pixels each (image, channel) reads (once, then once per
-offset), the shared-memory atomics, and the zeroing and scan of G per
-offset, whose 128 KB also hold each SM to one resident block; the source
-says more.
+histogram, and the co-occurrence matrix G from which the exact ``sum(G^2)``
+limbs are read; several offsets reuse the one histogram pass. Below the B1d
+sizes G is a 128 KB table of u16 counts. On an H100 what bounds that form
+is the 16 KB of int32 pixels each (image, channel) reads (once, then once
+per offset), the shared-memory atomics, and the zeroing and scan of G per
+offset, whose 128 KB also hold each SM to one resident block. At the B1d
+sizes G is u32 and built in bands over the occupied levels, each band
+re-walking the pixel pairs; the source says more.
 
 :func:`sufficient_stats` and :func:`sufficient_stats_multi` take the kernel
 for a CUDA tensor and the plain version only for a CPU tensor; anything
-else raises. Sizes the kernel cannot take (H*W >= 65536, where G's u16 cells
-could overflow, or more than 256 levels, where G outgrows shared memory)
-raise a ``NotImplementedError`` naming ROADMAP B1d. :data:`LAUNCHES` counts
-kernel launches over all forms, so a run can show that it went through the
-kernel.
+else raises. The plain version takes every size; the kernel takes up to
+:data:`MAX_KERNEL_LEVELS` levels and :data:`MAX_KERNEL_PIXELS` pixels and
+raises a ``ValueError`` stating the bound past them. At the B1d sizes both
+refuse ``need_diff=False``: the ``dstats`` sums are not exact in f32 there.
+:data:`LAUNCHES` counts kernel launches over all forms, so a run can show
+that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -47,10 +51,13 @@ from tpumcia_torch.features.stats import (
 # kernel launches by sufficient_stats*, over all forms and per form; reset
 # both with reset_launch_counts() before a run to count its launches
 LAUNCHES = 0
-LAUNCHES_BY_FORM = {"B1a": 0, "B1b": 0, "B1c": 0, "B2": 0}
+LAUNCHES_BY_FORM = {"B1a": 0, "B1b": 0, "B1c": 0, "B2": 0, "B1d": 0}
 
-MAX_KERNEL_LEVELS = 256  # G as L*L u16 counts must fit in shared memory
-MAX_KERNEL_PIXELS = 65535  # H*W; each G cell counts < 2^16 pairs
+# the B1d kernel's bounds: its 7L-1 int tables and one band row of L u32
+# cells must fit in the 227 KB of shared memory a block may hold, and every
+# count must stay exact in f32
+MAX_KERNEL_LEVELS = 4096
+MAX_KERNEL_PIXELS = (1 << 24) - 1  # H*W
 MAX_OFFSETS = 16  # the kernel's fixed-size offset argument
 # co-occurrence cells the plain version counts at once: 512 images' G at
 # 256 levels, 256 MB of int64
@@ -64,8 +71,16 @@ def reset_launch_counts() -> None:
         LAUNCHES_BY_FORM[form] = 0
 
 
-def kernel_form(*, masked: bool, need_diff: bool, num_offsets: int) -> str:
+def is_large(hw: int, levels: int) -> bool:
+    """True at the B1d sizes: H*W >= 65536 (a u16 G cell could overflow)
+    or more than 256 levels."""
+    return hw >= 65536 or levels > 256
+
+
+def kernel_form(*, hw: int, levels: int, masked: bool, need_diff: bool, num_offsets: int) -> str:
     """The name of the kernel form a call runs (see the module doc)."""
+    if is_large(hw, levels):
+        return "B1d"
     if num_offsets > 1:
         return "B2"
     if need_diff:
@@ -73,15 +88,12 @@ def kernel_form(*, masked: bool, need_diff: bool, num_offsets: int) -> str:
     return "B1b" if masked else "B1a"
 
 
-def check_kernel_size(H: int, W: int, levels: int) -> None:
-    """Raise the named ``NotImplementedError`` for sizes past the kernel
-    (ROADMAP B1d)."""
-    if H * W > MAX_KERNEL_PIXELS or levels > MAX_KERNEL_LEVELS:
-        raise NotImplementedError(
-            f"{H}x{W} images at {levels} levels are past the CUDA GLCM kernel "
-            f"(H*W < 65536 for u16 co-occurrence counts, levels <= "
-            f"{MAX_KERNEL_LEVELS} for shared memory); that form is not ported "
-            "yet (ROADMAP B1d)"
+def _check_need_diff(hw: int, levels: int, need_diff: bool) -> None:
+    if is_large(hw, levels) and not need_diff:
+        raise ValueError(
+            f"need_diff=False at {hw} pixels and {levels} levels: the dstats "
+            "sums are exact in f32 only below 65536 pixels and at <= 256 "
+            "levels; ask for the difference histogram (need_diff=True)"
         )
 
 
@@ -106,6 +118,7 @@ def sufficient_stats(
     the difference histogram (``diff_hist``) instead of ``dstats``. A CUDA
     tensor launches the kernel; a CPU tensor takes
     :func:`sufficient_stats_reference`."""
+    _check_need_diff(img.shape[-2] * img.shape[-1], levels, need_diff)
     if img.device.type == "cpu":
         return sufficient_stats_reference(
             img, mask, levels=levels, offset=offset, need_diff=need_diff
@@ -121,6 +134,7 @@ def sufficient_stats_multi(
     :class:`SuffStats` per offset, all sharing one ``hist``, ``count`` and
     ``vmax`` (as the Pallas multi-offset kernel returns them)."""
     offsets = [tuple(o) for o in offsets]
+    _check_need_diff(img.shape[-2] * img.shape[-1], levels, need_diff)
     if img.device.type == "cpu":
         return sufficient_stats_multi_reference(
             img, mask, levels=levels, offsets=offsets, need_diff=need_diff
@@ -141,7 +155,13 @@ def _launch(img, mask, levels, offsets, need_diff) -> tuple[SuffStats, ...]:
     B, C, H, W = img.shape
     if levels < 1:
         raise ValueError(f"levels must be >= 1; got {levels}")
-    check_kernel_size(H, W, levels)
+    if levels > MAX_KERNEL_LEVELS or H * W > MAX_KERNEL_PIXELS:
+        raise ValueError(
+            f"{H}x{W} images at {levels} levels are past the CUDA GLCM kernel: "
+            f"at most {MAX_KERNEL_LEVELS} levels (its per-level tables and one "
+            f"row of G in 227 KB of shared memory) and {MAX_KERNEL_PIXELS} "
+            "pixels (counts exact in f32)"
+        )
     if not 1 <= len(offsets) <= MAX_OFFSETS:
         raise ValueError(f"the CUDA kernel takes 1..{MAX_OFFSETS} offsets; got {len(offsets)}")
     for off in offsets:
@@ -188,7 +208,8 @@ def _launch(img, mask, levels, offsets, need_diff) -> tuple[SuffStats, ...]:
     _build.check(code, "glcm_stats kernel launch")
     if B * C:
         LAUNCHES += 1
-        form = kernel_form(masked=mask is not None, need_diff=need_diff, num_offsets=O)
+        form = kernel_form(hw=H * W, levels=L, masked=mask is not None,
+                           need_diff=need_diff, num_offsets=O)
         LAUNCHES_BY_FORM[form] += 1
     return tuple(
         SuffStats(

@@ -11,7 +11,11 @@ masked) -> (N, 23*C) features (the counterpart of
 - ``'exact'`` (difference histograms, float64 on the host, < 1e-9 against
   the notebook) and ``'device'`` (float32 on the device), one offset at a
   time or an offset list in one pass, and intensity-only or GLCM-only
-  configs.
+  configs;
+- at H*W >= 65536 or more than 256 levels (kernel form B1d), tpumcia's
+  routing: the statistics carry the difference histogram, ``'hybrid'``
+  becomes the host backend at H*W >= 65536 and takes the packed f32 wire
+  above 256 levels.
 
 :func:`extract_features_pending` is the fused fast path of ``run_pipeline``:
 fixed-size batches, each running (noise synthesis), the statistics kernel,
@@ -20,8 +24,9 @@ copied to the host at the end. :func:`extract_features_batched` takes it
 when the config allows and runs :func:`extract_features` per batch
 otherwise.
 
-Sizes past the CUDA kernel (H*W >= 65536 or more than 256 levels, ROADMAP
-B1d), morphology (A9) and a device mesh (A14) raise ``NotImplementedError``.
+Morphology (ROADMAP A9) and a device mesh (A14) raise
+``NotImplementedError``. On a CUDA device the kernel's bounds (4096 levels,
+2^24 pixels) raise a ``ValueError``; a CPU device takes every size.
 """
 
 from __future__ import annotations
@@ -220,14 +225,12 @@ def _batch_fused_dispatch(
 def _prepare(images, mask, cfg: FeatureConfig, device: torch.device):
     """The entry checks every extraction shares -> (validated images,
     images on ``device``, mask plane on ``device`` or None)."""
-    from tpumcia_torch.features.cuda_glcm import check_kernel_size
     from tpumcia_torch.features.stats import prepare_mask
 
     check_use_pallas(cfg, device)
     images = _as_level_array(images, cfg.glcm.levels)
     if images.ndim != 4:
         raise ValueError(f"expected (B, H, W, C) images; got shape {tuple(images.shape)}")
-    check_kernel_size(images.shape[1], images.shape[2], cfg.glcm.levels)
     m = prepare_mask(mask, images.shape, device) if mask is not None else None
     return images, _to_device(images, device), m
 
@@ -251,8 +254,20 @@ def extract_features(
     a sequence or a tensor). ``config.precision``: ``'hybrid'`` (float64
     values from the exact u32 wire, ~1e-7 relative on its float words),
     ``'exact'`` (difference histograms, float64 on the host) or
-    ``'device'`` (float32 values as a tensor on ``device``).
+    ``'device'`` (float32 values as a tensor on ``device``). As in tpumcia,
+    ``'hybrid'`` runs as ``'exact'`` at H*W >= 65536 and through the
+    packed f32 wire above 256 levels.
     """
+    return _extract_features(
+        images, mask, device=device, config=config, channel_names=channel_names, mesh=mesh,
+    )
+
+
+def _extract_features(images, mask=None, *, device, config, channel_names, mesh=None, timer=None):
+    """:func:`extract_features`; ``timer``, a started
+    ``utils.profiling.StageTimer``, gets the inputs (validation and
+    host-to-device copies), stats kernel (with the wire reduction on the
+    u32-wire branch) and finalize stages (the classic pipeline's split)."""
     cfg = config or FeatureConfig()
     if mesh is not None:
         raise NotImplementedError(
@@ -271,14 +286,23 @@ def extract_features(
     backend = backends[cfg.precision]
     device = torch.device(device)
     images, imgs, m = _prepare(images, mask, cfg, device)
-    # only the host backend reads the difference histogram: every other
-    # size that tpumcia sends there (>= 2^16 pixels, > 256 levels) raised
-    # B1d above
-    need_dh = backend == "host"
+
+    def stamp(stage):
+        if timer is not None:
+            timer.stamp(stage)
+
+    stamp("inputs")
+    from tpumcia_torch.features import cuda_glcm
+
     levels = cfg.glcm.levels
+    hw = images.shape[1] * images.shape[2]
+    if backend == "hybrid" and hw >= 65536:
+        backend = "host"  # the hybrid wires' exact integers need < 2^16 pixels
+    # the dstats sums are exact in f32 only below the B1d sizes; there the
+    # statistics carry the difference histogram
+    need_dh = backend == "host" or cuda_glcm.is_large(hw, levels)
     offsets = [tuple(o) for o in (cfg.glcm.offsets if cfg.include_glcm else [cfg.glcm.offset])]
 
-    from tpumcia_torch.features import cuda_glcm
     from tpumcia_torch.features.finalize import finalize_features
     from tpumcia_torch.features.hybrid import assemble_reduced
 
@@ -296,12 +320,14 @@ def extract_features(
         wire, _ = _batch_fused_dispatch(
             imgs, m, None, levels=levels, offset=offsets[0], keep_device=False,
         )
+        stamp("stats_kernel")
         done = assemble_reduced(unpack_wire(_to_host(wire).view(np.uint32)), levels=levels)
         add_block(done.values, done.degenerate)
     elif len(offsets) > 1:
         all_stats = cuda_glcm.sufficient_stats_multi(
             _chw_levels(imgs), m, levels=levels, offsets=offsets, need_diff=need_dh,
         )
+        stamp("stats_kernel")
         if backend == "hybrid" and hybrid_wire_ok(cfg, images.shape, multi_offset=True):
             # the whole offset list in one wire and one copy to the host
             from tpumcia_torch.features.hybrid import (
@@ -328,12 +354,14 @@ def extract_features(
         stats = cuda_glcm.sufficient_stats(
             _chw_levels(imgs), m, levels=levels, offset=offsets[0], need_diff=need_dh,
         )
+        stamp("stats_kernel")
         done = finalize_features(
             stats, include_intensity=cfg.include_intensity,
             include_glcm=cfg.include_glcm, backend=backend,
         )
         add_block(done.values, done.degenerate)
 
+    stamp("finalize")
     num_channels = images.shape[-1]
     names = registry.feature_names(
         num_channels,
@@ -515,6 +543,19 @@ def extract_features_batched(
     ``keep_device_values=True`` also returns the device-resident NaN-cleaned
     f32 matrix (``FeatureMatrix.device_values``) and requires the fast
     path."""
+    return _extract_features_batched(
+        images, mask, device=device, batch_size=batch_size, config=config,
+        channel_names=channel_names, keep_device_values=keep_device_values,
+    )
+
+
+def _extract_features_batched(
+    images, mask=None, *, device, batch_size, config, channel_names,
+    keep_device_values=False, timer=None,
+) -> FeatureMatrix:
+    """:func:`extract_features_batched`; ``timer``, a started
+    ``StageTimer``, gets the per-batch calls' stages (the fused path
+    restarts it)."""
     cfg = config or FeatureConfig()
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1; got {batch_size}")
@@ -529,19 +570,21 @@ def extract_features_batched(
             f"morphology={cfg.include_morphology}, image shape {tuple(images.shape)}"
         )
     if n <= batch_size and not (fast and keep_device_values):
-        return extract_features(
-            images, mask, device=device, config=cfg, channel_names=channel_names
+        return _extract_features(
+            images, mask, device=device, config=cfg, channel_names=channel_names,
+            timer=timer,
         )
     if fast:
         return extract_features_pending(
             images, mask, device=device, batch_size=batch_size, config=cfg,
             channel_names=channel_names, keep_device_values=keep_device_values,
+            timer=timer,
         ).result()
     fms = [
-        extract_features(
+        _extract_features(
             images[i:i + batch_size],
             None if mask is None else mask[i:i + batch_size],
-            device=device, config=cfg, channel_names=channel_names,
+            device=device, config=cfg, channel_names=channel_names, timer=timer,
         )
         for i in range(0, n, batch_size)
     ]

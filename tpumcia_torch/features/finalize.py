@@ -5,14 +5,13 @@ of ``tpumcia.features.finalize``), by three backends of
 - ``'device'``: float32 torch on the statistics' device (:func:`_finalize`,
   tpumcia's ``_finalize`` with ``xp=jnp, dtype=float32``). This is also the
   device-resident feature block that the head and the permutation sweeps
-  read. It takes the ``dstats`` contract only, which every statistics pass
-  of this package emits unless ``precision='exact'`` asks for the
-  difference histogram.
+  read. It takes the ``dstats`` contract or the difference histogram.
 - ``'host'``: the statistics are copied to the host (narrowed losslessly to
   16 bits) and finalised in numpy float64 (:func:`_host_finalize`, a copy
   of tpumcia's ``_finalize`` with ``xp=np``), from ``dstats`` or from the
   difference histogram: the exact backend (< 1e-9 against the notebook).
-- ``'hybrid'``: the u32 wire of ``hybrid``, assembled in float64.
+- ``'hybrid'``: ``hybrid.finalize_hybrid``, the u32 wire (the packed f32
+  wire above 256 levels) assembled in float64.
 
 Feature order matches ``registry``: 17 intensity features x channel, then 6
 GLCM features x channel. The reference quirks are kept: percentiles at
@@ -110,10 +109,11 @@ def _intensity_block(hist: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _glcm_block(marg_l, marg_r, sumsq, npairs, dstats) -> torch.Tensor:
+def _glcm_block(marg_l, marg_r, diff_hist, sumsq, npairs, dstats) -> torch.Tensor:
     """GLCM sufficient stats -> (B, C, 6) f32 [contrast, dissimilarity,
     homogeneity, ASM, energy, correlation], skimage ``graycoprops``
-    semantics (ipynb:301-306), from the kernel's ``dstats`` reductions."""
+    semantics (ipynb:301-306), from the kernel's ``dstats`` reductions or,
+    when they are None, from the difference histogram."""
     f32 = torch.float32
     L = marg_l.shape[-1]
     i = torch.arange(L, device=marg_l.device).to(f32)
@@ -126,11 +126,21 @@ def _glcm_block(marg_l, marg_r, sumsq, npairs, dstats) -> torch.Tensor:
     Pl = ml / safe_N[..., None]
     Pr = mr / safe_N[..., None]
 
-    ds = dstats.to(f32)
-    s_d2 = 256.0 * ds[..., 0] + ds[..., 1]
-    contrast = s_d2 / safe_N
-    dissimilarity = ds[..., 2] / safe_N
-    homogeneity = ds[..., 3] / safe_N
+    if dstats is not None:
+        ds = dstats.to(f32)
+        s_d2 = 256.0 * ds[..., 0] + ds[..., 1]
+        contrast = s_d2 / safe_N
+        dissimilarity = ds[..., 2] / safe_N
+        homogeneity = ds[..., 3] / safe_N
+    else:
+        d = torch.arange(2 * L - 1, device=marg_l.device).to(f32) - (L - 1)
+        d2 = d * d
+        dh = diff_hist.to(f32)
+        Pd = dh / safe_N[..., None]
+        contrast = (Pd * d2).sum(-1)
+        dissimilarity = (Pd * d.abs()).sum(-1)
+        homogeneity = (Pd / (1.0 + d2)).sum(-1)
+        s_d2 = dh @ d2
     asm = glcm_sumsq_value(sumsq, f32) / (safe_N * safe_N)
     energy = torch.sqrt(asm)
 
@@ -165,15 +175,10 @@ def _finalize(
     if include_intensity:
         blocks.append(_intensity_block(stats.hist, stats.count).reshape(B, -1))
     if include_glcm:
-        if stats.dstats is None:
-            raise ValueError(
-                "the float32 device finalize takes dstats; statistics with a "
-                "difference histogram (need_diff=True) go to backend='host'"
-            )
         blocks.append(
             _glcm_block(
-                stats.marg_l, stats.marg_r, stats.glcm_sumsq, stats.pair_count,
-                stats.dstats,
+                stats.marg_l, stats.marg_r, stats.diff_hist, stats.glcm_sumsq,
+                stats.pair_count, stats.dstats,
             ).reshape(B, -1)
         )
     values = torch.cat(blocks, dim=1)
@@ -355,22 +360,16 @@ def finalize_features(
 ) -> FinalizedFeatures:
     """Reduce :class:`SuffStats` to the (B, 23*C) feature matrix
     (tpumcia's ``finalize_features``). ``'host'``: float64 numpy values and
-    flags; ``'hybrid'``: the u32 wire, assembled in float64 (needs
-    ``dstats``, levels <= 256 and < 2^16 pixels per channel); ``'device'``:
+    flags; ``'hybrid'``: the u32 or packed wire, assembled in float64
+    (needs < 2^16 pixels per channel); ``'device'``:
     a float32 tensor and bool flags on the statistics' device."""
     if backend == "host":
         return _host_finalize(_pack_for_transfer(stats), include_intensity, include_glcm)
     if backend == "hybrid":
-        from tpumcia_torch.features.hybrid import (
-            _device_reduce_wire,
-            assemble_reduced,
-            unpack_wire,
-        )
+        from tpumcia_torch.features.hybrid import finalize_hybrid
 
-        wire = _device_reduce_wire(stats).cpu().numpy().view(np.uint32)
-        return assemble_reduced(
-            unpack_wire(wire), levels=stats.hist.shape[-1],
-            include_intensity=include_intensity, include_glcm=include_glcm,
+        return finalize_hybrid(
+            stats, include_intensity=include_intensity, include_glcm=include_glcm
         )
     if backend == "device":
         return _finalize(stats, include_intensity, include_glcm)

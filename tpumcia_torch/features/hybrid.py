@@ -7,7 +7,10 @@ percentile indices, first moments, and the quadratic sums as exact u32)
 plus five f32 sums (central moments m2..m4 from exact integer deviation
 numerators, entropy, homogeneity). The host decodes the words and assembles
 every feature in float64 from them. Valid for levels <= 256 and per-channel
-pixel counts < 2^16, which ``extract.hybrid_wire_ok`` enforces.
+pixel counts < 2^16, which ``extract.hybrid_wire_ok`` enforces. Above 256
+levels :func:`finalize_hybrid` sends the packed f32 wire instead
+(:func:`_device_reduce_packed`, 61 f32 per (image, channel), wide sums as
+exact 16-bit halves).
 
 Words are built in int64 and sent as int32 bit patterns (the CPU build of
 torch has no uint32 shifts); the host reads them back as uint32.
@@ -101,26 +104,44 @@ def _device_reduce(stats: SuffStats) -> dict:
 
 def _glcm_reduce(stats: SuffStats) -> dict:
     """The GLCM half of :func:`_device_reduce`: the exact integer pieces of
-    one offset's marginals and difference reductions (``dstats`` contract)
-    that the wire carries besides its u32 quadratic sums."""
-    if stats.dstats is None:
-        raise ValueError(
-            "the hybrid reduction takes dstats; statistics with a difference "
-            "histogram (need_diff=True) go to the host backend"
-        )
+    one offset's marginals and difference reductions, from ``dstats``
+    (<= 256 levels) or from the difference histogram."""
     i64 = torch.int64
     L = stats.marg_l.shape[-1]
-    if L > 256:
-        raise ValueError("hybrid reduction with kernel dstats requires levels <= 256")
     k = torch.arange(L, device=stats.marg_l.device)
-    ds = stats.dstats
+    if stats.dstats is not None:
+        if L > 256:
+            # the dstats hi limb is exact in f32 only at <= 256 levels
+            raise ValueError("hybrid reduction with kernel dstats requires levels <= 256")
+        ds = stats.dstats
+        dissim_raw, homog_sum = ds[..., 2].to(i64), ds[..., 3]
+    else:
+        dh = stats.diff_hist
+        d = _signed_diffs(dh)
+        dissim_raw = (dh.to(i64) * d.abs()).sum(-1)
+        homog_sum = (dh.to(torch.float32) / (1.0 + (d * d).to(torch.float32))).sum(-1)
     return dict(
         s_i=(stats.marg_l.to(i64) * k).sum(-1),
         s_j=(stats.marg_r.to(i64) * k).sum(-1),
-        dissim_raw=ds[..., 2].to(i64),
-        homog_sum=ds[..., 3],
+        dissim_raw=dissim_raw,
+        homog_sum=homog_sum,
         npairs=stats.pair_count.to(i64),
     )
+
+
+def _signed_diffs(diff_hist: torch.Tensor) -> torch.Tensor:
+    """The level difference d = i - j of each of the 2L-1 bins, int64."""
+    n = diff_hist.shape[-1]
+    return torch.arange(n, device=diff_hist.device) - (n - 1) // 2
+
+
+def _s_d2(stats: SuffStats) -> torch.Tensor:
+    """sum(G*d^2) in int64: from the dstats limbs or the difference histogram."""
+    if stats.dstats is not None:
+        ds = stats.dstats.to(torch.int64)
+        return (ds[..., 0] << 8) + ds[..., 1]
+    d = _signed_diffs(stats.diff_hist)
+    return (stats.diff_hist.to(torch.int64) * d * d).sum(-1)
 
 
 def _wire_u32_quads(stats: SuffStats):
@@ -132,8 +153,7 @@ def _wire_u32_quads(stats: SuffStats):
     k2 = k * k
     s_i2 = (stats.marg_l.to(i64) * k2).sum(-1) & _U32
     s_j2 = (stats.marg_r.to(i64) * k2).sum(-1) & _U32
-    ds = stats.dstats.to(i64)
-    s_d2 = ((ds[..., 0] << 8) + ds[..., 1]) & _U32
+    s_d2 = _s_d2(stats) & _U32
     limbs = stats.glcm_sumsq.to(i64)  # weights 2^24, 2^13, 2^8, 1
     sumsq = (
         (limbs[..., 0] << 24) + (limbs[..., 1] << 13)
@@ -211,6 +231,66 @@ def _device_reduce_wire_multi(all_stats) -> torch.Tensor:
             dim=-1,
         ))
     return _to_i32_bits(torch.cat(words, dim=-1))
+
+
+def _quad_shift(levels: int) -> int:
+    """Limb shift of the packed wire's quadratic sums: the square's hi part
+    stays <= 2^15 per level, so each limb sum stays below 2^31 for counts
+    < 2^16 (tpumcia's ``_quad_shift``; base 256 up to 256 levels)."""
+    if levels > 32768:
+        raise ValueError("hybrid reduction supports at most 32768 levels")
+    return max(8, 2 * int(levels - 1).bit_length() - 15)
+
+
+# the packed wire's layout (tpumcia's): 10 narrow scalars (f32-exact), 10
+# wide integer sums as exact 16-bit (hi, lo) f32 halves, then the percentile
+# triples and the sum(G^2) limbs
+_NARROW_FIELDS = (
+    "n", "vmax", "min_lev", "max_lev", "m2", "m3", "m4",
+    "entropy", "homog_sum", "npairs",
+)
+_WIDE_FIELDS = (
+    "total_raw", "s_i", "s_j", "dissim_raw",
+    "s_i2_hi", "s_i2_lo", "s_j2_hi", "s_j2_lo", "s_d2_hi", "s_d2_lo",
+)
+_VEC_FIELDS = (("idx_lo", 9), ("idx_hi", 9), ("rem", 9), ("sumsq", 4))
+PACKED_WORDS = len(_NARROW_FIELDS) + 2 * len(_WIDE_FIELDS) + sum(w for _, w in _VEC_FIELDS)
+
+
+def _device_reduce_packed(stats: SuffStats) -> torch.Tensor:
+    """(B, C, 61) f32: the packed wire of tpumcia's ``_device_reduce_packed``
+    for any level count (the u32 wire's 8-bit level fields stop at 256),
+    from statistics with the difference histogram (which every statistics
+    pass above 256 levels carries)."""
+    f32, i64 = torch.float32, torch.int64
+    r = _device_reduce(stats)
+    L = stats.marg_l.shape[-1]
+    S = _quad_shift(L)
+    lo_mask = (1 << S) - 1
+    k = torch.arange(L, device=stats.marg_l.device)
+    i2 = k * k
+    d = _signed_diffs(stats.diff_hist)
+    d2 = d * d
+
+    def limbs(counts, sq):  # sum(counts * sq) as (hi, lo) limb sums
+        c = counts.to(i64)
+        return (c * (sq >> S)).sum(-1), (c * (sq & lo_mask)).sum(-1)
+
+    (s_i2_hi, s_i2_lo), (s_j2_hi, s_j2_lo), (s_d2_hi, s_d2_lo) = (
+        limbs(stats.marg_l, i2), limbs(stats.marg_r, i2), limbs(stats.diff_hist, d2))
+    r.update(
+        s_i2_hi=s_i2_hi, s_i2_lo=s_i2_lo, s_j2_hi=s_j2_hi, s_j2_lo=s_j2_lo,
+        s_d2_hi=s_d2_hi, s_d2_lo=s_d2_lo,
+        rem=(torch.as_tensor(_Q10, device=k.device).to(i64)
+             * (torch.clamp(r["n"], min=1)[..., None] - 1)) % 1000,
+        sumsq=stats.glcm_sumsq,
+    )
+    parts = [r[f].to(f32)[..., None] for f in _NARROW_FIELDS]
+    for f in _WIDE_FIELDS:
+        v = r[f]  # a non-negative integer sum below 2^31
+        parts += [(v >> 16).to(f32)[..., None], (v & 0xFFFF).to(f32)[..., None]]
+    parts += [r[f].to(f32) for f, _ in _VEC_FIELDS]
+    return torch.cat(parts, dim=-1)
 
 
 # --- host side (numpy copies of tpumcia.features.hybrid) -------------------
@@ -307,6 +387,58 @@ def unpack_wire(packed: np.ndarray) -> dict:
     out["s_d2"] = p[..., 18].astype(np.float64)
     out["sumsq_value"] = p[..., 19].astype(np.float64)
     return out
+
+
+def unpack_reduced(packed: np.ndarray, *, levels: int) -> dict:
+    """Decode the packed f32 wire into the dict :func:`assemble_reduced`
+    consumes (tpumcia's ``unpack_reduced``). O(B*C) numpy only."""
+    from tpumcia_torch.features.stats import glcm_sumsq_value
+
+    packed = np.asarray(packed)
+    if packed.shape[-1] != PACKED_WORDS:
+        raise ValueError(f"expected (..., {PACKED_WORDS}) packed words; got {packed.shape}")
+    f64 = np.float64
+    out = {}
+    i = 0
+    for f in _NARROW_FIELDS:
+        out[f] = packed[..., i]
+        i += 1
+    for f in _WIDE_FIELDS:
+        out[f] = packed[..., i].astype(f64) * 65536.0 + packed[..., i + 1].astype(f64)
+        i += 2
+    for f, width in _VEC_FIELDS:
+        out[f] = packed[..., i:i + width]
+        i += width
+    base = float(1 << _quad_shift(levels))
+    for q in ("s_i2", "s_j2", "s_d2"):
+        out[q] = base * out.pop(f"{q}_hi") + out.pop(f"{q}_lo")
+    out["sumsq_value"] = glcm_sumsq_value(out.pop("sumsq"), f64)
+    out["count_overflow"] = out["n"] >= 65536
+    return out
+
+
+def finalize_hybrid(
+    stats: SuffStats, *, include_intensity: bool = True, include_glcm: bool = True
+) -> FinalizedFeatures:
+    """tpumcia's ``finalize_hybrid``: the u32 wire at <= 256 levels, the
+    packed f32 wire above, one copy to the host, f64 assembly. Refuses
+    per-channel pixel counts >= 65536, past the wires' exact bounds."""
+    levels = stats.hist.shape[-1]
+    if levels <= 256:
+        reduced = unpack_wire(_device_reduce_wire(stats).cpu().numpy().view(np.uint32))
+        ok = not np.any(reduced["count_overflow"])
+    else:
+        reduced = unpack_reduced(_device_reduce_packed(stats).cpu().numpy(), levels=levels)
+        ok = float(np.max(reduced["n"], initial=0)) < 65536
+    if not ok:
+        raise ValueError(
+            "hybrid finalize requires per-channel pixel counts < 65536 "
+            "(images this large should use precision='exact')"
+        )
+    return assemble_reduced(
+        reduced, levels=levels, include_intensity=include_intensity,
+        include_glcm=include_glcm,
+    )
 
 
 def assemble_reduced(

@@ -1,12 +1,12 @@
-"""Channel-importance aggregation (a numpy copy of the aggregation half of
-``tpumcia.importance.channels``).
+"""Channel-importance aggregation and the high-level
+:func:`channel_importance` (counterpart of ``tpumcia.importance.channels``).
 
 The reference aggregates per-feature importances into channels by *name
 substring* ("Ch1" in name) with a 0.01 floor (ipynb:458-462), which breaks
 at >= 10 channels ("Ch1" matches "Ch10"). The default here groups by the
-parsed channel index; ``match='substring'`` replicates the reference. The
-high-level ``channel_importance`` over every head and method is not ported
-yet (ROADMAP A10).
+parsed channel index; ``match='substring'`` replicates the reference.
+:func:`channel_importance` takes every method but ``'mdi'``, which needs the
+forest head (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from tpumcia_torch.features import registry
 
@@ -123,3 +124,124 @@ def aggregate_channel_importance(
         feature_names=list(names),
         method=method,
     )
+
+
+def channel_importance(
+    head,
+    features,
+    labels=None,
+    *,
+    method: str = "auto",
+    config=None,
+    eval_features=None,
+    eval_labels=None,
+    mesh=None,
+) -> ChannelImportanceResult:
+    """Per-feature importances from the head, aggregated per channel
+    (tpumcia's ``channel_importance``, notebook cells 23-28). ``method``:
+
+    - ``'coef'``: |weight| importances of a logistic head;
+    - ``'permutation'``: each channel's columns permuted jointly, on the
+      evaluation set (``eval_features``/``eval_labels``, else
+      ``features``/``labels``), on the head's device;
+    - ``'permutation_features'``: the reference's per-feature permutation
+      importances, aggregated per channel (ipynb:493-505);
+    - ``'ablation'``: the score drop with a channel's columns set to their
+      mean;
+    - ``'auto'``: ``'permutation'`` (``'mdi'`` for a forest in tpumcia).
+    """
+    from tpumcia_torch.config import ImportanceConfig
+    from tpumcia_torch.features.extract import FeatureMatrix
+    from tpumcia_torch.importance.permutation import permutation_importance
+    from tpumcia_torch.models.heads import LogisticHead
+
+    cfg = config or ImportanceConfig()
+    if mesh is not None:
+        raise NotImplementedError(
+            "channel importance over a device mesh is not ported yet (ROADMAP A14)"
+        )
+    if not isinstance(features, FeatureMatrix):
+        raise TypeError("features must be a FeatureMatrix (need column names)")
+    names = features.names
+    C = features.num_channels
+    if method == "auto":
+        method = "permutation"
+    if method == "mdi":
+        raise NotImplementedError(
+            "method 'mdi' needs the random-forest head, which is not ported "
+            "(ROADMAP A10: its fit is sklearn's, which the GPU machine does not have)"
+        )
+    ch_names = getattr(features, "channel_names", None)
+    # positional groups work whatever the channel names; substring matching
+    # keeps the reference's name-based grouping
+    pos_groups = features.channel_columns() if cfg.channel_match == "exact" else None
+
+    if method == "coef":
+        if not isinstance(head, LogisticHead):
+            raise TypeError("coef requires a LogisticHead")
+        out = aggregate_channel_importance(
+            head.coefficient_importance(), names, C, threshold=cfg.mdi_threshold,
+            match=cfg.channel_match, method="coef", groups=pos_groups,
+        )
+        out.channel_names = ch_names
+        return out
+
+    X = eval_features.values if isinstance(eval_features, FeatureMatrix) else eval_features
+    y = eval_labels
+    if X is None:
+        X, y = features.values, labels
+        if features.device_values is not None:
+            X = features.device_values  # the copy already on the device
+    if y is None:
+        raise ValueError(f"method {method!r} needs labels for scoring")
+    X = X if isinstance(X, torch.Tensor) else np.asarray(X)
+
+    if method == "permutation":
+        groups = features.channel_columns()
+        res = permutation_importance(head, X, y, n_repeats=cfg.n_repeats, seed=cfg.seed, groups=groups)
+        total = res.importances_mean.copy()
+        # a grouped sweep has no per-feature resolution: each channel's mean
+        # drop is broadcast onto its columns
+        feat_imp = np.zeros(len(names))
+        for c, cols in enumerate(groups):
+            feat_imp[cols] = total[c]
+        out = ChannelImportanceResult(
+            per_channel=[res.importances[c] for c in range(C)],
+            mean=total,
+            total=total,
+            ranking=np.argsort(total)[::-1],
+            feature_importances=feat_imp,
+            feature_names=names,
+            method="permutation",
+            channel_names=ch_names,
+        )
+        out.extras["permutation"] = res
+        return out
+
+    if method == "permutation_features":
+        res = permutation_importance(head, X, y, n_repeats=cfg.n_repeats, seed=cfg.seed)
+        out = aggregate_channel_importance(
+            res.importances_mean, names, C, threshold=None, match=cfg.channel_match,
+            method="permutation_features", groups=pos_groups,
+        )
+        out.channel_names = ch_names
+        out.extras["permutation"] = res
+        return out
+
+    if method == "ablation":
+        from tpumcia_torch.importance.ablation import channel_ablation_importance
+
+        host = X.cpu().numpy() if isinstance(X, torch.Tensor) else X
+        drops = channel_ablation_importance(head, host, y, features.channel_columns())
+        return ChannelImportanceResult(
+            per_channel=[np.array([d]) for d in drops],
+            mean=drops,
+            total=drops,
+            ranking=np.argsort(drops)[::-1],
+            feature_importances=np.zeros(len(names)),
+            feature_names=names,
+            method="ablation",
+            channel_names=ch_names,
+        )
+
+    raise ValueError(f"unknown method {method!r}")

@@ -7,10 +7,14 @@ permuted jointly by permutation r)``, scores being mean accuracy. All G*R
 permuted copies are scored in one batched gather + matmul. The
 permutations are an input: :func:`draw_permutations` draws them from a
 seeded ``torch.Generator``, and the tests hand in the JAX package's own.
+:func:`permutation_importance` is the entry for a fitted logistic or MLP
+head; sklearn's host version (``permutation_importance_host``) waits with
+the forest head (ROADMAP A10).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -47,6 +51,10 @@ class PermutationResult:
     importances_std: np.ndarray  # (F,)
     baseline_score: float
 
+    def ranking(self) -> np.ndarray:
+        """Feature indices sorted by mean importance, descending."""
+        return np.argsort(self.importances_mean)[::-1]
+
 
 def check_n_repeats(n_repeats) -> int:
     """n_repeats=0 would mean-reduce an empty axis into all-NaN importances."""
@@ -58,6 +66,30 @@ def check_n_repeats(n_repeats) -> int:
 
 def _scaled_logistic_apply(params, dmin, dscale, X):
     return (X - dmin) * dscale @ params["w"] + params["b"]
+
+
+def _scaled_mlp_apply(params, dmin, dscale, X):
+    from tpumcia_torch.models.heads import mlp_predict_logits
+
+    return mlp_predict_logits(params, (X - dmin) * dscale)
+
+
+def _device_score_parts(head):
+    """(apply_fn, classes) of a fitted head: ``apply_fn(X)`` gives the
+    logits of raw (unscaled) X on the head's device."""
+    from tpumcia_torch.models.heads import LogisticHead, MLPHead
+
+    apply = {LogisticHead: _scaled_logistic_apply, MLPHead: _scaled_mlp_apply}.get(type(head))
+    if apply is None:
+        raise TypeError(
+            f"head {type(head).__name__} has no device scoring path; the forest "
+            "head and sklearn's host sweep are not ported (ROADMAP A10)"
+        )
+    if head.scaler is None:
+        dmin, dscale = torch.zeros((), device=head.device), torch.ones((), device=head.device)
+    else:
+        dmin, dscale = head.scaler.data_min, head.scaler.scale
+    return functools.partial(apply, head.params, dmin, dscale), head.classes
 
 
 def draw_permutations(
@@ -92,3 +124,43 @@ def _perm_sweep(X, y_idx, masks, perms, apply_fn):
         for s in range(0, G * R, step)
     ])
     return baseline, baseline - scores.reshape(G, R)
+
+
+def _run_sweep(head, X, y, masks, *, n_repeats, seed) -> PermutationResult:
+    R = check_n_repeats(n_repeats)
+    apply_fn, classes = _device_score_parts(head)
+    dev = head.device
+    X = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    y_idx = torch.as_tensor(labels_to_class_idx(y, classes), dtype=torch.int64, device=dev)
+    G, N = masks.shape[0], X.shape[0]
+    perms = draw_permutations(G * R, N, seed=seed, device=dev).reshape(G, R, N)
+    with torch.no_grad():
+        baseline, drops = _perm_sweep(
+            X, y_idx, torch.as_tensor(masks, device=dev), perms, apply_fn
+        )
+    imp = drops.cpu().numpy().astype(np.float64)
+    return PermutationResult(
+        importances=imp,
+        importances_mean=imp.mean(axis=1),
+        importances_std=imp.std(axis=1),
+        baseline_score=float(baseline),
+    )
+
+
+def permutation_importance(
+    head,
+    X,
+    y,
+    *,
+    n_repeats: int = 10,
+    seed: int = 42,
+    groups: list[list[int]] | None = None,
+) -> PermutationResult:
+    """sklearn-shaped permutation importance on the head's device
+    (tpumcia's ``permutation_importance``): ``X`` (numpy or a tensor, kept
+    where it is when it is already on that device), ``groups`` (column
+    lists) permuted jointly, each group's ``n_repeats`` permutations drawn by
+    :func:`draw_permutations` from ``seed``. Defaults mirror the reference
+    call (n_repeats=10, random_state=42, ipynb:495-496)."""
+    masks = group_masks(groups, X.shape[1])
+    return _run_sweep(head, X, y, masks, n_repeats=n_repeats, seed=seed)

@@ -31,19 +31,8 @@ from tpumcia_torch.importance.permutation import (
     group_masks as build_group_masks,
     labels_to_class_idx,
 )
-from tpumcia_torch.models.heads import LogisticHead, _fit_logistic
+from tpumcia_torch.models.heads import LogisticHead, _fit_logistic, init_weights
 from tpumcia_torch.models.scaler import MinMaxScaler, minmax_scale
-
-
-def init_weights(num_features: int, num_classes: int, *, seed: int, device) -> torch.Tensor:
-    """The head's initial weights, ``0.01 * N(0, 1)`` from
-    ``torch.Generator(device).manual_seed(seed)`` (the JAX package draws the
-    same distribution from ``jax.random.key(seed)``)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return torch.randn(
-        (num_features, num_classes), generator=gen, dtype=torch.float32, device=device
-    ) * 0.01
 
 
 def _fused_fit_sweeps(

@@ -1,13 +1,25 @@
-"""The logistic head over the feature matrix (counterpart of the logistic
-part of ``tpumcia.models.heads``).
+"""Classifier heads over the feature matrix (counterpart of
+``tpumcia.models.heads``).
 
-A multinomial logistic regression fitted on the device with Adam on softmax
-cross-entropy plus ``l2 * sum(w^2)``: optax's ``adam`` (b1 0.9, b2 0.999,
-eps 1e-8) and ``torch.optim.Adam`` apply the same update. The MLP and
-forest heads are not ported yet (ROADMAP A10).
+- :class:`LogisticHead`: multinomial logistic regression;
+- :class:`MLPHead`: a dense -> ReLU stack with a linear readout.
+
+Both are fitted on the device with full-batch Adam on softmax cross-entropy
+plus ``l2 * sum(w^2)`` over the weight matrices: optax's ``adam`` (b1 0.9,
+b2 0.999, eps 1e-8) and ``torch.optim.Adam`` apply the same update. Their
+initial weights come from a ``torch.Generator`` seeded with
+``HeadConfig.seed``, the same distributions as the JAX package's
+``jax.random`` draws but not the same numbers. :func:`fit_head` is the
+entry (scale, then fit). Checkpoints are tpumcia's npz layout, so either
+package loads the other's. The random-forest head is not ported: its fit is
+sklearn's, which the GPU machine does not have (ROADMAP A10).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import json
+import math
 
 import numpy as np
 import torch
@@ -16,6 +28,58 @@ from torch import nn
 from tpumcia_torch.config import HeadConfig
 from tpumcia_torch.models.scaler import MinMaxScaler
 
+_FOREST = (
+    "head kind 'random_forest' (and its MDI importance) is not ported to "
+    "tpumcia_torch (ROADMAP A10): its fit is sklearn's RandomForestClassifier, "
+    "which the GPU machine does not have"
+)
+
+
+def init_weights(num_features: int, num_classes: int, *, seed: int, device) -> torch.Tensor:
+    """The logistic head's initial weights, ``0.01 * N(0, 1)`` from
+    ``torch.Generator(device).manual_seed(seed)`` (the JAX package draws the
+    same distribution from ``jax.random.key(seed)``)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randn(
+        (num_features, num_classes), generator=gen, dtype=torch.float32, device=device
+    ) * 0.01
+
+
+def init_mlp_params(dims, *, seed: int, device) -> dict:
+    """The MLP head's initial ``{"hidden": ({"w", "b"}, ...), "out": {"w",
+    "b"}}`` for layer widths ``dims`` (input first): He-normal weights
+    ``N(0, 1) * sqrt(2 / d_in)`` drawn layer by layer from one generator
+    seeded with ``seed``, zero biases (tpumcia's init, drawn in torch)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    layers = [
+        {
+            "w": torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=device)
+            * math.sqrt(2.0 / d_in),
+            "b": torch.zeros((d_out,), dtype=torch.float32, device=device),
+        }
+        for d_in, d_out in zip(dims[:-1], dims[1:])
+    ]
+    return {"hidden": tuple(layers[:-1]), "out": layers[-1]}
+
+
+def _adam(tensors: list[torch.Tensor], loss_fn, *, num_steps: int, lr: float) -> list[torch.Tensor]:
+    """``num_steps`` full-batch Adam steps on copies of ``tensors``; returns
+    the fitted copies, detached."""
+    params = [t.detach().clone().requires_grad_(True) for t in tensors]
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    with torch.enable_grad():
+        for _ in range(num_steps):
+            opt.zero_grad(set_to_none=True)
+            loss_fn(params).backward()
+            opt.step()
+    return [p.detach() for p in params]
+
+
+def _softmax_ce(logits: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
+    return -(y_onehot * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
+
 
 def _fit_logistic(
     X: torch.Tensor, y_onehot: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
@@ -23,59 +87,75 @@ def _fit_logistic(
 ) -> dict[str, torch.Tensor]:
     """``num_steps`` full-batch Adam steps from (w0, b0); returns the fitted
     ``{"w": (F, k), "b": (k,)}``."""
-    w = w0.detach().clone().requires_grad_(True)
-    b = b0.detach().clone().requires_grad_(True)
-    opt = torch.optim.Adam([w, b], lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    with torch.enable_grad():
-        for _ in range(num_steps):
-            opt.zero_grad(set_to_none=True)
-            logits = X @ w + b
-            ce = -(y_onehot * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
-            loss = ce + l2 * (w * w).sum()
-            loss.backward()
-            opt.step()
-    return {"w": w.detach(), "b": b.detach()}
+    def loss(p):
+        w, b = p
+        return _softmax_ce(X @ w + b, y_onehot) + l2 * (w * w).sum()
+
+    w, b = _adam([w0, b0], loss, num_steps=num_steps, lr=lr)
+    return {"w": w, "b": b}
 
 
 def logistic_predict_logits(params: dict[str, torch.Tensor], X: torch.Tensor) -> torch.Tensor:
     return X @ params["w"] + params["b"]
 
 
-class LogisticHead(nn.Module):
-    """Fitted logistic head: MinMax scaling (optional) then ``X @ w + b``.
-    ``classes`` maps the argmax index back to the user's labels."""
+def mlp_predict_logits(params: dict, X: torch.Tensor) -> torch.Tensor:
+    """Dense -> ReLU per hidden layer, then the linear readout."""
+    h = X
+    for layer in params["hidden"]:
+        h = torch.relu(h @ layer["w"] + layer["b"])
+    return h @ params["out"]["w"] + params["out"]["b"]
 
-    def __init__(
-        self, w: torch.Tensor, b: torch.Tensor, classes, *,
-        scaler: MinMaxScaler | None = None, config: HeadConfig | None = None,
-    ):
+
+def _layers(params: dict) -> list[dict]:
+    return [*params["hidden"], params["out"]]
+
+
+def _fit_mlp(
+    X: torch.Tensor, y_onehot: torch.Tensor, params0: dict,
+    *, num_steps: int, lr: float, l2: float,
+) -> dict:
+    """``num_steps`` full-batch Adam steps from ``params0``; returns the
+    fitted params in the same layout."""
+    flat0 = [t for layer in _layers(params0) for t in (layer["w"], layer["b"])]
+
+    def unflatten(flat):
+        layers = [{"w": flat[i], "b": flat[i + 1]} for i in range(0, len(flat), 2)]
+        return {"hidden": tuple(layers[:-1]), "out": layers[-1]}
+
+    def loss(flat):
+        reg = sum((w * w).sum() for w in flat[0::2])
+        return _softmax_ce(mlp_predict_logits(unflatten(flat), X), y_onehot) + l2 * reg
+
+    return unflatten(_adam(flat0, loss, num_steps=num_steps, lr=lr))
+
+
+def _config_from_npz(z) -> HeadConfig:
+    if "config_json" not in z:
+        return HeadConfig()
+    d = json.loads(str(z["config_json"]))
+    if isinstance(d.get("hidden"), list):
+        d["hidden"] = tuple(d["hidden"])
+    return HeadConfig(**d)
+
+
+class _Head(nn.Module):
+    """What both heads share: MinMax scaling (optional) before ``forward``,
+    the label classes, predictions and the npz payload's common part."""
+
+    def __init__(self, classes, scaler: MinMaxScaler | None, config: HeadConfig, device):
         super().__init__()
-        self.w = nn.Parameter(w, requires_grad=False)
-        self.b = nn.Parameter(b, requires_grad=False)
         if scaler is not None:
-            self.register_buffer("data_min", scaler.data_min.to(w.device))
-            self.register_buffer("data_max", scaler.data_max.to(w.device))
+            self.register_buffer("data_min", scaler.data_min.to(device))
+            self.register_buffer("data_max", scaler.data_max.to(device))
         else:
             self.data_min = self.data_max = None
         self.classes = np.asarray(classes)
-        self.config = config or HeadConfig()
-
-    @classmethod
-    def from_numpy(
-        cls, params: dict, classes, dmin, dmax, *, config: HeadConfig | None = None,
-        device="cpu",
-    ) -> "LogisticHead":
-        """Carry over a fitted tpumcia head: its ``{"w", "b"}`` and the
-        scaler's per-feature min/max (``dmin``/``dmax`` None: no scaler)."""
-        def t(x):
-            return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
-
-        scaler = None if dmin is None else MinMaxScaler(t(dmin), t(dmax))
-        return cls(t(params["w"]), t(params["b"]), classes, scaler=scaler, config=config)
+        self.config = config
 
     @property
-    def params(self) -> dict[str, torch.Tensor]:
-        return {"w": self.w, "b": self.b}
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
 
     @property
     def scaler(self) -> MinMaxScaler | None:
@@ -84,14 +164,14 @@ class LogisticHead(nn.Module):
         return MinMaxScaler(self.data_min, self.data_max)
 
     def _prep(self, X) -> torch.Tensor:
-        X = torch.as_tensor(X, dtype=torch.float32, device=self.w.device)
+        X = torch.as_tensor(X, dtype=torch.float32, device=self.device)
         return self.scaler.transform(X) if self.data_min is not None else X
 
-    def forward(self, X) -> torch.Tensor:
-        """Logits of (scaled) X."""
-        return logistic_predict_logits(self.params, self._prep(X))
+    def predict_logits(self, X) -> torch.Tensor:
+        return self(X)
 
-    predict_logits = forward
+    def predict_proba(self, X) -> torch.Tensor:
+        return torch.softmax(self(X), dim=-1)
 
     def predict(self, X) -> np.ndarray:
         return self.classes[torch.argmax(self(X), dim=-1).cpu().numpy()]
@@ -99,3 +179,211 @@ class LogisticHead(nn.Module):
     def score(self, X, y) -> float:
         """Mean accuracy (sklearn's classifier ``score`` contract)."""
         return float(np.mean(self.predict(X) == np.asarray(y)))
+
+    def _payload(self) -> dict:
+        payload = {
+            "classes": self.classes,
+            "config_json": np.asarray(json.dumps(dataclasses.asdict(self.config))),
+        }
+        if self.data_min is not None:
+            payload["scaler_min"] = self.data_min.cpu().numpy()
+            payload["scaler_max"] = self.data_max.cpu().numpy()
+        return payload
+
+    @staticmethod
+    def _scaler_from_npz(z, device) -> MinMaxScaler | None:
+        if "scaler_min" not in z:
+            return None
+        return MinMaxScaler.from_stats(z["scaler_min"], z["scaler_max"], device=device)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
+
+
+def _labels_onehot(y, device):
+    classes, y_idx = np.unique(np.asarray(y), return_inverse=True)
+    onehot = torch.nn.functional.one_hot(
+        torch.as_tensor(y_idx, dtype=torch.int64, device=device), len(classes)
+    ).to(torch.float32)
+    return classes, onehot
+
+
+class LogisticHead(_Head):
+    """Fitted logistic head: MinMax scaling (optional) then ``X @ w + b``.
+    ``classes`` maps the argmax index back to the user's labels."""
+
+    def __init__(
+        self, w: torch.Tensor, b: torch.Tensor, classes, *,
+        scaler: MinMaxScaler | None = None, config: HeadConfig | None = None,
+    ):
+        super().__init__(classes, scaler, config or HeadConfig(), w.device)
+        self.w = nn.Parameter(w, requires_grad=False)
+        self.b = nn.Parameter(b, requires_grad=False)
+
+    @classmethod
+    def from_numpy(
+        cls, params: dict, classes, dmin, dmax, *, config: HeadConfig | None = None,
+        device="cpu",
+    ) -> "LogisticHead":
+        """Carry over a fitted tpumcia head: its ``{"w", "b"}`` and the
+        scaler's per-feature min/max (``dmin``/``dmax`` None: no scaler)."""
+        scaler = None if dmin is None else MinMaxScaler(_tensor(dmin, device), _tensor(dmax, device))
+        return cls(_tensor(params["w"], device), _tensor(params["b"], device), classes,
+                   scaler=scaler, config=config)
+
+    @property
+    def params(self) -> dict[str, torch.Tensor]:
+        return {"w": self.w, "b": self.b}
+
+    def forward(self, X) -> torch.Tensor:
+        """Logits of (scaled) X."""
+        return logistic_predict_logits(self.params, self._prep(X))
+
+    def coefficient_importance(self) -> np.ndarray:
+        """Normalised mean |weight| per feature, a linear-model analogue of
+        the forest's MDI ranking (tpumcia's ``coefficient_importance``)."""
+        w = np.abs(self.w.cpu().numpy()).mean(axis=1)
+        s = w.sum()
+        return w / s if s > 0 else w
+
+    def save(self, path) -> None:
+        """tpumcia's npz checkpoint: w, b, classes, config, scaler."""
+        np.savez(path, w=self.w.cpu().numpy(), b=self.b.cpu().numpy(), **self._payload())
+
+    @classmethod
+    def load(cls, path, *, device="cpu") -> "LogisticHead":
+        with np.load(path, allow_pickle=False) as z:
+            return cls(_tensor(z["w"], device), _tensor(z["b"], device), z["classes"],
+                       scaler=cls._scaler_from_npz(z, device), config=_config_from_npz(z))
+
+    @classmethod
+    def fit(
+        cls, X: torch.Tensor, y, *, config: HeadConfig | None = None,
+        scaler: MinMaxScaler | None = None,
+    ) -> "LogisticHead":
+        """Fit on ``X`` (an (N, F) f32 tensor, on the device the fit runs
+        on) from :func:`init_weights` at ``config.seed``."""
+        cfg = config or HeadConfig()
+        classes, onehot = _labels_onehot(y, X.device)
+        Xs = scaler.transform(X) if scaler is not None else X
+        k = len(classes)
+        params = _fit_logistic(
+            Xs, onehot, init_weights(X.shape[1], k, seed=cfg.seed, device=X.device),
+            torch.zeros((k,), dtype=torch.float32, device=X.device),
+            num_steps=cfg.num_steps, lr=cfg.learning_rate, l2=cfg.l2,
+        )
+        return cls(params["w"], params["b"], classes, scaler=scaler, config=cfg)
+
+
+class MLPHead(_Head):
+    """Fitted MLP head: MinMax scaling (optional), ``len(config.hidden)``
+    dense -> ReLU layers and a linear readout."""
+
+    def __init__(
+        self, params: dict, classes, *, scaler: MinMaxScaler | None = None,
+        config: HeadConfig | None = None,
+    ):
+        layers = _layers(params)
+        super().__init__(classes, scaler, config or HeadConfig(kind="mlp"), layers[0]["w"].device)
+        self.weights = nn.ParameterList(nn.Parameter(l["w"], requires_grad=False) for l in layers)
+        self.biases = nn.ParameterList(nn.Parameter(l["b"], requires_grad=False) for l in layers)
+
+    @classmethod
+    def from_numpy(
+        cls, params: dict, classes, dmin, dmax, *, config: HeadConfig | None = None,
+        device="cpu",
+    ) -> "MLPHead":
+        """Carry over a fitted tpumcia MLP head (its params pytree of
+        arrays) and the scaler's per-feature min/max (None: no scaler)."""
+        def layer(l):
+            return {"w": _tensor(l["w"], device), "b": _tensor(l["b"], device)}
+
+        scaler = None if dmin is None else MinMaxScaler(_tensor(dmin, device), _tensor(dmax, device))
+        p = {"hidden": tuple(layer(l) for l in params["hidden"]), "out": layer(params["out"])}
+        return cls(p, classes, scaler=scaler, config=config)
+
+    @property
+    def params(self) -> dict:
+        layers = [{"w": w, "b": b} for w, b in zip(self.weights, self.biases)]
+        return {"hidden": tuple(layers[:-1]), "out": layers[-1]}
+
+    def forward(self, X) -> torch.Tensor:
+        return mlp_predict_logits(self.params, self._prep(X))
+
+    def save(self, path) -> None:
+        """tpumcia's npz checkpoint: each layer's w and b, classes, config,
+        scaler."""
+        p = self.params
+        payload = {"num_hidden": np.int64(len(p["hidden"])),
+                   "out_w": p["out"]["w"].cpu().numpy(), "out_b": p["out"]["b"].cpu().numpy()}
+        for i, layer in enumerate(p["hidden"]):
+            payload[f"hidden{i}_w"] = layer["w"].cpu().numpy()
+            payload[f"hidden{i}_b"] = layer["b"].cpu().numpy()
+        np.savez(path, **payload, **self._payload())
+
+    @classmethod
+    def load(cls, path, *, device="cpu") -> "MLPHead":
+        with np.load(path, allow_pickle=False) as z:
+            hidden = tuple(
+                {"w": _tensor(z[f"hidden{i}_w"], device), "b": _tensor(z[f"hidden{i}_b"], device)}
+                for i in range(int(z["num_hidden"]))
+            )
+            params = {"hidden": hidden,
+                      "out": {"w": _tensor(z["out_w"], device), "b": _tensor(z["out_b"], device)}}
+            return cls(params, z["classes"], scaler=cls._scaler_from_npz(z, device),
+                       config=_config_from_npz(z))
+
+    @classmethod
+    def fit(
+        cls, X: torch.Tensor, y, *, config: HeadConfig | None = None,
+        scaler: MinMaxScaler | None = None,
+    ) -> "MLPHead":
+        """Fit on ``X`` (an (N, F) f32 tensor, on the device the fit runs
+        on) from :func:`init_mlp_params` at ``config.seed``."""
+        cfg = config or HeadConfig(kind="mlp")
+        classes, onehot = _labels_onehot(y, X.device)
+        Xs = scaler.transform(X) if scaler is not None else X
+        params0 = init_mlp_params([X.shape[1], *cfg.hidden, len(classes)], seed=cfg.seed,
+                                  device=X.device)
+        params = _fit_mlp(Xs, onehot, params0, num_steps=cfg.num_steps,
+                          lr=cfg.learning_rate, l2=cfg.l2)
+        return cls(params, classes, scaler=scaler, config=cfg)
+
+
+def fit_head(
+    features,
+    labels,
+    *,
+    device,
+    config: HeadConfig | None = None,
+    scale: bool = True,
+    scaler: MinMaxScaler | None = None,
+):
+    """MinMax-scale (fitted on the given rows) and fit the configured head on
+    ``device`` (tpumcia's ``fit_head``). ``features``: a FeatureMatrix, an
+    (N, F) array or a tensor. A prefit ``scaler`` overrides the fit."""
+    cfg = config or HeadConfig()
+    device = torch.device(device)
+    X = features if isinstance(features, torch.Tensor) else getattr(features, "values", features)
+    if isinstance(X, torch.Tensor):
+        X = X.to(device=device, dtype=torch.float32)
+    else:
+        X = torch.from_numpy(np.asarray(X, dtype=np.float32)).to(device)
+    labels_arr = np.asarray(labels)
+    if len(labels_arr) != len(X):
+        raise ValueError(f"fit_head: {len(X)} feature rows but {len(labels_arr)} labels")
+    if len(np.unique(labels_arr)) < 2:
+        raise ValueError(
+            "fit_head needs >= 2 distinct classes; got "
+            f"{np.unique(labels_arr)!r} (a grouped/stratified split that "
+            "left one class empty?)"
+        )
+    heads = {"logistic": LogisticHead, "mlp": MLPHead}
+    if cfg.kind == "random_forest":
+        raise NotImplementedError(_FOREST)
+    if cfg.kind not in heads:
+        raise ValueError(f"unknown head kind {cfg.kind!r}")
+    if scaler is None and scale:
+        scaler = MinMaxScaler.fit(X)
+    return heads[cfg.kind].fit(X, labels_arr, config=cfg, scaler=scaler)

@@ -4,12 +4,20 @@
     (synthesize noise channels) -> extract features -> split -> scale ->
     fit head -> classification report -> feature + channel importance
 
-Only the fused fast path is ported: per-batch extraction (masked or not)
-with a device-resident f32 feature block, then the logistic fit and both
-permutation sweeps on that block. A configuration the fast path does not
-take (tpumcia sends it to its classic pipeline) raises
-``NotImplementedError`` naming the ROADMAP item that will port it; nothing
-falls back to another path or to the CPU.
+Two paths, picked as tpumcia picks them (:func:`_fast_path_ok`):
+
+- the fused fast path: per-batch extraction (masked or not) with a
+  device-resident f32 feature block, then the logistic fit and both
+  permutation sweeps on that block;
+- the classic path, for every other configuration: channels-last noise
+  synthesis, ``extract_features(_batched)``, the features on the host as
+  f32, the split, ``fit_head`` and ``channel_importance`` for the channel
+  and the per-feature view, with the feature matrix copied to the device
+  once for the head and both sweeps.
+
+What is not ported raises ``NotImplementedError`` naming its ROADMAP item:
+the forest head and MDI (A10), morphology (A9), a device mesh (A14).
+Nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from tpumcia_torch.features.extract import (
     batched_fast_path_ok,
     check_use_pallas,
 )
-from tpumcia_torch.importance.channels import ChannelImportanceResult
+from tpumcia_torch.importance.channels import ChannelImportanceResult, channel_importance
 from tpumcia_torch.utils.metrics import accuracy, classification_report
 from tpumcia_torch.utils.split import train_test_split_indices
 
@@ -56,36 +64,26 @@ class PipelineResult:
         return "\n".join(lines)
 
 
-def _fast_path_block(cfg: PipelineConfig, images) -> str | None:
-    """None when the fused fast path takes this run (tpumcia's
-    ``_fast_path_ok`` without the mesh branch); else what the run needs that
-    is not ported, with the ROADMAP item that ports it."""
+def _fast_path_ok(cfg: PipelineConfig, images, mask) -> bool:
+    """tpumcia's ``_fast_path_ok`` on one device: the fused path takes a
+    logistic head on MinMax features with grouped permutation importance,
+    on the hybrid u32-wire feature config, for more than 4096 images (or
+    ``fast_path='always'``)."""
     if cfg.fast_path == "never":
-        return "the classic unfused pipeline, fast_path='never' (ROADMAP A10)"
-    if cfg.head.kind != "logistic":
-        return f"head kind {cfg.head.kind!r} (ROADMAP A10)"
-    if cfg.normalize != "minmax":
-        return f"normalize={cfg.normalize!r} (ROADMAP A10)"
+        return False
+    if cfg.head.kind != "logistic" or cfg.normalize != "minmax":
+        return False
     if cfg.importance.channel_match != "exact":
-        return "substring channel matching (ROADMAP A10)"
+        return False
     if cfg.importance.channel_method != "permutation":
-        return f"channel_method={cfg.importance.channel_method!r} (ROADMAP A10)"
+        return False
+    if cfg.synth.noise_channels > 0 and (images.ndim != 3 or mask is not None):
+        return False
+    if cfg.synth.noise_channels == 0 and images.ndim != 4:
+        return False
     if not batched_fast_path_ok(images.shape, cfg.features):
-        return (
-            "the classic unfused pipeline that tpumcia runs for feature config "
-            f"precision={cfg.features.precision!r}, "
-            f"offsets={cfg.features.glcm.offsets}, "
-            f"morphology={cfg.features.include_morphology}, levels="
-            f"{cfg.features.glcm.levels}, image shape {tuple(images.shape)} "
-            "(ROADMAP A10; morphology A9; extract_features takes the other "
-            "feature configs)"
-        )
-    if cfg.fast_path != "always" and len(images) <= 4096:
-        return (
-            "the classic pipeline that fast_path='auto' picks for <= 4096 "
-            "images (ROADMAP A10); set fast_path='always'"
-        )
-    return None
+        return False
+    return cfg.fast_path == "always" or len(images) > 4096
 
 
 def _run_pipeline_fast(
@@ -168,9 +166,15 @@ def run_pipeline(
     by every channel or (B, H, W, C), nonzero selects a pixel (numpy or a
     tensor, e.g. already on the device; not with noise channels).
     ``groups``: per-object group ids for a grouped split. ``timer``: an
-    optional ``utils.profiling.StageTimer`` that splits the run into inputs
-    (host-to-device copies and the mask layout), synth, stats kernel, wire +
-    f32 features, head + sweeps and device-to-host + assembly.
+    optional ``utils.profiling.StageTimer`` that splits the run into stages:
+    on the fast path inputs (host-to-device copies and the mask layout),
+    synth, stats kernel, wire + f32 features, head + sweeps and
+    device-to-host + assembly; on the classic path synth, inputs, stats
+    kernel, finalize (per batch), the host matrix and its upload, head and
+    importance.
+
+    The configurations tpumcia's fast path takes run fused (see
+    :func:`_fast_path_ok`); every other one runs tpumcia's classic path.
     """
     cfg = coerce_config(config)
     device = torch.device(device)
@@ -198,6 +202,16 @@ def run_pipeline(
             f"unknown importance.channel_method "
             f"{cfg.importance.channel_method!r}; one of {_CHANNEL_METHODS}"
         )
+    if cfg.head.kind == "random_forest" or cfg.importance.channel_method == "mdi":
+        raise NotImplementedError(
+            "the random-forest head and its MDI importance are not ported "
+            "(ROADMAP A10: the forest's fit is sklearn's, which the GPU machine "
+            "does not have)"
+        )
+    if cfg.features.include_morphology:
+        raise NotImplementedError(
+            "morphology features are not ported to tpumcia_torch yet (ROADMAP A9)"
+        )
     check_use_pallas(cfg.features, device)
 
     images_arr = images if hasattr(images, "shape") else np.asarray(images)
@@ -222,12 +236,101 @@ def run_pipeline(
             f"groups length {len(np.asarray(groups))} does not match the "
             f"{n_objects} images"
         )
-    blocked = _fast_path_block(cfg, images_arr)
-    if blocked is not None:
-        raise NotImplementedError(
-            f"tpumcia_torch runs only the fused fast path; this run needs {blocked}"
+    if _fast_path_ok(cfg, images_arr, mask):
+        return _run_pipeline_fast(
+            images_arr, labels, mask=mask, cfg=cfg, channel_names=channel_names,
+            groups=groups, device=device, timer=timer,
         )
-    return _run_pipeline_fast(
+    return _run_pipeline_classic(
         images_arr, labels, mask=mask, cfg=cfg, channel_names=channel_names,
         groups=groups, device=device, timer=timer,
+    )
+
+
+def _run_pipeline_classic(
+    images, labels, *, mask, cfg, channel_names, groups, device, timer
+) -> PipelineResult:
+    """tpumcia's classic branch (``pipeline/run.py:229-346``)."""
+    from tpumcia_torch.features.extract import _extract_features, _extract_features_batched
+    from tpumcia_torch.models.heads import fit_head
+
+    timings: dict[str, float] = {}
+    if timer is not None:
+        timer.start()
+    if cfg.synth.noise_channels > 0:
+        from tpumcia_torch.preprocess.synth import add_noise_channels_batched
+
+        # the fast path's per-batch stream: the same dataset on either path
+        images = add_noise_channels_batched(
+            images, seed=cfg.synth.seed, batch_size=cfg.batch_size, device=device,
+            num_noise=cfg.synth.noise_channels, var=cfg.synth.var,
+        )
+        if timer is not None:
+            timer.stamp("synth")
+
+    t0 = time.perf_counter()
+    kw = dict(device=device, config=cfg.features, channel_names=channel_names, timer=timer)
+    if len(images) > 4096:
+        fm = _extract_features_batched(images, mask, batch_size=cfg.batch_size, **kw)
+    else:
+        fm = _extract_features(images, mask, **kw)
+    timings["features_s"] = time.perf_counter() - t0
+
+    X_host = np.nan_to_num(np.asarray(fm.to_numpy(), dtype=np.float32))
+    split = train_test_split_indices(
+        len(X_host),
+        test_size=cfg.split.test_size,
+        seed=cfg.split.seed,
+        stratify=labels if cfg.split.stratify else None,
+        groups=groups if cfg.split.group_by else None,
+    )
+    X = torch.from_numpy(X_host).to(device)  # one copy for the head and both sweeps
+    tr = torch.as_tensor(split.train_idx, device=device)
+    te = torch.as_tensor(split.test_idx, device=device)
+    if timer is not None:
+        timer.stamp("host_matrix_upload")
+
+    t0 = time.perf_counter()
+    head = fit_head(
+        X[tr], labels[split.train_idx], device=device, config=cfg.head,
+        scale=cfg.normalize == "minmax",
+    )
+    timings["fit_s"] = time.perf_counter() - t0
+    y_te = labels[split.test_idx]
+    pred = head.predict(X[te])
+    test_acc = accuracy(y_te, pred)
+    report = classification_report(y_te, pred)
+    if timer is not None:
+        timer.stamp("head")
+
+    fm_test = FeatureMatrix(
+        values=X_host[split.test_idx],
+        names=fm.names,
+        num_channels=fm.num_channels,
+        config=fm.config,
+        channel_names=fm.channel_names,
+        device_values=X[te],
+    )
+    t0 = time.perf_counter()
+    channel_res = channel_importance(
+        head, fm_test, y_te, method=cfg.importance.channel_method, config=cfg.importance,
+    )
+    # the per-feature view (notebook cell 28, ipynb:493-505)
+    feature_res = channel_importance(
+        head, fm_test, y_te, method="permutation_features", config=cfg.importance,
+    )
+    timings["importance_s"] = time.perf_counter() - t0
+    if timer is not None:
+        timer.stamp("importance")
+
+    return PipelineResult(
+        features=fm,
+        head=head,
+        test_accuracy=test_acc,
+        report=report,
+        channel_result=channel_res,
+        feature_result=feature_res,
+        train_idx=split.train_idx,
+        test_idx=split.test_idx,
+        timings=timings,
     )

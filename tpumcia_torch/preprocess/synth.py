@@ -7,10 +7,15 @@ channel is ``clip(N(0, sqrt(var)), 0, 1) * 255`` truncated toward zero, as
 the reference's uint8 cast does. The draws come from an explicit
 ``torch.Generator``: they follow the same distribution as the JAX package's
 but are not the same numbers (its threefry stream cannot be reproduced), so
-the tests hand both packages the same normal draws.
+the tests hand both packages the same normal draws. The fused fast path
+(:func:`noise_channels_chw`, channels first) and the classic pipeline
+(:func:`add_noise_channels_batched`, channels last) draw the same per-batch
+stream, so a dataset is the same on either path.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -51,3 +56,51 @@ def noise_channels_chw(
         device=gray.device,
     )
     return noise_from_normal(gray, normal, var)
+
+
+def add_noise_channels(
+    gray: torch.Tensor,
+    generator: torch.Generator,
+    *,
+    num_noise: int = 2,
+    var: float = 0.01,
+) -> torch.Tensor:
+    """(B, H, W) grayscale -> (B, H, W, 1 + num_noise) uint8, channels last
+    (tpumcia's ``add_noise_channels``): the values of
+    :func:`noise_channels_chw` from the same draw."""
+    chw = noise_channels_chw(gray, generator, num_noise=num_noise, var=var)
+    return chw.permute(0, 2, 3, 1).to(torch.uint8)
+
+
+def add_noise_channels_batched(
+    images,
+    *,
+    seed: int,
+    batch_size: int,
+    device,
+    num_noise: int = 2,
+    var: float = 0.01,
+) -> torch.Tensor:
+    """(N, H, W) grayscale (numpy or a tensor) -> (N, H, W, 1 + num_noise)
+    uint8 on ``device``, drawn per fixed-size batch as the fused fast path
+    draws it: batch ``i`` from :func:`synth_batch_seed` ``(seed, i)``, the
+    last batch wrap-padded to ``batch_size`` rows with the first images (the
+    pad rows' draws are dropped), so both paths synthesize the same data."""
+    device = torch.device(device)
+    gray = images.to(device) if isinstance(images, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(images)).to(device)
+    if gray.dim() != 3:
+        raise ValueError(f"expected (N, H, W) grayscale input, got {tuple(gray.shape)}")
+    n = gray.shape[0]
+    batch_size = min(batch_size, n)
+    parts = []
+    for i in range(math.ceil(n / batch_size)):
+        lo, hi = i * batch_size, min((i + 1) * batch_size, n)
+        b = gray[lo:hi]
+        short = batch_size - (hi - lo)
+        if short:
+            b = torch.cat([b, gray[:short]])
+        gen = torch.Generator(device=device)
+        gen.manual_seed(synth_batch_seed(seed, i))
+        parts.append(add_noise_channels(b, gen, num_noise=num_noise, var=var)[:hi - lo])
+    return torch.cat(parts)
