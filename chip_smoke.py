@@ -10,7 +10,10 @@ Phases (any failure exits nonzero, and no result line is printed):
      maskless, B1b masked, B1c difference histogram, B2 several offsets, B1d
      at 65536 pixels or more than 256 levels) against its plain PyTorch
      version at the main paths' shapes and at edge cases (integer fields
-     bit-equal, dstats[3] to rel 1e-6), and both versions' median times;
+     bit-equal, dstats[3] to rel 1e-6), both versions' median times, and per
+     main-path shape the bytes it must move, its bound at the card's memory
+     rate, its layout, dynamic shared memory and resident blocks per SM
+     (gated: >= 3 at the bench and cytometry shapes, >= 2 at 1024 levels);
   4. the slice: ``run_pipeline`` over 12,000 synthetic 64x64 images with 2
      synthesized noise channels, a 300-step logistic head and permutation
      importance, as bench.py drives the JAX package. It checks the launch
@@ -66,9 +69,10 @@ FORMS = {
     "B1b": ("glcm_stats masked", "tpumcia/features/pallas_glcm.py:400"),
     "B1c": ("glcm_stats need_diff", "tpumcia/features/pallas_glcm.py:400"),
     "B2": ("glcm_stats multi-offset", "tpumcia/features/pallas_glcm.py:878"),
-    "B1d": ("glcm_stats_large (u32 G in bands; also replaces :878 at these sizes)",
+    "B1d": ("glcm_stats_large (u64 pair table or u32 G in bands; also replaces :878 at these sizes)",
             "tpumcia/features/pallas_glcm.py:400"),
 }
+LIBRARY = "none: no single PyTorch call computes these statistics"
 
 
 def log(*a):
@@ -179,6 +183,76 @@ def field_batch(device):
     return gray, labels, add_noise_channels_batched(gray, seed=0, batch_size=BATCH, device=device)
 
 
+def timed_cases(device):
+    """The shapes phase 3 times, with their data, one at a time (kernel_ab.py
+    times the same ones against another checkout's kernel): dicts of
+    ``form``, ``x`` ((B, C, H, W) int32 levels on ``device``), ``offsets``,
+    ``mask`` (None or a channels-last numpy mask), ``need_diff``,
+    ``levels``, ``note``, ``per_run`` (the launches of a main-path run at
+    this shape) and ``min_blocks`` (the resident blocks per SM its layout
+    must give). Each form's main-path shapes come first."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def rand(shape, levels=LEVELS):
+        return dev(rng.integers(0, levels, size=shape, dtype=np.int32))
+
+    def item(form, x, offsets=(OFFSET,), mask=None, need_diff=False, levels=LEVELS, note="",
+             per_run=0, min_blocks=0):
+        return {"form": form, "x": x, "offsets": list(offsets), "mask": mask, "need_diff": need_diff,
+                "levels": levels, "note": note, "per_run": per_run, "min_blocks": min_blocks}
+
+    bench_x = rand(BENCH_SHAPE)
+    mask80 = rng.random((BENCH_SHAPE[0], 64, 64, 3)) > 0.2  # config 1: 80 % of pixels
+    raw, cell, _, _ = cytometry_objects(BENCH_SHAPE[0], seed=1)
+    cyto = dev((raw >> 8).astype(np.int32).transpose(0, 3, 1, 2))  # its own levels, v >> 8
+    yield item("B1a", bench_x, per_run=6, min_blocks=3)
+    yield item("B1b", cyto, mask=cell, note="cytometry levels", per_run=8, min_blocks=3)
+    yield item("B1b", rand(cyto.shape), mask=cell, note="random levels")  # every key distinct
+    del cyto
+    yield item("B1b", bench_x, mask=mask80)
+    yield item("B1c", bench_x, need_diff=True)
+    yield item("B1c", bench_x, mask=mask80, need_diff=True)
+    yield item("B2", bench_x, offsets=FOUR_OFFSETS)
+    del bench_x
+    # B1d: the two main-path batches first (one of phase 7's 1024-level
+    # cytometry batches; phase 8's whole batch, its 1,200 fields with the
+    # noise channels synthesized as run_pipeline synthesizes them), then
+    # random levels at 64x3x256x256 and the edge cases: a constant 300x300
+    # channel whose one G cell holds 89,700 pairs (past u16), a size that is
+    # not square, 3 offsets of both signs at 512 levels, 4096 levels, and a
+    # per-channel mask at 256x256
+    raw, cell, _, _ = cytometry_objects(BENCH_SHAPE[0], seed=2)
+    yield item("B1d", dev((raw.astype(np.int32) >> 6).transpose(0, 3, 1, 2)), mask=cell,
+               need_diff=True, levels=CLASSIC_LEVELS, note="cytometry levels", per_run=8,
+               min_blocks=2)
+    del raw
+    yield item("B1d", field_batch(device)[2].permute(0, 3, 1, 2).to(torch.int32).contiguous(),
+               need_diff=True, note="phase 8's fields", per_run=1)
+    yield item("B1d", rand((64, 3, 256, 256)), need_diff=True)
+    yield item("B1d", dev(np.full((2, 1, 300, 300), 200, np.int32)), offsets=[(0, 1)],
+               need_diff=True, note="constant")
+    yield item("B1d", rand((3, 2, 259, 255)), offsets=[(1, 2)], need_diff=True)
+    yield item("B1d", rand((8, 2, 64, 64), 512), offsets=[(0, 5), (3, -2), (-4, 1)],
+               need_diff=True, levels=512)
+    yield item("B1d", rand((8, 1, 64, 64), 4096), need_diff=True, levels=4096)
+    pc_mask = rng.random((4, 256, 256, 3)) < 0.7
+    pc_mask[0, :, :, 1] = False  # an empty (image, channel)
+    yield item("B1d", rand((4, 3, 256, 256)), mask=pc_mask, need_diff=True,
+               note="per-channel mask")
+
+
+def timed_label(shape, offsets, mask, levels, note) -> str:
+    """How the kernels line and kernel_ab.py name a timed case."""
+    return ("x".join(map(str, shape)) + f" L{levels} offsets {list(offsets)}"
+            + (" masked" if mask is not None else "") + (f", {note}" if note else ""))
+
+
 def phase_kernel(device):
     """Every kernel form vs its plain version on the card; returns the
     forms' records (without launches)."""
@@ -244,10 +318,42 @@ def phase_kernel(device):
         case((3, 2, 64, 64), [(3, -2), (-2, 1), (0, 5), (5, 0)], mask=edge, need_diff=nd)
         case((2, 3, 37, 53), [(0, 1), (1, 1), (-1, 2)], need_diff=nd)
 
+    # the pair table's hazards: one level in every pixel (one key takes
+    # every pair: the largest warp groups), a constant 128x128 channel
+    # (16,256 pairs in one cell, past the generic a-limb; the table as large
+    # as a dense G), random levels at 1024 and 4096 levels (a table nearly
+    # full of distinct keys, long probes), an empty and a one-pixel mask, 4
+    # offsets reusing the table, and 37x53 (the scalar load path) masked
+    for hw in (64, 48):
+        one = np.full((2, 3, hw, hw), 9, np.int32)
+        case(one.shape, [OFFSET], x=one)
+        case(one.shape, [OFFSET], x=one.copy(), mask=np.ones((2, hw, hw), bool), need_diff=True)
+    const128 = np.full((2, 1, 128, 128), 200, np.int32)
+    for nd in (False, True):
+        case(const128.shape, [(0, 1)], x=const128.copy(), need_diff=nd)
+    hazard_mask = rng.random((4, 48, 48)) < 0.9
+    hazard_mask[0] = False
+    hazard_mask[1] = False
+    hazard_mask[1, 20, 20] = True
+    case((4, 3, 48, 48), [OFFSET], mask=hazard_mask, need_diff=True, levels=CLASSIC_LEVELS)
+    case((4, 3, 48, 48), [OFFSET], mask=hazard_mask)
+    case((4, 2, 64, 64), [OFFSET, (3, -2)], need_diff=True, levels=4096)
+    case((4, 3, 48, 48), list(FOUR_OFFSETS), mask=hazard_mask, need_diff=True, levels=CLASSIC_LEVELS)
+    case((3, 2, 37, 53), [(1, 2)], mask=rng.random((3, 37, 53)) < 0.7)
+    # 257x255, 65,535 pixels: the largest size the small kernel (B1c here)
+    # takes; 128x128 at 1024 levels, a pair table smaller than G that does
+    # not fit in shared memory (the kernel plans the bands)
+    case((3, 2, 257, 255), [(1, 2)], need_diff=True, fill={(0, 0): 200})
+    if cuda_glcm.launch_info((2, 2, 128, 128), CLASSIC_LEVELS, [(0, 1)], masked=False,
+                             need_diff=True)["layout"] != "bands":
+        raise AssertionError("128x128 at 1024 levels: the kernel did not plan the bands")
+    case((2, 2, 128, 128), [(0, 1)], need_diff=True, levels=CLASSIC_LEVELS)
+
     records = {}
 
-    def bench(form, shape, offsets, mask=None, need_diff=False, x=None, levels=LEVELS):
-        t, m, ran = case(shape, offsets, mask=mask, need_diff=need_diff, x=x, levels=levels)
+    def bench(form, x, offsets, mask, need_diff, levels, note, per_run, min_blocks):
+        """One of :func:`timed_cases`, checked, timed and logged."""
+        t, m, ran = case(tuple(x.shape), offsets, mask=mask, need_diff=need_diff, x=x, levels=levels)
         if ran != form:
             raise AssertionError(f"{tuple(t.shape)} at {levels} levels runs form {ran}, not {form}")
         if len(offsets) == 1:
@@ -266,49 +372,32 @@ def phase_kernel(device):
         log(f"  {form} at {tuple(t.shape)} levels={levels} offsets={list(offsets)} mask={mask is not None} "
             f"need_diff={need_diff}: kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms "
             "(median of runs, CUDA events)")
+        nbytes = cuda_glcm.traffic_bytes(tuple(t.shape), levels, offsets, need_diff=need_diff,
+                                         mask_channels=0 if m is None else m.shape[1])
+        bound = cuda_glcm.bound_ms(nbytes)
+        info = cuda_glcm.launch_info(tuple(t.shape), levels, offsets, masked=m is not None,
+                                     need_diff=need_diff)
+        ms = min(k1, k2)
+        log(f"    {nbytes} bytes, bound {bound!r} ms at 3.35 TB/s, share {bound / ms!r}; layout "
+            f"{info['layout']} ({info['table_slots']} slots), {info['threads']} threads, "
+            f"{info['smem_bytes']} B dynamic shared memory, {info['blocks_per_sm']} blocks per SM, "
+            f"plane in shared memory {info['plane_in_smem']}")
+        if info["blocks_per_sm"] < min_blocks:
+            raise AssertionError(f"{form} at {tuple(t.shape)}: {info['blocks_per_sm']} blocks per SM "
+                                 f"< {min_blocks}")
         rec = records.setdefault(form, {"name": FORMS[form][0], "route": "cuda", "source": SOURCE,
                                         "replaces": FORMS[form][1], "shapes": []})
-        at = ("x".join(map(str, t.shape)) + f" L{levels} offsets {list(offsets)}"
-              + (" masked" if mask is not None else ""))
-        rec["shapes"].append({"at": at, "ms": min(k1, k2), "plain_ms": min(p1, p2)})
-        rec.setdefault("ms", min(k1, k2))
-        rec.setdefault("plain_ms", min(p1, p2))
+        rec["shapes"].append({
+            "at": timed_label(t.shape, offsets, mask, levels, note), "ms": ms, "plain_ms": min(p1, p2), "bytes": nbytes, "bound_ms": bound,
+            "bound_by": "bytes", "share": bound / ms, "launches_per_run": per_run,
+            "library_ms": None, **info,
+        })
+        for key, val in (("ms", ms), ("plain_ms", min(p1, p2)), ("bound_ms", bound),
+                         ("bound_by", "bytes"), ("library_ms", None), ("library", LIBRARY)):
+            rec.setdefault(key, val)
 
-    mask80 = rng.random((BENCH_SHAPE[0], 64, 64, 3)) > 0.2  # config 1: 80 % of pixels
-    _, cell, _, _ = cytometry_objects(BENCH_SHAPE[0], seed=1)
-    bench("B1a", BENCH_SHAPE, [OFFSET])
-    bench("B1b", BENCH_SHAPE, [OFFSET], mask=mask80)
-    bench("B1b", (BENCH_SHAPE[0], CYTO_CH, CYTO_HW, CYTO_HW), [OFFSET], mask=cell)
-    bench("B1c", BENCH_SHAPE, [OFFSET], need_diff=True)
-    bench("B1c", BENCH_SHAPE, [OFFSET], mask=mask80, need_diff=True)
-    bench("B2", BENCH_SHAPE, list(FOUR_OFFSETS))
-
-    # B1d: the two main-path batches first (one of phase 7's 1024-level
-    # cytometry batches; phase 8's whole batch, its 1,200 fields with the
-    # noise channels synthesized as run_pipeline synthesizes them), then
-    # random levels at 64x3x256x256 and the edge cases: a constant 300x300
-    # channel whose one G cell holds 89,700 pairs (past u16), a size that is
-    # not square, 3 offsets of both signs at 512 levels, 4096 levels, and a
-    # per-channel mask at 256x256; and 257x255, 65,535 pixels, the largest
-    # size the small kernel (B1c here) takes
-    cyto_raw, cyto_cell, _, _ = cytometry_objects(BENCH_SHAPE[0], seed=2)
-    cyto_lv = (cyto_raw.astype(np.int32) >> 6).transpose(0, 3, 1, 2)  # 1024 levels
-    bench("B1d", cyto_lv.shape, [OFFSET], mask=cyto_cell, x=np.ascontiguousarray(cyto_lv),
-          need_diff=True, levels=CLASSIC_LEVELS)
-    del cyto_raw, cyto_lv
-    fields = field_batch(device)[2].permute(0, 3, 1, 2).to(torch.int32).contiguous()
-    bench("B1d", fields.shape, [OFFSET], x=fields, need_diff=True)
-    del fields
-    bench("B1d", (64, 3, 256, 256), [OFFSET], need_diff=True)
-    const = np.full((2, 1, 300, 300), 200, np.int32)
-    bench("B1d", const.shape, [(0, 1)], x=const, need_diff=True)
-    bench("B1d", (3, 2, 259, 255), [(1, 2)], need_diff=True)
-    case((3, 2, 257, 255), [(1, 2)], need_diff=True, fill={(0, 0): 200})
-    bench("B1d", (8, 2, 64, 64), [(0, 5), (3, -2), (-4, 1)], need_diff=True, levels=512)
-    bench("B1d", (8, 1, 64, 64), [OFFSET], need_diff=True, levels=4096)
-    pc_mask = rng.random((4, 256, 256, 3)) < 0.7
-    pc_mask[0, :, :, 1] = False  # an empty (image, channel)
-    bench("B1d", (4, 3, 256, 256), [OFFSET], mask=pc_mask, need_diff=True)
+    for c in timed_cases(device):
+        bench(**c)
     for form, rec in records.items():
         rec["max_abs_err"] = errs[form]
     return records

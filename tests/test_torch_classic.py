@@ -14,6 +14,8 @@ Tolerances:
 - rankings and splits: identical.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -127,7 +129,7 @@ def _carried_heads(X, y):
     for kind, cls in (("logistic", LogisticHead), ("mlp", MLPHead)):
         jh = jheads.fit_head(X, y, config=JHeadConfig(kind=kind, num_steps=40, hidden=(16,)))
         th = cls.from_numpy(jh.params, jh.classes, jh.scaler.data_min, jh.scaler.data_max,
-                            config=HeadConfig(kind=kind, num_steps=40, hidden=(16,)))
+                            config=HeadConfig(kind=kind, num_steps=40, hidden=(16,)), device="cpu")
         out.append((kind, jh, th))
     return out
 
@@ -202,14 +204,23 @@ def test_head_checkpoints_load_across_packages(kind, tmp_path, monkeypatch):
     cls, jcls = (LogisticHead, jheads.LogisticHead) if kind == "logistic" else (MLPHead, jheads.MLPHead)
     jh.save(tmp_path / "jax.npz")
     th.save(tmp_path / "torch.npz")
-    from_jax = cls.load(tmp_path / "jax.npz")
+    from_jax = cls.load(tmp_path / "jax.npz", device="cpu")
     from_torch = jcls.load(tmp_path / "torch.npz")
     assert from_jax.config == th.config and from_torch.config == jh.config
     np.testing.assert_array_equal(from_jax.predict(X), jh.predict(X))
     np.testing.assert_array_equal(from_torch.predict(X), th.predict(X))
     np.testing.assert_allclose(from_torch.predict_proba(X), th.predict_proba(X).numpy(), rtol=0, atol=1e-6)
-    np.testing.assert_array_equal(cls.load(tmp_path / "torch.npz").scaler.data_max.numpy(),
+    np.testing.assert_array_equal(cls.load(tmp_path / "torch.npz", device="cpu").scaler.data_max.numpy(),
                                   th.scaler.data_max.numpy())
+
+
+@pytest.mark.parametrize("cls", [LogisticHead, MLPHead])
+@pytest.mark.parametrize("entry", ["load", "from_numpy"])
+def test_restored_heads_default_to_the_card(cls, entry):
+    """A restored or carried head runs on the card unless the caller asks
+    for the CPU, as every entry of the port does (read from the signature;
+    nothing launches)."""
+    assert inspect.signature(getattr(cls, entry)).parameters["device"].default == "cuda"
 
 
 def test_routing_mirrors_jax():

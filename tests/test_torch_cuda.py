@@ -167,6 +167,83 @@ def test_large_form_matches_plain_on_card(case):
         assert int(got[0].glcm_sumsq[0, 0, 0]) == (89_700 >> 12) ** 2
 
 
+@pytest.mark.parametrize("case", [
+    "one_level_64", "one_level_48", "constant_128", "random_48_L1024", "random_64_L4096",
+    "empty_and_one_pixel_mask", "four_offsets", "scalar_loads_37x53",
+])
+def test_pair_table_hazards_match_plain_on_card(case):
+    """The pair table's hazards, each bit-equal to the plain version: one
+    level in every pixel (one key takes every pair, the largest warp
+    groups), a constant 128x128 channel (16,256 pairs in one cell, past the
+    generic a-limb), random levels at 1024 and 4096 levels (a table nearly
+    full of distinct keys), an empty and a one-pixel mask, 4 offsets reusing
+    the table, and 37x53 (the scalar load path) under a mask."""
+    dev = require_cuda()
+    rng = np.random.default_rng(6)
+    levels, offsets, need_diff, m = 256, [(0, 5)], False, None
+    if case.startswith("one_level"):
+        hw = int(case[-2:])
+        x = np.full((3, 2, hw, hw), 9, np.int32)
+    elif case == "constant_128":
+        x, offsets = np.full((2, 1, 128, 128), 200, np.int32), [(0, 1)]
+    elif case.startswith("random"):
+        hw, levels = (48, 1024) if case == "random_48_L1024" else (64, 4096)
+        x, need_diff = rng.integers(0, levels, size=(4, 2, hw, hw), dtype=np.int32), True
+    elif case == "empty_and_one_pixel_mask":
+        x = rng.integers(0, 256, size=(3, 2, 48, 48), dtype=np.int32)
+        m = np.zeros((3, 1, 48, 48), np.uint8)
+        m[1, 0, 20, 20] = 1
+        m[2] = 1
+    elif case == "four_offsets":
+        x = rng.integers(0, 6, size=(4, 3, 48, 48), dtype=np.int32) * 51
+        m = _edge_mask(rng, x.shape, True)
+        offsets = [(0, 5), (4, 4), (5, 0), (4, -4)]
+    else:
+        x = rng.integers(0, 256, size=(3, 2, 37, 53), dtype=np.int32)
+        m = _edge_mask(rng, x.shape, False)
+    assert cuda_glcm.pair_table_slots(*x.shape[2:], offsets, levels) > 0
+    t = torch.from_numpy(x).to(dev)
+    mt = None if m is None else torch.from_numpy(m).to(dev)
+    got = cuda_glcm.sufficient_stats_multi(t, mt, levels=levels, offsets=offsets, need_diff=need_diff)
+    want = cuda_glcm.sufficient_stats_multi_reference(t, mt, levels=levels, offsets=offsets,
+                                                       need_diff=need_diff)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_stats_equal(g, w)
+    if case == "constant_128":
+        assert int(got[0].glcm_sumsq[0, 0, 0]) == (16_256 >> 12) ** 2
+
+
+@pytest.mark.parametrize("shape,levels,masked,need_diff,min_blocks", [
+    ((2048, 3, 64, 64), 256, False, False, 3),
+    ((2048, 12, 48, 48), 256, True, False, 3),
+    ((2048, 12, 48, 48), 1024, True, True, 2),
+])
+def test_main_path_shapes_take_the_table_with_several_blocks_per_sm(
+        shape, levels, masked, need_diff, min_blocks):
+    require_cuda()
+    info = cuda_glcm.launch_info(shape, levels, [(0, 5)], masked=masked, need_diff=need_diff)
+    assert info["layout"] == "table" and info["plane_in_smem"], info
+    assert info["blocks_per_sm"] >= min_blocks, info
+
+
+def test_a_table_too_large_for_shared_memory_takes_the_bands():
+    """128x128 at 1024 levels: the pair table (32,768 u64 slots) is smaller
+    than G, so the wrapper asks for it, but with the per-level tables it
+    passes the shared memory a block may hold; the kernel plans the bands
+    and stays bit-equal."""
+    dev = require_cuda()
+    shape, levels, offsets = (2, 2, 128, 128), 1024, [(0, 1)]
+    assert cuda_glcm.pair_table_slots(*shape[2:], offsets, levels) == 32768
+    info = cuda_glcm.launch_info(shape, levels, offsets, masked=False, need_diff=True)
+    assert info["layout"] == "bands" and info["table_slots"] == 0, info
+    x = torch.from_numpy(np.random.default_rng(8).integers(0, levels, size=shape, dtype=np.int32)).to(dev)
+    got = cuda_glcm.sufficient_stats(x, levels=levels, offset=offsets[0], need_diff=True)
+    want = cuda_glcm.sufficient_stats_reference(x, levels=levels, offset=offsets[0], need_diff=True)
+    torch.cuda.synchronize()
+    _assert_stats_equal(got, want)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     dev = require_cuda()
     x = torch.zeros((1, 1, 8, 8), dtype=torch.int32, device=dev)

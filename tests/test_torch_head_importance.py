@@ -163,7 +163,7 @@ def test_head_from_numpy_predicts_like_jax_head():
     )
     head = LogisticHead.from_numpy(
         {kk: np.asarray(v) for kk, v in jhead.params.items()}, jhead.classes,
-        np.asarray(jhead.scaler.data_min), np.asarray(jhead.scaler.data_max),
+        np.asarray(jhead.scaler.data_min), np.asarray(jhead.scaler.data_max), device="cpu",
     )
     assert isinstance(head, torch.nn.Module)
     np.testing.assert_allclose(

@@ -35,12 +35,14 @@ _SIGNATURES = {
     "tpumcia_glcm_stats": (
         _I,
         # img, mask, mask_channels, lut, batch, channels, H, W, L,
-        # offsets (host ints), num_offsets, need_diff, cheap,
+        # offsets (host ints), num_offsets, need_diff, cheap, table_bits,
         # hist, count, vmax, marg_l, marg_r, dout, sumsq, pairs, stream
         [_P, _P, _I, _P, _I, _I, _I, _I, _I,
-         ctypes.POINTER(_I), _I, _I, _I,
+         ctypes.POINTER(_I), _I, _I, _I, _I,
          _P, _P, _P, _P, _P, _P, _P, _P, _P],
     ),
+    # H, W, L, masked, need_diff, table_bits, info (5 host ints)
+    "tpumcia_glcm_launch_info": (_I, [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]),
     "tpumcia_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -100,15 +102,17 @@ def build_library() -> tuple[Path, float]:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The built library with every entry's argtypes set (each pointer and
-    the stream as ``c_void_p``, so ctypes never cuts them to 32 bits)."""
-    path, _ = build_library()
-    lib = ctypes.CDLL(str(path))
+def load_library(path: Path | None = None) -> ctypes.CDLL:
+    """The library built from this checkout's sources, or the one at
+    ``path`` (built from another source), with the argtypes of each entry
+    of :data:`_SIGNATURES` it exports set (each pointer and the stream as
+    ``c_void_p``, so ctypes never cuts them to 32 bits)."""
+    lib = ctypes.CDLL(str(path or build_library()[0]))
     for name, (restype, argtypes) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
+        if path is None or hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
     return lib
 
 

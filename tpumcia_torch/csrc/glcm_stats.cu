@@ -26,41 +26,84 @@
 // that carries over: here every statistic is a shared-memory histogram
 // filled with atomics.
 //
-// Small sizes (H*W < 65536 and L <= 256: forms B1a, B1b, B1c, B2) take
-// glcm_stats_kernel. What bounds it on an H100: each block reads its
-// channel's H*W int32 pixels (and mask bytes) once for the histogram and
-// once per offset for the pairs (16 KB at 64x64; the later reads are meant to
-// come from L1/L2) and issues five shared-memory atomics per admitted pixel
-// pair. G itself is 256 x 256 u16 counts packed two per u32 word, 128 KB of
-// dynamic shared memory, which is zeroed and scanned once per offset: at
-// 64x64 that is 32,768 words against 4,096 pixel pairs, and the 128 KB holds
-// each SM to one resident block. The packing is exact while a cell count
-// stays below 2^16, which H*W < 65536 guarantees. Several offsets share the
-// histogram pass and the block's launch, and reuse the same 128 KB for each
-// offset's G in turn, so shared memory does not grow with the offset count.
+// What bounds it on an H100. Every form moves a few bytes per pixel (the
+// int32 level, a mask byte) and writes per-level tables; no form does
+// arithmetic worth counting, so the bound is the bytes over 3.35 TB/s. What
+// keeps a block from it is latency: the global loads of its plane and the
+// shared-memory atomics of each pixel pair. The design hides the first with
+// several resident blocks per SM and spends as few atomics as it can (the
+// times quoted below are kernel_ab.py's, this source against a variant of
+// it, on an NVIDIA H100 80GB HBM3 at 700 W):
+//  - sum(G^2) needs no scan of G. For any per-cell f with f(0) = 0,
+//    sum over cells f(G_k) = sum over adds [f(old + 1) - f(old)], where old
+//    is the count an atomicAdd(cell, 1) returned. Each thread keeps the four
+//    limb deltas in signed 64-bit registers (cheap: f(g) = g^2, delta
+//    2*old + 1; generic: the four limbs of g = a*2^12 + b); integer sums
+//    are exact in any order, so the limbs do not depend on the order in
+//    which the atomics land;
+//  - G's counts go into an open-addressing table keyed by k = i*L + j, sized
+//    to the pairs (the smallest power of two >= 2x the largest offset's pair
+//    window, asked for by the wrapper where it is smaller than G; plan()
+//    alone checks what fits in shared memory), not to L^2: 8,192 slots at
+//    48x48 and 64x64. At L <= 256 a slot is one u32, a 16-bit key over a 16-bit count
+//    (H*W < 65536 keeps every count below 2^16); at the B1d sizes a u64, a
+//    32-bit key over a 32-bit count. Each add first tries atomicCAS(empty ->
+//    key with count 1), and a slot that already holds the key takes an
+//    atomicAdd (reading the slot first was 3-43 % slower at every small-size
+//    shape, 2 % faster at 1024 levels; one rule keeps one path). The all-zero
+//    word marks an empty slot, which no claimed slot can hold, since its
+//    count is at least 1. The table stays at most half full, so linear
+//    probes stay short;
+//  - one atomic per pair and table: grouping a warp's equal keys with
+//    __match_any_sync first costs more than the atomics it saves, on random
+//    levels (3.2x the time at 2048x3x64x64) and on the six-level cytometry
+//    background alike (1.24x at 2048x12x48x48);
+//  - where the plane fits (every main-path shape), the histogram pass leaves
+//    the block's levels in shared memory as u16 with the mask folded in as
+//    sentinels, and the pair walks read only shared memory: each pixel and
+//    mask byte is read from device memory once, with 16-byte loads where
+//    H*W % 4 == 0 and the plane is aligned;
+//  - dynamic shared memory is sized at launch to what the layout needs (the
+//    table and the plane: 40,960 B at 64x64, 37,376 B at 48x48, 94,716 B at
+//    48x48 L 1024), and the table layouts run 256-thread blocks held to 64
+//    registers a thread, so 4 blocks share an SM at the bench and cytometry
+//    shapes and 2 at 1024 levels (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+//    printed by chip_smoke.py).
 //
-// Large sizes (form B1d: H*W >= 65536 or L > 256, always with the difference
-// histogram, which is what the JAX package's entry asks for there) take
-// glcm_stats_large_kernel. There a G cell can pass 65,535 pairs (a constant
-// 300x300 channel at offset (0, 1) puts 89,700 in one), so cells are u32,
-// and a u32 G outgrows shared memory (256 KB at L = 256, 4 MB at L = 1024,
-// against the 227 KB a block may hold). Its design:
-//  - every per-level table (histogram, rescale row, both marginals, the
-//    (2L-1)-bin difference histogram, two rank tables) is sized from L in
-//    dynamic shared memory: 7L-1 ints, 112 KB at L = 4096;
-//  - per offset, one walk of the pair window fills the marginals, the
-//    difference histogram and the pair count. Then the occupied left and
-//    right levels (marginal > 0) are ranked, and G is built over those rows
-//    and columns only, in bands of R occupied rows x every occupied column,
-//    R = band words / occupied columns, in the shared memory left over
-//    (about 50,000 u32 words at L = 1024). Each band re-walks the pair window
-//    (the pixels come back from L1/L2), counts only the pairs whose left
-//    level falls in it, and is scanned into the four 64-bit limb
-//    accumulators. An unoccupied row or column of G is all zeros and adds
-//    nothing to sum(G^2), so the limbs are those of the whole G;
-//  - passes per offset: ceil(occupied left levels / R). At worst (every
-//    level occupied on both sides) that is 2 at L = 256, 21 at L = 1024 and
-//    586 at L = 4096; a channel with few distinct levels takes one.
+// Small sizes (H*W < 65536 and L <= 256: forms B1a, B1b, B1c, B2) take
+// glcm_stats_kernel. Where the pair table would be larger than a dense G
+// (more than 16,384 pairs at L = 256), G is the dense 256 x 256 u16 table
+// packed two per u32 word instead, counted the same way (the delta of the
+// returned half-word), still without a scan; its 128 KB hold the SM to one
+// block. Several offsets share the histogram pass and the block's launch,
+// and reuse the table for each offset in turn.
+//
+// Large sizes (form B1d: H*W >= 65536 or L > 256, always with the
+// difference histogram, which is what the JAX package's entry asks for
+// there) take glcm_stats_large_kernel. Its per-level tables (histogram,
+// rescale row, both marginals, the difference histogram) are sized from L
+// in dynamic shared memory, 6L-1 ints. Where the u64 pair table fits beside
+// them and is smaller than a u32 G of L^2 cells (48x48 at L 1024 and 4096),
+// one walk of the pair window per offset fills everything. Otherwise (a
+// 256x256 plane: 65,280 pairs against 65,536 cells at L 256) G is built in
+// bands: a cell can pass 65,535 pairs (a constant 300x300 channel at offset
+// (0, 1) puts 89,700 in one), so cells are u32, and a u32 G outgrows shared
+// memory (256 KB at L = 256). There
+//  - one walk of the pair window fills the marginals, the difference
+//    histogram and the pair count. Then the occupied left and right levels
+//    (marginal > 0) are ranked, and G is built over those rows and columns
+//    only, in bands of R occupied rows x every occupied column, R = band
+//    words / occupied columns, in the shared memory left over (the whole
+//    opt-in, one 512-thread block per SM). Each band re-walks the pair
+//    window (the pixels come back from L1/L2), counts only the pairs whose
+//    left level falls in it, and is scanned into the limbs: there the
+//    returned counts were slower than the scan (2.79 against 2.25 ms on
+//    1200x3x256x256 fields: a returned atomic per pair against a cheap read
+//    per cell, at one block per SM). An
+//    unoccupied row or column of G is all zeros and adds nothing;
+//  - passes per offset: ceil(occupied left levels / R): at worst 2 at
+//    L = 256, 21 at L = 1024 and 586 at L = 4096; a channel with few
+//    distinct levels takes one.
 // Its bounds: L <= kMaxLargeLevels = 4096 (the tables and one band row of L
 // cells must fit in shared memory) and H*W < 2^24 (counts exact in f32).
 // Its limbs are always the generic ones: the cheap gate needs H*W <= 4096
@@ -68,12 +111,19 @@
 //
 // Exactness: every integer sum is accumulated in 64 bits and stored in the
 // dtype the JAX package returns (f32 fields hold integers < 2^24).
-// dstats[3] is summed in double and rounded once to f32.
+// dstats[3] is summed in double by warp 0 over the difference histogram, in
+// a fixed order, and rounded once to f32.
 //
-// Entry point: tpumcia_glcm_stats (plain C, loaded with ctypes). It launches
-// on the caller's stream, allocates nothing, and returns cudaGetLastError().
+// Entry points (plain C, loaded with ctypes): tpumcia_glcm_stats launches
+// on the caller's stream, allocates nothing, and returns cudaGetLastError();
+// tpumcia_glcm_launch_info reports the block size, dynamic shared memory and
+// resident blocks per SM a launch of that shape would use.
 
 #include <climits>
+#include <cstdint>
+#include <cstdlib>
+#include <mutex>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -82,8 +132,11 @@ constexpr int kMaxLevels = 256;  // the small kernel's static tables
 constexpr int kMaxLargeLevels = 4096;
 constexpr int kMaxPixels = 1 << 24;  // H*W bound: f32-exact counts
 constexpr int kMaxOffsets = 16;
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;      // table layouts: several blocks per SM
+constexpr int kBandThreads = 512;  // the band layout holds the whole SM
+// the shared plane's sentinels (levels are < 4096)
+constexpr unsigned short kMasked = 0xFFFF;
+constexpr unsigned short kOutOfRange = 0xFFFE;  // counts as level 0 in a pair
 
 struct Offsets {
   int n;
@@ -101,6 +154,15 @@ struct Outputs {
   float* dout;    // (O, items, 2L-1) difference histogram, or (O, items, 4) dstats
   int* sumsq;     // (O, items, 4)
   float* pairs;   // (O, items)
+};
+
+// How a launch lays out G and the plane (chosen by plan() below).
+struct Layout {
+  int cheap;       // the cheap sum(G^2) encoding (small kernel only)
+  int table_bits;  // log2 of the pair table's slots; 0: dense G (small) or bands (large)
+  int band_words;  // bands: the u32 cells of one band
+  int plane;       // the block's levels live in shared memory
+  int vec;         // 16-byte pixel loads (H*W % 4 == 0, aligned planes)
 };
 
 // The shared scalars of a block.
@@ -125,6 +187,17 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
+// Every helper below that loops over a block's threads takes the block size
+// as kBlock: with a constant stride the compiler unrolls the loops and
+// keeps several loads in flight (with blockDim.x as the stride the
+// 1200x3x256x256 band launch took 2.81 ms against 2.27).
+template <int kBlock>
+__device__ __forceinline__ void zero_words(unsigned* p, int n) {
+  uint4* p4 = reinterpret_cast<uint4*>(p);  // p is 16-byte aligned
+  for (int k = threadIdx.x; k < (n >> 2); k += kBlock) p4[k] = make_uint4(0u, 0u, 0u, 0u);
+  for (int k = (n & ~3) + threadIdx.x; k < n; k += kBlock) p[k] = 0u;
+}
+
 // This block's pixels and mask plane (nullptr when maskless).
 template <bool kMask>
 __device__ __forceinline__ void item_planes(
@@ -145,14 +218,17 @@ __device__ __forceinline__ void item_planes(
 // and hist, count and vmax out. vmax takes -1 for every masked-out pixel, as
 // the JAX package's max(where(mask, x, -1)) does. A level outside [0, L)
 // breaks the caller's contract; it is dropped from the histogram (as a
-// one-hot drops it) so that no shared-memory index leaves its table.
-template <bool kMask>
+// one-hot drops it) and rescales to 0, so that no shared-memory index leaves
+// its table. With s_lv, the pass also leaves the block's rescaled levels
+// there (kMasked for a masked-out pixel).
+template <bool kMask, int kBlock>
 __device__ void histogram_pass(const int* px, const unsigned char* mk,
                                int HW, int L, const int* lut, long long item,
-                               int* s_hist, int* s_row, BlockScalars* s,
+                               bool vec, int* s_hist, int* s_row,
+                               unsigned short* s_lv, BlockScalars* s,
                                const Outputs& out) {
-  const int tid = threadIdx.x;
-  for (int k = tid; k < L; k += kThreads) s_hist[k] = 0;
+  const int tid = threadIdx.x, nt = kBlock;
+  for (int k = tid; k < L; k += nt) s_hist[k] = 0;
   if (tid == 0) {
     s->vmax = INT_MIN;
     s->count = 0;
@@ -160,14 +236,28 @@ __device__ void histogram_pass(const int* px, const unsigned char* mk,
   __syncthreads();
   int local_max = INT_MIN;
   int local_count = 0;
-  for (int p = tid; p < HW; p += kThreads) {
-    const int v = px[p];
-    const bool in = !kMask || mk[p] != 0;
+  auto visit = [&](int p, int v, bool in) {
+    const bool counted = in && static_cast<unsigned>(v) < static_cast<unsigned>(L);
     local_max = max(local_max, in ? v : -1);
-    if (in && static_cast<unsigned>(v) < static_cast<unsigned>(L)) {
-      atomicAdd(&s_hist[v], 1);
+    if (counted) {
       ++local_count;
+      atomicAdd(&s_hist[v], 1);
     }
+    if (s_lv != nullptr) {
+      s_lv[p] = !in ? kMasked : counted ? static_cast<unsigned short>(v) : kOutOfRange;
+    }
+  };
+  if (vec) {
+    for (int p4 = tid; p4 < (HW >> 2); p4 += nt) {
+      const int4 v = reinterpret_cast<const int4*>(px)[p4];
+      const unsigned m = kMask ? reinterpret_cast<const unsigned*>(mk)[p4] : 0xFFFFFFFFu;
+      visit(4 * p4, v.x, (m & 0xFFu) != 0);
+      visit(4 * p4 + 1, v.y, (m & 0xFF00u) != 0);
+      visit(4 * p4 + 2, v.z, (m & 0xFF0000u) != 0);
+      visit(4 * p4 + 3, v.w, (m & 0xFF000000u) != 0);
+    }
+  } else {
+    for (int p = tid; p < HW; p += nt) visit(p, px[p], !kMask || mk[p] != 0);
   }
   for (int o = 16; o > 0; o >>= 1) {
     local_max = max(local_max, __shfl_down_sync(0xffffffffu, local_max, o));
@@ -180,7 +270,7 @@ __device__ void histogram_pass(const int* px, const unsigned char* mk,
   __syncthreads();
   const int vmax = s->vmax;
   const int* row = lut + static_cast<long long>(min(max(vmax, 0), L - 1)) * L;
-  for (int k = tid; k < L; k += kThreads) {
+  for (int k = tid; k < L; k += nt) {
     s_row[k] = row[k];
     out.hist[item * L + k] = static_cast<float>(s_hist[k]);
   }
@@ -191,6 +281,13 @@ __device__ void histogram_pass(const int* px, const unsigned char* mk,
     out.vmax[item] = vmax;
   }
   __syncthreads();
+  if (s_lv != nullptr) {
+    for (int p = tid; p < HW; p += nt) {
+      const unsigned short v = s_lv[p];
+      if (v != kMasked) s_lv[p] = v == kOutOfRange ? 0 : static_cast<unsigned short>(s_row[v]);
+    }
+    __syncthreads();
+  }
 }
 
 // The pair window of offset (dr, dc) in 2-D indices (no flat shift, so
@@ -198,41 +295,130 @@ __device__ void histogram_pass(const int* px, const unsigned char* mk,
 // c0 + q % wn).
 struct Window {
   int r0, c0, wn, n_pairs, step;  // step: flat index of the right pixel - left
+  float inv_wn;                   // 1 / wn, for q / wn without a division
   __device__ Window(int H, int W, int dr, int dc) {
     r0 = max(0, -dr);
     c0 = max(0, -dc);
     wn = W - max(0, dc) - c0;
     n_pairs = (H - max(0, dr) - r0) * wn;
     step = dr * W + dc;
+    inv_wn = 1.0f / static_cast<float>(wn);
   }
+};
+
+// Where a pair walk reads its levels: the block's rescaled plane in shared
+// memory, or (plane == nullptr) the pixels, the mask and the rescale row.
+struct PairSource {
+  const unsigned short* plane;
+  const int* px;
+  const unsigned char* mk;
+  const int* s_row;
+  int L, W;
 };
 
 // Pair q's rescaled levels (i, j); false when masked and either end is out.
 template <bool kMask>
-__device__ __forceinline__ bool pair_levels(const Window& w, int q, int W,
-                                            const int* px,
-                                            const unsigned char* mk,
-                                            const int* s_row, int L, int* i,
-                                            int* j) {
-  const int rr = q / w.wn;
-  const int pl = (w.r0 + rr) * W + w.c0 + (q - rr * w.wn);
+__device__ __forceinline__ bool pair_levels(const PairSource& src, const Window& w,
+                                            int q, int* i, int* j) {
+  // q < 2^24 is exact in f32, so the product is q / wn to within one
+  int rr = static_cast<int>(static_cast<float>(q) * w.inv_wn);
+  rr += (q - rr * w.wn >= w.wn) - (q - rr * w.wn < 0);
+  const int pl = (w.r0 + rr) * src.W + w.c0 + (q - rr * w.wn);
   const int pr = pl + w.step;
-  if (kMask && (mk[pl] == 0 || mk[pr] == 0)) return false;
-  const int vl = px[pl];
-  const int vr = px[pr];
-  *i = static_cast<unsigned>(vl) < static_cast<unsigned>(L) ? s_row[vl] : 0;
-  *j = static_cast<unsigned>(vr) < static_cast<unsigned>(L) ? s_row[vr] : 0;
+  if (src.plane != nullptr) {
+    const int a = src.plane[pl], b = src.plane[pr];
+    if (kMask && (a == kMasked || b == kMasked)) return false;
+    *i = a;
+    *j = b;
+    return true;
+  }
+  if (kMask && (src.mk[pl] == 0 || src.mk[pr] == 0)) return false;
+  const int vl = src.px[pl];
+  const int vr = src.px[pr];
+  const unsigned L = static_cast<unsigned>(src.L);
+  *i = static_cast<unsigned>(vl) < L ? src.s_row[vl] : 0;
+  *j = static_cast<unsigned>(vr) < L ? src.s_row[vr] : 0;
   return true;
+}
+
+// op(i, j) for every admitted pair of the window (masked: both ends
+// masked), and the marginals and difference histogram of those pairs.
+// Returns this thread's admitted pairs.
+template <bool kMask, int kBlock, typename Op>
+__device__ __forceinline__ int walk_pairs(const PairSource& src, const Window& w, int* s_ml,
+                                          int* s_mr, int* s_dh, Op op) {
+  int local_pairs = 0;
+  for (int q = threadIdx.x; q < w.n_pairs; q += kBlock) {
+    int i, j;
+    if (!pair_levels<kMask>(src, w, q, &i, &j)) continue;
+    ++local_pairs;
+    atomicAdd(&s_ml[i], 1);
+    atomicAdd(&s_mr[j], 1);
+    atomicAdd(&s_dh[i - j + src.L - 1], 1);
+    op(i, j);
+  }
+  return local_pairs;
 }
 
 // The generic sum(G^2) limbs of one cell: g = a*2^12 + b ->
 // [a^2, a*b, b^2 >> 8, b^2 & 255], as tpumcia.features.stats encodes them.
-__device__ __forceinline__ void add_limbs(long long g, long long acc[4]) {
-  const long long a = g >> 12, b = g & 4095, bb = b * b;
-  acc[0] += a * a;
-  acc[1] += a * b;
-  acc[2] += bb >> 8;
-  acc[3] += bb & 255;
+// g < 2^24, so every limb is below 2^24.
+__device__ __forceinline__ void cell_limbs(int g, int l[4]) {
+  const int a = g >> 12, b = g & 4095, bb = b * b;
+  l[0] = a * a;
+  l[1] = a * b;
+  l[2] = bb >> 8;
+  l[3] = bb & 255;
+}
+
+// Add a cell's limbs (the band scan).
+__device__ __forceinline__ void add_limbs(int g, long long acc[4]) {
+  int l[4];
+  cell_limbs(g, l);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) acc[m] += l[m];
+}
+
+// A cell went from old to old + 1: add the change of its limbs (cheap: of
+// g^2, kept whole in acc[3]).
+__device__ __forceinline__ void add_delta(unsigned old, bool cheap, long long acc[4]) {
+  if (cheap) {
+    acc[3] += 2 * static_cast<long long>(old) + 1;
+    return;
+  }
+  int hi[4], lo[4];
+  cell_limbs(static_cast<int>(old) + 1, hi);
+  cell_limbs(static_cast<int>(old), lo);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) acc[m] += hi[m] - lo[m];
+}
+
+__device__ __forceinline__ unsigned slot_of(unsigned key, int bits) {
+  return (key * 0x9E3779B1u) >> (32 - bits);
+}
+
+// Count one more pair of key in the open-addressing table of 2^bits slots
+// (key in the high half of a slot, count in the low kShift bits; the zero
+// word is empty). Returns the key's count before the add.
+template <typename Slot, int kShift>
+__device__ __forceinline__ unsigned table_add(Slot* t, int bits, unsigned key) {
+  const unsigned wrap = (1u << bits) - 1u;
+  const Slot claim = (static_cast<Slot>(key) << kShift) | 1u;
+  for (unsigned h = slot_of(key, bits);; h = (h + 1u) & wrap) {
+    const Slot w = atomicCAS(&t[h], static_cast<Slot>(0), claim);
+    if (w == 0) return 0u;
+    if (static_cast<unsigned>(w >> kShift) == key) {
+      return static_cast<unsigned>(atomicAdd(&t[h], static_cast<Slot>(1)) &
+                                   ((static_cast<Slot>(1) << kShift) - 1));
+    }
+  }
+}
+
+// Count one more pair in cell k of the dense u16 G (two cells per u32 word;
+// every count stays below 2^16, so nothing carries into the other half).
+__device__ __forceinline__ unsigned dense_add(unsigned* g, unsigned k) {
+  const unsigned sh = 16u * (k & 1u);
+  return (atomicAdd(&g[k >> 1], 1u << sh) >> sh) & 0xFFFFu;
 }
 
 // Each warp's partial limb sums into s_red (followed by a block barrier).
@@ -247,31 +433,46 @@ __device__ __forceinline__ void reduce_limbs(long long acc[4],
   __syncthreads();
 }
 
+template <int kBlock>
+__device__ __forceinline__ void sum_warps(long long (*s_red)[4], long long sq4[4]) {
+  for (int m = 0; m < 4; ++m) sq4[m] = 0;
+  for (int w = 0; w < kBlock / 32; ++w) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) sq4[m] += s_red[w][m];
+  }
+}
+
 template <bool kMask, bool kNeedDiff>
-__global__ void __launch_bounds__(kThreads) glcm_stats_kernel(
+__global__ void __launch_bounds__(kThreads, 4) glcm_stats_kernel(
     const int* __restrict__ img, const unsigned char* __restrict__ mask,
     int mask_channels, int channels, const int* __restrict__ lut, int H,
-    int W, int L, Offsets offs, int cheap, Outputs out) {
-  extern __shared__ unsigned int g_words[];  // G as packed u16 pairs
+    int W, int L, Offsets offs, Layout lay, Outputs out) {
+  // G (pair table slots, or dense words), then the plane when it is kept
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_hist[kMaxLevels];
   __shared__ int s_ml[kMaxLevels];
   __shared__ int s_mr[kMaxLevels];
   __shared__ int s_dh[2 * kMaxLevels - 1];  // signed difference histogram
   __shared__ int s_row[kMaxLevels];         // rescale row lut[clamp(vmax)]
   __shared__ BlockScalars s;
-  __shared__ long long s_red[kWarps][4];
+  __shared__ long long s_red[kThreads / 32][4];
 
   const long long item = blockIdx.x;  // b * channels + c
   const long long items = gridDim.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, nt = kThreads;
   const int HW = H * W;
   const int* px;
   const unsigned char* mk;
   item_planes<kMask>(img, mask, mask_channels, channels, item, HW, &px, &mk);
-  const int n_words = (L * L + 1) / 2;
   const int n_diff = 2 * L - 1;
+  const int bits = lay.table_bits;
+  const bool cheap = lay.cheap != 0;
+  unsigned* g = reinterpret_cast<unsigned*>(smem);
+  const int g_words = bits ? 1 << bits : (L * L + 1) / 2;
+  unsigned short* s_lv = lay.plane ? reinterpret_cast<unsigned short*>(g + g_words) : nullptr;
 
-  histogram_pass<kMask>(px, mk, HW, L, lut, item, s_hist, s_row, &s, out);
+  histogram_pass<kMask, kThreads>(px, mk, HW, L, lut, item, lay.vec, s_hist, s_row, s_lv, &s, out);
+  const PairSource src{s_lv, px, mk, s_row, L, W};
 
   for (int o = 0; o < offs.n; ++o) {
     const Window win(H, W, offs.dr[o], offs.dc[o]);
@@ -279,58 +480,38 @@ __global__ void __launch_bounds__(kThreads) glcm_stats_kernel(
 
     // the previous offset's emission reads these tables: every thread is
     // past it (the __syncthreads at the end of the loop) before they reset
-    for (int k = tid; k < n_words; k += kThreads) g_words[k] = 0u;
-    for (int k = tid; k < L; k += kThreads) {
+    zero_words<kThreads>(g, g_words);
+    for (int k = tid; k < L; k += nt) {
       s_ml[k] = 0;
       s_mr[k] = 0;
     }
-    for (int k = tid; k < n_diff; k += kThreads) s_dh[k] = 0;
+    for (int k = tid; k < n_diff; k += nt) s_dh[k] = 0;
     if (tid == 0) s.pairs = 0;
     __syncthreads();
 
-    // pass 2: every pair of the offset window; masked, only pairs whose
-    // both ends are masked
-    int local_pairs = 0;
-    for (int q = tid; q < win.n_pairs; q += kThreads) {
-      int i, j;
-      if (!pair_levels<kMask>(win, q, W, px, mk, s_row, L, &i, &j)) continue;
-      ++local_pairs;
-      atomicAdd(&s_ml[i], 1);
-      atomicAdd(&s_mr[j], 1);
-      atomicAdd(&s_dh[i - j + L - 1], 1);
-      const int k = i * L + j;
-      atomicAdd(&g_words[k >> 1], 1u << (16 * (k & 1)));
-    }
+    // every pair of the offset window; masked, only pairs whose both ends
+    // are masked. sum(G^2) from the counts the G atomics return
+    long long acc[4] = {0, 0, 0, 0};
+    int local_pairs = walk_pairs<kMask, kThreads>(src, win, s_ml, s_mr, s_dh, [&](int i, int j) {
+      const unsigned k = static_cast<unsigned>(i * L + j);
+      add_delta(bits ? table_add<unsigned, 16>(g, bits, k) : dense_add(g, k), cheap, acc);
+    });
     local_pairs = warp_sum(local_pairs);
     if ((tid & 31) == 0) atomicAdd(&s.pairs, local_pairs);
     __syncthreads();
 
-    for (int k = tid; k < L; k += kThreads) {
+    for (int k = tid; k < L; k += nt) {
       out.marg_l[oi * L + k] = static_cast<float>(s_ml[k]);
       out.marg_r[oi * L + k] = static_cast<float>(s_mr[k]);
     }
     if (kNeedDiff) {
-      for (int k = tid; k < n_diff; k += kThreads) {
+      for (int k = tid; k < n_diff; k += nt) {
         out.dout[oi * n_diff + k] = static_cast<float>(s_dh[k]);
       }
     }
-
     // sum(G^2) limbs, same encodings as tpumcia.features.stats:
     //  cheap (H*W <= 4096 and L <= 256): s2 = sum g^2 -> [0, 0, s2>>8, s2&255]
     //  generic: g = a*2^12 + b -> [sum a^2, sum a*b, sum (b^2>>8), sum (b^2&255)]
-    long long acc[4] = {0, 0, 0, 0};
-    for (int k = tid; k < n_words; k += kThreads) {
-      const unsigned int w = g_words[k];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const long long g = (w >> (16 * half)) & 0xFFFFu;
-        if (cheap) {
-          acc[3] += g * g;
-        } else {
-          add_limbs(g, acc);
-        }
-      }
-    }
     reduce_limbs(acc, s_red);
 
     if (tid < 32) {
@@ -355,11 +536,8 @@ __global__ void __launch_bounds__(kThreads) glcm_stats_kernel(
         homog = warp_sum(homog);
       }
       if (tid == 0) {
-        long long sq4[4] = {0, 0, 0, 0};
-        for (int w = 0; w < kWarps; ++w) {
-#pragma unroll
-          for (int m = 0; m < 4; ++m) sq4[m] += s_red[w][m];
-        }
+        long long sq4[4];
+        sum_warps<kThreads>(s_red, sq4);
         int* sq = out.sumsq + oi * 4;
         if (cheap) {
           sq[0] = 0;
@@ -394,9 +572,11 @@ __global__ void __launch_bounds__(kThreads) glcm_stats_kernel(
 // else -1, for k < L; returns the number of k with counts[k] > 0. A block
 // scan: each thread counts a contiguous run of levels, warps scan the
 // counts with shuffles, warp 0 scans the warps' totals.
+template <int kBlock>
 __device__ int block_rank(const int* counts, int* rank, int L, int* s_scan) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = (L + kThreads - 1) / kThreads;
+  const int nt = kBlock, warps = nt >> 5;
+  const int per = (L + nt - 1) / nt;
   const int beg = min(L, tid * per), end = min(L, beg + per);
   int n = 0;
   for (int k = beg; k < end; ++k) n += counts[k] > 0;
@@ -408,115 +588,118 @@ __device__ int block_rank(const int* counts, int* rank, int L, int* s_scan) {
   if (lane == 31) s_scan[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int v = lane < kWarps ? s_scan[lane] : 0;
+    int v = lane < warps ? s_scan[lane] : 0;
     for (int o = 1; o < 32; o <<= 1) {
       const int y = __shfl_up_sync(0xffffffffu, v, o);
       if (lane >= o) v += y;
     }
-    if (lane < kWarps) s_scan[lane] = v;
+    if (lane < warps) s_scan[lane] = v;
   }
   __syncthreads();
   int next = x - n + (warp > 0 ? s_scan[warp - 1] : 0);
   for (int k = beg; k < end; ++k) rank[k] = counts[k] > 0 ? next++ : -1;
-  const int total = s_scan[kWarps - 1];
+  const int total = s_scan[warps - 1];
   __syncthreads();  // s_scan is reused by the next call
   return total;
 }
 
-// Form B1d (see the header): u32 G in bands over the occupied levels, the
-// difference histogram always, generic limbs. band_words: the u32 cells of
-// dynamic shared memory past the 7L-1 int tables (>= L).
-template <bool kMask>
-__global__ void __launch_bounds__(kThreads) glcm_stats_large_kernel(
+// Form B1d (see the header): the u64 pair table, or u32 G in bands over the
+// occupied levels; the difference histogram always, generic limbs.
+template <bool kMask, int kBlock>
+__global__ void __launch_bounds__(kBlock) glcm_stats_large_kernel(
     const int* __restrict__ img, const unsigned char* __restrict__ mask,
     int mask_channels, int channels, const int* __restrict__ lut, int H,
-    int W, int L, Offsets offs, int band_words, Outputs out) {
-  extern __shared__ int tables[];
-  int* s_hist = tables;            // L; after pass 1, the left-level ranks
-  int* s_rank_r = s_hist + L;      // L: the right-level ranks
-  int* s_row = s_rank_r + L;       // L: rescale row lut[clamp(vmax)]
-  int* s_ml = s_row + L;           // L
-  int* s_mr = s_ml + L;            // L
-  int* s_dh = s_mr + L;            // 2L-1: signed difference histogram
-  unsigned int* s_band = reinterpret_cast<unsigned int*>(s_dh + 2 * L - 1);
+    int W, int L, Offsets offs, Layout lay, Outputs out) {
+  // G (u64 table slots, or one band of u32 cells), the 6L-1 int tables (and
+  // the right-level ranks for bands), then the plane when it is kept
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bits = lay.table_bits;
+  unsigned long long* table = reinterpret_cast<unsigned long long*>(smem);
+  unsigned* s_band = reinterpret_cast<unsigned*>(smem);
+  int* s_hist = reinterpret_cast<int*>(
+      smem + (bits ? (8LL << bits) : 4LL * lay.band_words));  // after pass 1, the left-level ranks
+  int* s_row = s_hist + L;     // L: rescale row lut[clamp(vmax)]
+  int* s_ml = s_row + L;       // L
+  int* s_mr = s_ml + L;        // L
+  int* s_dh = s_mr + L;        // 2L-1: signed difference histogram
+  int* s_rank_r = s_dh + 2 * L - 1;  // L, bands only: the right-level ranks
   int* s_rank_l = s_hist;
+  unsigned short* s_lv = lay.plane ? reinterpret_cast<unsigned short*>(s_rank_r) : nullptr;
   __shared__ BlockScalars s;
-  __shared__ int s_scan[kWarps];
-  __shared__ long long s_red[kWarps][4];
+  __shared__ int s_scan[kBlock / 32];
+  __shared__ long long s_red[kBlock / 32][4];
 
   const long long item = blockIdx.x;  // b * channels + c
   const long long items = gridDim.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, nt = kBlock;
   const int HW = H * W;
   const int* px;
   const unsigned char* mk;
   item_planes<kMask>(img, mask, mask_channels, channels, item, HW, &px, &mk);
   const int n_diff = 2 * L - 1;
 
-  histogram_pass<kMask>(px, mk, HW, L, lut, item, s_hist, s_row, &s, out);
+  histogram_pass<kMask, kBlock>(px, mk, HW, L, lut, item, lay.vec, s_hist, s_row, s_lv, &s, out);
+  const PairSource src{s_lv, px, mk, s_row, L, W};
 
   for (int o = 0; o < offs.n; ++o) {
     const Window win(H, W, offs.dr[o], offs.dc[o]);
     const long long oi = o * items + item;  // row of this offset's outputs
 
-    for (int k = tid; k < L; k += kThreads) {
+    if (bits) zero_words<kBlock>(reinterpret_cast<unsigned*>(table), 2 << bits);
+    for (int k = tid; k < L; k += nt) {
       s_ml[k] = 0;
       s_mr[k] = 0;
     }
-    for (int k = tid; k < n_diff; k += kThreads) s_dh[k] = 0;
+    for (int k = tid; k < n_diff; k += nt) s_dh[k] = 0;
     if (tid == 0) s.pairs = 0;
     __syncthreads();
 
-    // the marginals, the difference histogram and the pair count
-    int local_pairs = 0;
-    for (int q = tid; q < win.n_pairs; q += kThreads) {
-      int i, j;
-      if (!pair_levels<kMask>(win, q, W, px, mk, s_row, L, &i, &j)) continue;
-      ++local_pairs;
-      atomicAdd(&s_ml[i], 1);
-      atomicAdd(&s_mr[j], 1);
-      atomicAdd(&s_dh[i - j + L - 1], 1);
-    }
+    // the marginals, the difference histogram, the pair count and, with
+    // the table, sum(G^2) from the counts its atomics return
+    long long acc[4] = {0, 0, 0, 0};
+    int local_pairs = walk_pairs<kMask, kBlock>(src, win, s_ml, s_mr, s_dh, [&](int i, int j) {
+      if (bits) {
+        const unsigned k = static_cast<unsigned>(i * L + j);
+        add_delta(table_add<unsigned long long, 32>(table, bits, k), false, acc);
+      }
+    });
     local_pairs = warp_sum(local_pairs);
     if ((tid & 31) == 0) atomicAdd(&s.pairs, local_pairs);
     __syncthreads();
-    for (int k = tid; k < L; k += kThreads) {
+    for (int k = tid; k < L; k += nt) {
       out.marg_l[oi * L + k] = static_cast<float>(s_ml[k]);
       out.marg_r[oi * L + k] = static_cast<float>(s_mr[k]);
     }
-    for (int k = tid; k < n_diff; k += kThreads) {
+    for (int k = tid; k < n_diff; k += nt) {
       out.dout[oi * n_diff + k] = static_cast<float>(s_dh[k]);
     }
 
-    // G over the occupied levels, R occupied rows at a time
-    const int occ_l = block_rank(s_ml, s_rank_l, L, s_scan);
-    const int occ_r = block_rank(s_mr, s_rank_r, L, s_scan);
-    const int rows = occ_r > 0 ? band_words / occ_r : 1;
-    long long acc[4] = {0, 0, 0, 0};
-    for (int lo = 0; lo < occ_l; lo += rows) {
-      const int n_rows = min(rows, occ_l - lo);
-      const int cells = n_rows * occ_r;
-      for (int k = tid; k < cells; k += kThreads) s_band[k] = 0u;
-      __syncthreads();
-      for (int q = tid; q < win.n_pairs; q += kThreads) {
-        int i, j;
-        if (!pair_levels<kMask>(win, q, W, px, mk, s_row, L, &i, &j)) continue;
-        const int band_row = s_rank_l[i] - lo;
-        if (static_cast<unsigned>(band_row) < static_cast<unsigned>(n_rows)) {
-          atomicAdd(&s_band[band_row * occ_r + s_rank_r[j]], 1u);
+    if (!bits) {
+      // G over the occupied levels, R occupied rows at a time
+      const int occ_l = block_rank<kBlock>(s_ml, s_rank_l, L, s_scan);
+      const int occ_r = block_rank<kBlock>(s_mr, s_rank_r, L, s_scan);
+      const int rows = occ_r > 0 ? lay.band_words / occ_r : 1;
+      for (int lo = 0; lo < occ_l; lo += rows) {
+        const int n_rows = min(rows, occ_l - lo);
+        zero_words<kBlock>(s_band, n_rows * occ_r);
+        __syncthreads();
+        for (int q = tid; q < win.n_pairs; q += nt) {
+          int i, j;
+          if (!pair_levels<kMask>(src, win, q, &i, &j)) continue;
+          const int band_row = s_rank_l[i] - lo;
+          if (static_cast<unsigned>(band_row) < static_cast<unsigned>(n_rows)) {
+            atomicAdd(&s_band[band_row * occ_r + s_rank_r[j]], 1u);
+          }
         }
+        __syncthreads();
+        for (int k = tid; k < n_rows * occ_r; k += nt) add_limbs(s_band[k], acc);
+        __syncthreads();  // the next band zeroes these cells
       }
-      __syncthreads();
-      for (int k = tid; k < cells; k += kThreads) add_limbs(s_band[k], acc);
-      __syncthreads();  // the next band zeroes these cells
     }
     reduce_limbs(acc, s_red);
     if (tid == 0) {
-      long long sq4[4] = {0, 0, 0, 0};
-      for (int w = 0; w < kWarps; ++w) {
-#pragma unroll
-        for (int m = 0; m < 4; ++m) sq4[m] += s_red[w][m];
-      }
+      long long sq4[4];
+      sum_warps<kBlock>(s_red, sq4);
 #pragma unroll
       for (int m = 0; m < 4; ++m) out.sumsq[oi * 4 + m] = static_cast<int>(sq4[m]);
       out.pairs[oi] = static_cast<float>(kMask ? s.pairs : win.n_pairs);
@@ -525,55 +708,112 @@ __global__ void __launch_bounds__(kThreads) glcm_stats_large_kernel(
   }
 }
 
-template <bool kMask, bool kNeedDiff>
-cudaError_t launch(const int* img, const unsigned char* mask,
-                   int mask_channels, int channels, const int* lut,
-                   int items, int H, int W, int L, const Offsets& offs,
-                   int cheap, const Outputs& out, cudaStream_t stream) {
-  const int smem = ((L * L + 1) / 2) * static_cast<int>(sizeof(unsigned int));
-  auto kernel = glcm_stats_kernel<kMask, kNeedDiff>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  if (items == 0) return cudaSuccess;
-  kernel<<<items, kThreads, smem, stream>>>(img, mask, mask_channels,
-                                            channels, lut, H, W, L, offs,
-                                            cheap, out);
-  return cudaGetLastError();
+using KernelFn = void (*)(const int*, const unsigned char*, int, int, const int*,
+                          int, int, int, Offsets, Layout, Outputs);
+
+// The eight instances: small <mask, need_diff>, then large <mask> with the
+// table's block size and with the bands'.
+constexpr int kInstances = 8;
+
+KernelFn kernel_at(int index) {
+  switch (index) {
+    case 0: return glcm_stats_kernel<false, false>;
+    case 1: return glcm_stats_kernel<false, true>;
+    case 2: return glcm_stats_kernel<true, false>;
+    case 3: return glcm_stats_kernel<true, true>;
+    case 4: return glcm_stats_large_kernel<false, kThreads>;
+    case 5: return glcm_stats_large_kernel<true, kThreads>;
+    case 6: return glcm_stats_large_kernel<false, kBandThreads>;
+    default: return glcm_stats_large_kernel<true, kBandThreads>;
+  }
 }
 
-// B1d: as much dynamic shared memory as the block may hold (no more than a
-// whole G of L*L cells needs), the tables first and the band after them.
-template <bool kMask>
-cudaError_t launch_large(const int* img, const unsigned char* mask,
-                         int mask_channels, int channels, const int* lut,
-                         int items, int H, int W, int L, const Offsets& offs,
-                         const Outputs& out, cudaStream_t stream) {
-  auto kernel = glcm_stats_large_kernel<kMask>;
+// Per instance, once: the dynamic shared memory a block of it may ask for
+// (the device's opt-in less the kernel's static use), raised to that cap,
+// and the carveout set to shared memory first, so that several blocks fit.
+struct KernelLimits {
+  cudaError_t err;
+  int smem_max;
+};
+
+KernelLimits configure(KernelFn kernel) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  const long long table_bytes = (7LL * L - 1) * sizeof(int);
-  const long long whole_g = table_bytes + 4LL * L * L;
-  long long smem = static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes);
-  if (smem > whole_g) smem = whole_g;
-  const long long band_words = (smem - table_bytes) / 4;
-  if (band_words < L) return cudaErrorInvalidValue;  // not one row of G
-  smem = table_bytes + band_words * 4;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  if (items == 0) return cudaSuccess;
-  kernel<<<items, kThreads, static_cast<size_t>(smem), stream>>>(
-      img, mask, mask_channels, channels, lut, H, W, L, offs,
-      static_cast<int>(band_words), out);
-  return cudaGetLastError();
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  const int smem_max = err == cudaSuccess ? optin - static_cast<int>(attr.sharedSizeBytes) : 0;
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  return {err, smem_max};
 }
+
+const KernelLimits& limits(int index) {
+  static std::once_flag once[kInstances];
+  static KernelLimits lim[kInstances];
+  std::call_once(once[index], [index] { lim[index] = configure(kernel_at(index)); });
+  return lim[index];
+}
+
+struct Plan {
+  KernelFn kernel;
+  int threads;
+  int smem;
+  Layout lay;
+};
+
+// The layout of a launch: G (table or dense / bands), the plane where it
+// fits beside G, the block size and the dynamic shared memory. The caller's
+// table_bits says only whether the table is smaller than G; this is the one
+// place that checks what fits in shared memory: a B1d table that does not
+// fit beside the 6L-1 int per-level tables takes the bands.
+cudaError_t plan(bool large, bool masked, bool need_diff, int HW, int L,
+                 int table_bits, int cheap, Plan* p) {
+  if (large && table_bits) {
+    const KernelLimits& lim = limits(4 + masked);
+    if (lim.err != cudaSuccess) return lim.err;
+    if ((8LL << table_bits) + 4LL * (6 * L - 1) > lim.smem_max) table_bits = 0;
+  }
+  const int index = large ? 4 + masked + (table_bits ? 0 : 2) : 2 * masked + need_diff;
+  const KernelLimits& lim = limits(index);
+  if (lim.err != cudaSuccess) return lim.err;
+  const long long smem_max = lim.smem_max;
+  const long long plane = 2LL * HW;
+  p->kernel = kernel_at(index);
+  p->lay = Layout{large ? 0 : cheap, table_bits, 0, 0, 0};
+  p->threads = kThreads;
+  long long g, tables = 0;
+  if (!large) {
+    g = table_bits ? 4LL << table_bits : 4LL * ((static_cast<long long>(L) * L + 1) / 2);
+  } else if (table_bits) {
+    g = 8LL << table_bits;
+    tables = 4LL * (6 * L - 1);
+  } else {
+    // bands: the whole opt-in (no more than a whole G of L*L cells needs)
+    tables = 4LL * (7 * L - 1);
+    long long smem = smem_max;
+    if (smem > tables + 4LL * L * L) smem = tables + 4LL * L * L;
+    const long long band_words = (smem - tables) / 4;
+    if (band_words < L) return cudaErrorInvalidValue;  // not one row of G
+    p->lay.band_words = static_cast<int>(band_words);
+    p->threads = kBandThreads;
+    p->smem = static_cast<int>(tables + 4 * band_words);
+    return cudaSuccess;
+  }
+  if (g + tables > smem_max) return cudaErrorInvalidValue;
+  p->lay.plane = g + tables + plane <= smem_max;
+  p->smem = static_cast<int>(g + tables + (p->lay.plane ? plane : 0));
+  return cudaSuccess;
+}
+
+bool is_large(long long hw, int L) { return hw >= 65536 || L > kMaxLevels; }
 
 }  // namespace
 
@@ -581,17 +821,19 @@ cudaError_t launch_large(const int* img, const unsigned char* mask,
 // uint8 (batch, mask_channels, H, W) with mask_channels 1 or channels.
 // dout: the difference histogram when need_diff, else dstats. Sizes with
 // H*W >= 65536 or L > 256 take the B1d kernel, which needs need_diff and
-// cheap == 0, L <= 4096 and H*W < 2^24.
+// cheap == 0, L <= 4096 and H*W < 2^24. table_bits: log2 of the pair
+// table's slots (at least 2x the largest offset's pair window), or 0 for
+// the dense G (small sizes) or the bands (B1d).
 extern "C" int tpumcia_glcm_stats(
     const int* img, const unsigned char* mask, int mask_channels,
     const int* lut, int batch, int channels, int H, int W, int L,
     const int* offsets, int num_offsets, int need_diff, int cheap,
-    float* hist, float* count, int* vmax, float* marg_l, float* marg_r,
-    float* dout, int* sumsq, float* pairs, void* stream) {
+    int table_bits, float* hist, float* count, int* vmax, float* marg_l,
+    float* marg_r, float* dout, int* sumsq, float* pairs, void* stream) {
   const long long hw = static_cast<long long>(H) * W;
-  const bool large = hw >= 65536 || L > kMaxLevels;
+  const bool large = is_large(hw, L);
   if (L < 1 || H < 1 || W < 1 || batch < 0 || channels < 1 ||
-      num_offsets < 1 || num_offsets > kMaxOffsets ||
+      num_offsets < 1 || num_offsets > kMaxOffsets || table_bits < 0 || table_bits > 24 ||
       (mask != nullptr && mask_channels != 1 && mask_channels != channels) ||
       (large && (!need_diff || cheap || L > kMaxLargeLevels ||
                  hw >= kMaxPixels))) {
@@ -604,29 +846,48 @@ extern "C" int tpumcia_glcm_stats(
   for (int o = 0; o < num_offsets; ++o) {
     offs.dr[o] = offsets[2 * o];
     offs.dc[o] = offsets[2 * o + 1];
+    // the table must hold every key of the largest window twice over
+    const long long n_pairs = static_cast<long long>(H - abs(offs.dr[o])) * (W - abs(offs.dc[o]));
+    if (table_bits && (1LL << table_bits) < 2 * n_pairs) return cudaErrorInvalidValue;
   }
+  Plan p;
+  cudaError_t err = plan(large, mask != nullptr, need_diff != 0, static_cast<int>(hw), L,
+                         table_bits, cheap, &p);
+  if (err != cudaSuccess) return err;
+  p.lay.vec = hw % 4 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0 &&
+              (mask == nullptr || reinterpret_cast<uintptr_t>(mask) % 4 == 0);
+  if (items == 0) return cudaSuccess;
   const Outputs out{hist, count, vmax, marg_l, marg_r, dout, sumsq, pairs};
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int n = static_cast<int>(items);
-  cudaError_t err;
-  if (large) {
-    err = mask != nullptr
-              ? launch_large<true>(img, mask, mask_channels, channels, lut, n,
-                                   H, W, L, offs, out, s)
-              : launch_large<false>(img, mask, 1, channels, lut, n, H, W, L,
-                                    offs, out, s);
-  } else if (mask != nullptr) {
-    err = need_diff ? launch<true, true>(img, mask, mask_channels, channels,
-                                         lut, n, H, W, L, offs, cheap, out, s)
-                    : launch<true, false>(img, mask, mask_channels, channels,
-                                          lut, n, H, W, L, offs, cheap, out, s);
-  } else {
-    err = need_diff ? launch<false, true>(img, mask, 1, channels, lut, n, H,
-                                          W, L, offs, cheap, out, s)
-                    : launch<false, false>(img, mask, 1, channels, lut, n, H,
-                                           W, L, offs, cheap, out, s);
+  p.kernel<<<static_cast<int>(items), p.threads, p.smem, static_cast<cudaStream_t>(stream)>>>(
+      img, mask, mask == nullptr ? 1 : mask_channels, channels, lut, H, W, L, offs, p.lay, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// info[0..4] <- threads per block, dynamic shared memory bytes, resident
+// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), whether
+// the plane is kept in shared memory, and the table_bits the launch uses (0
+// where plan() took the dense G or the bands), for a launch of that shape.
+extern "C" int tpumcia_glcm_launch_info(int H, int W, int L, int masked, int need_diff,
+                                        int table_bits, int* info) {
+  const long long hw = static_cast<long long>(H) * W;
+  if (L < 1 || H < 1 || W < 1 || hw >= kMaxPixels || table_bits < 0 || table_bits > 24) {
+    return cudaErrorInvalidValue;
   }
-  return static_cast<int>(err);
+  Plan p;
+  cudaError_t err = plan(is_large(hw, L), masked != 0, need_diff != 0, static_cast<int>(hw), L,
+                         table_bits, 0, &p);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, reinterpret_cast<const void*>(p.kernel), p.threads, p.smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = p.threads;
+  info[1] = p.smem;
+  info[2] = blocks;
+  info[3] = p.lay.plane;
+  info[4] = p.lay.table_bits;
+  return 0;
 }
 
 extern "C" const char* tpumcia_cuda_error_string(int code) {

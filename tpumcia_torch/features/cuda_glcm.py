@@ -16,14 +16,28 @@ extraction runs, each counted on its own in :data:`LAUNCHES_BY_FORM`:
 
 One thread block reduces one (image, channel): shared-memory atomic
 histograms for the raw levels, the two marginals and the difference
-histogram, and the co-occurrence matrix G from which the exact ``sum(G^2)``
-limbs are read; several offsets reuse the one histogram pass. Below the B1d
-sizes G is a 128 KB table of u16 counts. On an H100 what bounds that form
-is the 16 KB of int32 pixels each (image, channel) reads (once, then once
-per offset), the shared-memory atomics, and the zeroing and scan of G per
-offset, whose 128 KB also hold each SM to one resident block. At the B1d
-sizes G is u32 and built in bands over the occupied levels, each band
-re-walking the pixel pairs; the source says more.
+histogram, and the exact ``sum(G^2)`` limbs of the co-occurrence matrix G;
+several offsets reuse the one histogram pass. Every form is bound by the
+bytes it moves (:func:`traffic_bytes`; no arithmetic worth counting), and
+what keeps a block from that bound is latency, so the kernel spends few
+atomics and keeps several blocks on each SM:
+
+- ``sum(G^2)`` comes from the counts G's atomics return (for any per-cell
+  f with f(0) = 0, the sum over cells of f(G) is the sum over adds of
+  f(old + 1) - f(old)), so G is never scanned;
+- G's counts live in an open-addressing table sized to the pairs
+  (:func:`pair_table_slots`: 8,192 slots at 48x48 and 64x64), u32 slots
+  at <= 256 levels and u64 at the B1d sizes, not in an L x L array; where
+  that table would be larger than a dense G, the small sizes keep the
+  dense u16 G and the B1d sizes build a u32 G in bands over the occupied
+  levels, each band re-walking the pixel pairs and scanned (256x256
+  planes);
+- where it fits, each block keeps its plane's levels in shared memory as
+  u16, so each pixel and mask byte is read from device memory once;
+- dynamic shared memory is sized to the layout, and the table layouts run
+  256-thread blocks, several per SM (:func:`launch_info` reports them).
+
+The source says more.
 
 :func:`sufficient_stats` and :func:`sufficient_stats_multi` take the kernel
 for a CUDA tensor and the plain version only for a CPU tensor; anything
@@ -59,6 +73,7 @@ LAUNCHES_BY_FORM = {"B1a": 0, "B1b": 0, "B1c": 0, "B2": 0, "B1d": 0}
 MAX_KERNEL_LEVELS = 4096
 MAX_KERNEL_PIXELS = (1 << 24) - 1  # H*W
 MAX_OFFSETS = 16  # the kernel's fixed-size offset argument
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory at 700 W (NVIDIA's data sheet)
 # co-occurrence cells the plain version counts at once: 512 images' G at
 # 256 levels, 256 MB of int64
 _G_CELLS_PER_CHUNK = 1 << 25
@@ -104,6 +119,80 @@ def _window(H: int, W: int, offset) -> tuple[int, int, int, int]:
     if r0 >= r1 or c0 >= c1:
         raise ValueError(f"GLCM offset {tuple(offset)} leaves no valid pairs for {H}x{W}")
     return r0, r1, c0, c1
+
+
+def _pairs(H: int, W: int, offset) -> int:
+    r0, r1, c0, c1 = _window(H, W, offset)
+    return (r1 - r0) * (c1 - c0)
+
+
+def pair_table_slots(H: int, W: int, offsets, levels: int) -> int:
+    """The slots of the kernel's pair count table for ``offsets`` on HxW
+    planes at ``levels``: the smallest power of two that holds twice the
+    largest offset's pair window (so the table stays at most half full), or
+    0 where that table would be larger than a dense G, whose layout the
+    kernel takes then: the packed u16 G below the B1d sizes (4 bytes a slot
+    against L*L/2 words), the bands of u32 cells at them (8 bytes a slot
+    against L*L cells). Whether the table fits in shared memory is the
+    kernel's to check: at the B1d sizes one that does not fit beside the
+    per-level tables takes the bands (:func:`launch_info` says which)."""
+    slots = 1 << (2 * max(_pairs(H, W, o) for o in offsets) - 1).bit_length()
+    if is_large(H * W, levels):
+        smaller = 8 * slots <= 4 * levels * levels
+    else:
+        smaller = 4 * slots <= 4 * ((levels * levels + 1) // 2)
+    return slots if smaller else 0
+
+
+def table_bits(slots: int) -> int:
+    """log2 of :func:`pair_table_slots`' count, 0 for the dense or band
+    layout: the kernel's ``table_bits`` argument."""
+    return slots.bit_length() - 1 if slots else 0
+
+
+def traffic_bytes(shape, levels: int, offsets, *, mask_channels: int = 0,
+                  need_diff: bool = False) -> int:
+    """The bytes one launch must move: each input read once (the int32
+    levels, the (B, mask_channels, H, W) uint8 mask, and the rows of the
+    L x L int32 rescale table it needs: one per (image, channel), at most
+    L) and each output written once (hist, count, vmax, and per offset both
+    marginals, the difference histogram or dstats, the limbs and the pair
+    count). The kernel's bound is this over the card's memory rate: no form
+    does arithmetic worth counting."""
+    B, C, H, W = shape
+    L, O, n = levels, len(offsets), B * C
+    read = 4 * n * H * W + B * mask_channels * H * W + 4 * L * min(n, L)
+    once = 4 * n * L + 4 * n + 4 * n  # hist, count, vmax
+    per_offset = 4 * n * (2 * L + (2 * L - 1 if need_diff else 4) + 4 + 1)
+    return read + once + O * per_offset
+
+
+def bound_ms(nbytes: int) -> float:
+    """The least time an H100 SXM could take to move ``nbytes``."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def launch_info(shape, levels: int, offsets, *, masked: bool, need_diff: bool) -> dict:
+    """What a kernel launch on a CUDA tensor of ``shape`` would use, as the
+    kernel plans it: its layout (``"table"`` with its slots, ``"dense"`` or
+    ``"bands"``), the block size, the dynamic shared memory per block, the
+    resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
+    and whether the block keeps its plane in shared memory. Needs the
+    card."""
+    from tpumcia_torch import _build
+
+    _, _, H, W = shape
+    info = (ctypes.c_int * 5)()
+    _build.check(
+        _build.load_library().tpumcia_glcm_launch_info(
+            H, W, levels, int(masked), int(need_diff),
+            table_bits(pair_table_slots(H, W, offsets, levels)), info),
+        "glcm_stats launch info",
+    )
+    slots = 1 << info[4] if info[4] else 0
+    layout = "table" if slots else ("bands" if is_large(H * W, levels) else "dense")
+    return {"layout": layout, "table_slots": slots, "threads": info[0],
+            "smem_bytes": info[1], "blocks_per_sm": info[2], "plane_in_smem": bool(info[3])}
 
 
 def sufficient_stats(
@@ -200,6 +289,7 @@ def _launch(img, mask, levels, offsets, need_diff) -> tuple[SuffStats, ...]:
             1 if mask is None else mask.shape[1], lut.data_ptr(),
             B, C, H, W, L, flat_offsets, O, int(need_diff),
             int(cheap_limbs(H * W, L)),
+            table_bits(pair_table_slots(H, W, offsets, L)),
             hist.data_ptr(), count.data_ptr(), vmax.data_ptr(),
             marg_l.data_ptr(), marg_r.data_ptr(), dout.data_ptr(),
             sumsq.data_ptr(), pairs.data_ptr(),

@@ -224,7 +224,7 @@ class LogisticHead(_Head):
     @classmethod
     def from_numpy(
         cls, params: dict, classes, dmin, dmax, *, config: HeadConfig | None = None,
-        device="cpu",
+        device="cuda",
     ) -> "LogisticHead":
         """Carry over a fitted tpumcia head: its ``{"w", "b"}`` and the
         scaler's per-feature min/max (``dmin``/``dmax`` None: no scaler)."""
@@ -252,7 +252,7 @@ class LogisticHead(_Head):
         np.savez(path, w=self.w.cpu().numpy(), b=self.b.cpu().numpy(), **self._payload())
 
     @classmethod
-    def load(cls, path, *, device="cpu") -> "LogisticHead":
+    def load(cls, path, *, device="cuda") -> "LogisticHead":
         with np.load(path, allow_pickle=False) as z:
             return cls(_tensor(z["w"], device), _tensor(z["b"], device), z["classes"],
                        scaler=cls._scaler_from_npz(z, device), config=_config_from_npz(z))
@@ -292,7 +292,7 @@ class MLPHead(_Head):
     @classmethod
     def from_numpy(
         cls, params: dict, classes, dmin, dmax, *, config: HeadConfig | None = None,
-        device="cpu",
+        device="cuda",
     ) -> "MLPHead":
         """Carry over a fitted tpumcia MLP head (its params pytree of
         arrays) and the scaler's per-feature min/max (None: no scaler)."""
@@ -323,7 +323,7 @@ class MLPHead(_Head):
         np.savez(path, **payload, **self._payload())
 
     @classmethod
-    def load(cls, path, *, device="cpu") -> "MLPHead":
+    def load(cls, path, *, device="cuda") -> "MLPHead":
         with np.load(path, allow_pickle=False) as z:
             hidden = tuple(
                 {"w": _tensor(z[f"hidden{i}_w"], device), "b": _tensor(z[f"hidden{i}_b"], device)}
