@@ -36,7 +36,23 @@ Phases (any failure exits nonzero, and no result line is printed):
      images with 2 noise channels synthesized on the card, the host f64
      backend that hybrid becomes at 65536 pixels, logistic head; then an
      MLP head, ablation and coefficient importance on its feature matrix;
-  9. prints the kernels' JSON line and, last, the device JSON line.
+  9. the notebook's forest slice (BASELINE config 2 with the random-forest
+     head, the reference's own method): the bench workload of phase 4
+     through ``run_pipeline`` with ``head.kind='random_forest'`` at
+     tpumcia's defaults (100 trees, no depth cap, seed 0) and
+     fast_path='auto', so the classic path: the forest grown on the card,
+     the channel sweep through it on the card, MDI as the feature view;
+     checks launches, accuracy, the signal channel in both views, MDI, the
+     inference form, both forms against each other, and a small forest
+     grown on the card and on the CPU from one seed (bit-equal trees), times
+     it (objects/s) and one staged run;
+ 10. cytometry with morphology: phase 5's objects with
+     ``include_morphology=True`` (12 x (23 + 8) columns, the classic path),
+     the forest head and MDI (``channel_method='auto'``); checks launches,
+     donors, accuracy, the signal channel, the morphology block against the
+     CPU and against the shared mask's own values, and ``glcm_matrix`` and
+     ``intensity_features_direct`` on the card against the CPU; times it;
+ 11. prints the kernels' JSON line and, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -62,6 +78,8 @@ CYTO_N, CYTO_HW, CYTO_CH, CYTO_SIGNAL = 16_384, 48, 12, 4
 CLASSIC_LEVELS = 1024  # phase 7: 16-bit data at 4x finer levels than 256
 FIELD_PER_CLASS, FIELD_HW = 200, 256  # phase 8: 1,200 256x256 fields
 FOUR_OFFSETS = ((0, 5), (4, 4), (5, 0), (4, -4))  # distance 5 at 0, 45, 90, 135 degrees
+FOREST_SMALL = (600, 10)  # phase 9's card-vs-CPU forest: rows, trees
+FOREST_PROBA_ATOL = 1e-6  # GEMM vs lock-step: the same leaves, f32 sums in another order
 SOURCE = "tpumcia_torch/csrc/glcm_stats.cu"
 # each kernel form and the TPU kernel it replaces
 FORMS = {
@@ -804,6 +822,219 @@ def phase_classic_fields(device, timed_runs=3, n_check=8):
     }
 
 
+def _tree_stats(head) -> dict:
+    """The forest's size and which inference form its DeviceForest runs."""
+    import numpy as np
+
+    nodes = [t.node_count for t in head.trees]
+    return {"trees": len(nodes), "nodes_mean": float(np.mean(nodes)), "nodes_max": int(max(nodes)),
+            "depth_max": int(max(t.max_depth for t in head.trees)), "form": head.to_device().form}
+
+
+def _forest_forms(head, X, reps=5) -> dict:
+    """Both inference forms of ``head``'s forest on the scaled rows ``X``:
+    equal to FOREST_PROBA_ATOL (the lock-step form run directly where the
+    GEMM form is the forest's), and each one's median seconds."""
+    import torch
+
+    f = head.to_device()
+    x = head.scaler.transform(torch.as_tensor(X, dtype=torch.float32, device=f.device))
+    out, secs = {}, {}
+    for form in ("gemm", "lockstep") if f.gemm is not None else ("lockstep",):
+        runs = []
+        for _ in range(reps):
+            _sync(f.device)
+            t0 = time.perf_counter()
+            out[form] = f.apply(x, form=form)
+            _sync(f.device)
+            runs.append(time.perf_counter() - t0)
+        secs[form] = statistics.median(runs)
+    if "gemm" in out:
+        diff = (out["gemm"] - out["lockstep"]).abs().max().item()
+        if not diff <= FOREST_PROBA_ATOL:
+            raise AssertionError(f"GEMM and lock-step probabilities differ by {diff}")
+        secs["gemm_vs_lockstep"] = diff
+    return secs
+
+
+def phase_forest(device, n_images=N_IMAGES, timed_runs=3):
+    """BASELINE config 2 with the random-forest head (ipynb:404-434, 495):
+    the bench workload on the classic path, the forest grown on the card.
+    Returns (B1a launches, record)."""
+    import numpy as np
+    import torch
+
+    import tpumcia_torch as tt
+    from tpumcia_torch.io.synthetic import synthetic_mednist
+    from tpumcia_torch.models.heads import fit_head
+    from tpumcia_torch.pipeline.run import _fast_path_ok
+    from tpumcia_torch.utils.profiling import StageTimer
+
+    gray, labels, _ = synthetic_mednist(n_images // 6, num_classes=6, seed=0)
+    cfg = dataclasses.replace(
+        _slice_config(), head=tt.HeadConfig(kind="random_forest", n_estimators=100, max_depth=None, seed=0),
+        fast_path="auto",
+    )
+    if _fast_path_ok(cfg, gray, None):
+        raise AssertionError("the forest head should route to the classic path")
+
+    def run(timer=None):
+        out = tt.run_pipeline(gray, labels, config=cfg, device=device, timer=timer)
+        _sync(device)
+        return out
+
+    launches, times, result = _timed_runs(run, timed_runs, "B1a", -(-len(gray) // BATCH))
+    X = result.features.values
+    if X.shape != (len(gray), 69) or not np.isfinite(np.nan_to_num(X)).all():
+        raise AssertionError(f"feature matrix {X.shape} is not finite (N, 69)")
+    if result.feature_result.method != "mdi" or result.channel_result.method != "permutation":
+        raise AssertionError(f"views {result.channel_result.method} / {result.feature_result.method}")
+    if not _signal_first(result):
+        raise AssertionError(f"signal channel not first: permutation {result.channel_result.total}, "
+                             f"MDI {result.feature_result.total}")
+    if result.test_accuracy < 0.90:
+        raise AssertionError(f"test accuracy {result.test_accuracy} < 0.90")
+    head = result.head
+    t0 = time.perf_counter()
+    mdi = head.mdi_importance()
+    mdi_s = time.perf_counter() - t0
+    if not (np.isfinite(mdi).all() and (mdi >= 0).all() and abs(mdi.sum() - 1.0) < 1e-9):
+        raise AssertionError(f"MDI not a distribution: sum {mdi.sum()}, min {mdi.min()}")
+    trees = _tree_stats(head)
+    Xf = np.nan_to_num(X.astype(np.float32))
+    tr, te = result.train_idx, result.test_idx
+    forms = _forest_forms(head, Xf[te])
+
+    # a small forest grown on the card and on the CPU from one seed
+    n, T = FOREST_SMALL
+    small = tt.HeadConfig(kind="random_forest", n_estimators=T, seed=0)
+    card = fit_head(Xf[tr[:n]], labels[tr[:n]], device=device, config=small)
+    cpu = fit_head(Xf[tr[:n]], labels[tr[:n]], device="cpu", config=small)
+    for a, b in zip(card.trees, cpu.trees):
+        for name in ("children_left", "children_right", "feature", "threshold", "value", "impurity",
+                     "n_node_samples", "weighted_n_node_samples"):
+            if not np.array_equal(getattr(a, name), getattr(b, name)):
+                raise AssertionError(f"forest on the card differs from the CPU's in {name}")
+    small_acc = (card.score(Xf[te], labels[te]), cpu.score(Xf[te], labels[te]))
+
+    timer = StageTimer(device)
+    staged = run(timer)
+    med = statistics.median(times)
+    log(f"  runs (s): {times!r}")
+    log(f"  median {med!r} s = {len(gray) / med!r} img/s over {len(gray)} images; B1a launches {launches}")
+    log(f"  test_accuracy {result.test_accuracy!r}; permutation totals {result.channel_result.total.tolist()!r}; "
+        f"MDI totals {result.feature_result.total.tolist()!r}")
+    log(f"  forest: {json.dumps(trees)}; MDI {mdi_s!r} s on the host")
+    log(f"  inference on the {len(te)} test rows (s): {json.dumps(forms)}")
+    log(f"  {T} trees on {n} rows: card == CPU bit for bit; accuracy card {small_acc[0]!r}, CPU {small_acc[1]!r}")
+    log(f"  staged run (synchronised at each stage, s): {json.dumps(timer.totals)}; "
+        f"timings {json.dumps(staged.timings)}")
+    return launches, {
+        "img_per_s": len(gray) / med, "median_s": med, "runs_s": times,
+        "test_accuracy": result.test_accuracy, "stages_s": timer.totals, "timings_s": staged.timings,
+        "mdi_s": mdi_s, "forest": trees, "inference_s": forms,
+        "small_forest_accuracy": {"card": small_acc[0], "cpu": small_acc[1]},
+        "permutation_totals": result.channel_result.total.tolist(),
+        "mdi_totals": result.feature_result.total.tolist(),
+    }
+
+
+def phase_cytometry_morphology(device, data, timed_runs=3, n_cpu=64):
+    """Phase 5's objects with morphology, the forest head and MDI on the
+    classic path; the A9 functions on the card against the CPU. Returns
+    (B1b launches, record)."""
+    import numpy as np
+    import torch
+
+    import tpumcia_torch as tt
+    from tpumcia_torch.features.intensity_direct import intensity_features_direct
+    from tpumcia_torch.utils.profiling import StageTimer
+
+    (raw, mask, labels, donors), _ = data
+    n = len(raw)
+    x = tt.quantize_to_levels(torch.from_numpy(raw).to(device), levels=LEVELS, src_levels=65536)
+    feats = tt.FeatureConfig(include_morphology=True)
+    cfg = tt.PipelineConfig(
+        features=feats,
+        head=tt.HeadConfig(kind="random_forest", n_estimators=100, seed=0),
+        importance=tt.ImportanceConfig(channel_method="auto"),
+        split=tt.SplitConfig(test_size=0.25, seed=0, group_by="donor"),
+        fast_path="auto",
+        batch_size=BATCH,
+    )
+
+    def run(timer=None):
+        out = tt.run_pipeline(x, labels, mask=mask, groups=donors, config=cfg, device=device, timer=timer)
+        _sync(device)
+        return out
+
+    launches, times, result = _timed_runs(run, timed_runs, "B1b", -(-n // BATCH))
+    X = result.features.values
+    F = CYTO_CH * (23 + 8)
+    if X.shape != (n, F) or not np.isfinite(np.nan_to_num(X)).all():
+        raise AssertionError(f"feature matrix {X.shape} is not finite ({n}, {F})")
+    train_donors = {str(d) for d in donors[result.train_idx]}
+    test_donors = {str(d) for d in donors[result.test_idx]}
+    if train_donors & test_donors or not test_donors:
+        raise AssertionError(f"donor split leaks: train {train_donors}, test {test_donors}")
+    total = np.asarray(result.channel_result.total)
+    if result.channel_result.method != "mdi" or int(np.argmax(total)) != CYTO_SIGNAL:
+        raise AssertionError(f"{result.channel_result.method}: signal channel {CYTO_SIGNAL} not first: "
+                             f"{total.tolist()}")
+    if result.test_accuracy < 0.95:
+        raise AssertionError(f"test accuracy {result.test_accuracy} < 0.95")
+
+    # the morphology block: every channel's is the shared mask's, and the
+    # card's equals the CPU's
+    own = tt.morphology_features(mask[:n_cpu], device=device).cpu().numpy()[:, 0]
+    for cols in result.features.channel_columns():
+        if not np.array_equal(X[:n_cpu, cols[-8:]], own.astype(np.float64)):
+            raise AssertionError("a channel's morphology is not the shared mask's")
+    cpu = tt.extract_features(x[:n_cpu].cpu(), mask[:n_cpu], device="cpu", config=feats)
+    morph = slice(CYTO_CH * 23, None)
+    if not np.allclose(X[:n_cpu, morph], cpu.values[:, morph], rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"morphology card vs CPU: {np.abs(X[:n_cpu, morph] - cpu.values[:, morph]).max()}")
+    feat_diff = float(np.nanmax(np.abs(X[:n_cpu] - cpu.values)))
+    if not feat_diff <= FEATURE_ATOL:
+        raise AssertionError(f"card vs CPU features differ by {feat_diff}")
+    # the matrix API and the direct intensity features on a few objects
+    few = x[:4].cpu().numpy()
+    g_card = tt.glcm_matrix(x[:4], mask[:4], device=device, distances=[1, 5], angles=[0.0, np.pi / 2])
+    g_cpu = tt.glcm_matrix(few, mask[:4], device="cpu", distances=[1, 5], angles=[0.0, np.pi / 2])
+    if not torch.equal(g_card.cpu(), g_cpu):
+        raise AssertionError("glcm_matrix on the card differs from the CPU")
+    props = tt.glcm_properties(g_card.movedim(-1, 0).movedim(-1, 0), device=device)
+    props_cpu = tt.glcm_properties(g_cpu.movedim(-1, 0).movedim(-1, 0), device="cpu")
+    for name, v in props.items():
+        torch.testing.assert_close(v.cpu(), props_cpu[name], rtol=1e-6, atol=1e-6)
+    d_card = intensity_features_direct(raw[:8], mask[:8], device=device).cpu()
+    d_cpu = intensity_features_direct(raw[:8], mask[:8], device="cpu")
+    torch.testing.assert_close(d_card, d_cpu, rtol=1e-6, atol=1e-6 * float(d_cpu.abs().max()), equal_nan=True)
+
+    head = result.head
+    t0 = time.perf_counter()
+    head.mdi_importance()
+    mdi_s = time.perf_counter() - t0
+    trees = _tree_stats(head)
+    timer = StageTimer(device)
+    staged = run(timer)
+    med = statistics.median(times)
+    log(f"  runs (s): {times!r}")
+    log(f"  median {med!r} s = {n / med!r} objects/s over {n} objects, {F} columns; B1b launches {launches}")
+    log(f"  test_accuracy {result.test_accuracy!r}; test donors {sorted(test_donors)}; "
+        f"MDI channel totals {total.tolist()!r}")
+    log(f"  forest: {json.dumps(trees)}; MDI {mdi_s!r} s on the host")
+    log(f"  card vs CPU on {n_cpu} objects: features {feat_diff!r}, morphology rel 1e-5; glcm_matrix "
+        "bit-equal, properties and direct intensity features to 1e-6")
+    log(f"  staged run (synchronised at each stage, s): {json.dumps(timer.totals)}; "
+        f"timings {json.dumps(staged.timings)}")
+    return launches, {
+        "objects_per_s": n / med, "median_s": med, "runs_s": times, "b1b_launches": launches,
+        "test_accuracy": result.test_accuracy, "stages_s": timer.totals, "timings_s": staged.timings,
+        "mdi_s": mdi_s, "forest": trees, "channel_totals": total.tolist(), "card_vs_cpu": feat_diff,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -819,8 +1050,8 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: tpumcia_torch not found next to this script ({e})", file=sys.stderr)
         return 1
-    if "jax" in sys.modules or "tpumcia" in sys.modules:
-        print("chip_smoke: importing tpumcia_torch pulled in jax/tpumcia", file=sys.stderr)
+    if any(m in sys.modules for m in ("jax", "tpumcia", "sklearn")):
+        print("chip_smoke: importing tpumcia_torch pulled in jax/tpumcia/sklearn", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
 
@@ -870,24 +1101,33 @@ def main() -> int:
 
     log("== classic slice at 1024 levels (B1d)")
     levels_launches, classic_1024 = phase_classic_levels(device, cyto)
-    del cyto
 
     log("== classic slice on 256x256 fields (B1d)")
     fields_launches, classic_256px = phase_classic_fields(device)
     kernels["B1d"]["launches"] = levels_launches + fields_launches
+
+    log("== the notebook's forest slice (random forest, MDI)")
+    launches, forest_rec = phase_forest(device)
+    kernels["B1a"]["launches"] += launches
+
+    log("== cytometry with morphology (random forest, MDI)")
+    launches, cyto_morph_rec = phase_cytometry_morphology(device, cyto)
+    kernels["B1b"]["launches"] += launches
+    del cyto
 
     print(gpu_line, flush=True)
     print(json.dumps({
         "kernels": [{"form": form, **kernels[form]} for form in FORMS],
         "slice": slice_rec, "cytometry": cyto_rec, "extract_features": extract_rec,
         "classic_1024": classic_1024, "classic_256px": classic_256px,
+        "forest": forest_rec, "cytometry_morphology": cyto_morph_rec,
     }), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
-            "count": 1,  # the devices this run used
+            "count": torch.cuda.device_count(),
         },
     }), flush=True)
     return 0

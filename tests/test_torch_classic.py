@@ -110,7 +110,6 @@ def test_mlp_init_replay_is_tpumcias_draw():
 
 
 @pytest.mark.parametrize("kind,match,exc", [
-    ("random_forest", "A10", NotImplementedError),
     ("svm", "unknown head kind", ValueError),
 ])
 def test_fit_head_refuses_what_it_does_not_fit(kind, match, exc):
@@ -185,9 +184,10 @@ def test_channel_importance_matches_jax(method, monkeypatch):
 
 
 def test_channel_importance_refuses_mdi_and_a_mesh():
+    """MDI needs a forest (tpumcia's TypeError); a mesh is not ported."""
     X, y = _problem()
     head = fit_head(X, y, device="cpu", config=HeadConfig(num_steps=5))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="mdi requires a RandomForestHead"):
         channel_importance(head, _fm(X), y, method="mdi")
     with pytest.raises(NotImplementedError, match="A14"):
         channel_importance(head, _fm(X), y, mesh=object())
@@ -229,6 +229,10 @@ def test_routing_mirrors_jax():
     grid = [
         {}, {"fast_path": "always"}, {"fast_path": "never"},
         {"head": {"kind": "mlp"}, "fast_path": "always"},
+        {"head": {"kind": "random_forest"}, "fast_path": "always"},
+        {"importance": {"channel_method": "mdi"}, "fast_path": "always"},
+        {"importance": {"channel_method": "auto"}, "fast_path": "always"},
+        {"features": {"include_morphology": True}, "fast_path": "always"},
         {"normalize": "none", "fast_path": "always"},
         {"importance": {"channel_match": "substring"}, "fast_path": "always"},
         {"importance": {"channel_method": "ablation"}, "fast_path": "always"},
@@ -331,14 +335,16 @@ def test_classic_slice_with_noise_channels_runs_on_the_port_stream():
     assert classic.channel_result.ranking[0] == fast.channel_result.ranking[0] == 0
 
 
-@pytest.mark.parametrize("change,match", [
-    ({"head": {"kind": "random_forest"}}, "A10"),
-    ({"importance": {"channel_method": "mdi"}}, "A10"),
-    ({"features": {"include_morphology": True}}, "A9"),
+@pytest.mark.parametrize("change,exc,match", [
+    ({"head": {"kind": "random_forest"}, "mesh": {"data": 2}}, NotImplementedError, "A14"),
+    ({"importance": {"channel_method": "mdi"}}, TypeError, "mdi requires a RandomForestHead"),
+    ({"features": {"include_morphology": True}}, ValueError, "requires a mask"),
 ])
-def test_classic_path_raises_named_errors(change, match):
+def test_classic_path_raises_named_errors(change, exc, match):
+    """What the classic path still refuses, with tpumcia's errors: MDI on a
+    logistic head, morphology without a mask; and a mesh (not ported)."""
     x, labels = _images_512(n_per_class=2)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         run_pipeline((x >> 1).astype(np.uint8), labels, config=change, device="cpu")
 
 

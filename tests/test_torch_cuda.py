@@ -2,7 +2,8 @@
 maskless, B1b masked, B1c with the difference histogram, B2 several
 offsets, B1d at 65536 pixels or more than 256 levels) against its plain
 version, the wrapper's checks, and the slice and
-``extract_features`` on the card against the same calls on the CPU.
+``extract_features`` on the card against the same calls on the CPU, the
+forest fitted on the card against the CPU fit and the morphology block.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The file
 imports neither jax nor tpumcia, so it also runs where only torch is
@@ -313,3 +314,47 @@ def test_extract_features_on_card_matches_cpu():
         np.testing.assert_array_equal(card.degenerate, cpu.degenerate)
     dev_vals = tt.extract_features(x, m, device=dev, config=tt.FeatureConfig(precision="device"))
     assert dev_vals.values.device.type == "cuda" and dev_vals.values.dtype == torch.float32
+
+
+def test_forest_fit_on_card_equals_cpu_fit():
+    """The same seed grows the same forest on the card and on the CPU (every
+    split sum is an integer in float64), and both inference forms give the
+    same probabilities on the card."""
+    dev = require_cuda()
+    from tpumcia_torch.config import HeadConfig
+    from tpumcia_torch.models.heads import fit_head
+
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 4, 600)
+    X = rng.normal(size=(600, 30)).astype(np.float32)
+    X[:, :3] += y[:, None]
+    X[:, 5] = np.round(X[:, 5])  # ties in a column
+    cfg = HeadConfig(kind="random_forest", n_estimators=10, seed=3)
+    card = fit_head(X, y, device=dev, config=cfg)
+    cpu = fit_head(X, y, device="cpu", config=cfg)
+    for a, b in zip(card.trees, cpu.trees):
+        for name in ("children_left", "children_right", "feature", "threshold", "value", "impurity",
+                     "n_node_samples", "weighted_n_node_samples"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
+    f = card.to_device()
+    x = card.scaler.transform(torch.from_numpy(X).to(dev))
+    torch.testing.assert_close(f.apply(x, form="lockstep"), f.apply(x, form="gemm"), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(card.predict(X), cpu.predict(X))
+
+
+def test_morphology_on_card_matches_cpu():
+    dev = require_cuda()
+    from tpumcia_torch.config import FeatureConfig
+    from tpumcia_torch.features.extract import extract_features
+    from tpumcia_torch.features.morphology import morphology_features
+
+    rng = np.random.default_rng(1)
+    images = rng.integers(0, 256, size=(64, 48, 48, 4)).astype(np.uint8)
+    yy, xx = np.mgrid[:48, :48]
+    mask = np.hypot(yy - 24, xx - 24)[None] < rng.uniform(5, 20, size=(64, 1, 1))
+    torch.testing.assert_close(morphology_features(mask, device=dev).cpu(),
+                               morphology_features(mask, device="cpu"), rtol=1e-5, atol=1e-5)
+    cfg = FeatureConfig(include_morphology=True)
+    card = extract_features(images, mask, device=dev, config=cfg)
+    cpu = extract_features(images, mask, device="cpu", config=cfg)
+    np.testing.assert_allclose(card.values[:, -32:], cpu.values[:, -32:], rtol=1e-5, atol=1e-5)

@@ -184,7 +184,7 @@ def test_b1d_sizes_run_on_the_cpu(levels, shape):
 
 
 @pytest.mark.parametrize("kw,shape,exc,match", [
-    ({"include_morphology": True}, (1, 8, 8, 1), NotImplementedError, "A9"),
+    ({"include_morphology": True}, (1, 8, 8, 1), ValueError, "requires a mask"),
     ({"include_intensity": False, "include_glcm": False}, (1, 8, 8, 1), ValueError, "family"),
     ({"precision": "fast"}, (1, 8, 8, 1), ValueError, "precision"),
     ({}, (8, 8, 1), ValueError, "expected"),

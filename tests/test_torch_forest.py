@@ -1,0 +1,371 @@
+"""The random-forest head of tpumcia_torch against sklearn and tpumcia, on
+the CPU: the port's own tree grower (``models/forest_fit.py``) against
+sklearn's trees, a fitted sklearn forest carried across
+(``RandomForestHead.from_sklearn``), its inference forms, MDI, the forest
+sweeps (device and host), the port's own forest against tpumcia's, and the
+classic ``run_pipeline`` slice with the forest head.
+
+Tolerances:
+- tree structure, ``n_node_samples``: equal; thresholds: bit-equal;
+  ``value``, ``impurity``, ``weighted_n_node_samples``: 1e-12 (every sum is
+  an integer in float64, so these are exact in practice);
+- forest probabilities against sklearn: 1e-6 (f32 leaf fractions, averaged
+  in f32);
+- MDI against ``feature_importances_``: 1e-12 (float64, the same order);
+- sweep drops: the same predictions (fully grown trees have 0/1 leaves and
+  8 trees average them exactly), so the drops differ by f32 rounding of the
+  accuracies only (1.2e-7, one f32 ulp at 1);
+- the port's own forest against tpumcia's (other random streams): accuracy
+  within 0.05, channel rankings equal.
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+from sklearn.tree import DecisionTreeClassifier
+
+from torch_parity import replay_jax_draws
+from tpumcia.config import HeadConfig as JHeadConfig
+from tpumcia.config import ImportanceConfig as JImportanceConfig
+from tpumcia.importance import channels as jchannels
+from tpumcia.importance import permutation as jperm
+from tpumcia.models import heads as jheads
+from tpumcia.models.forest_device import DeviceForest as JDeviceForest
+from tpumcia.pipeline.run import run_pipeline as jax_run_pipeline
+from tpumcia_torch.config import HeadConfig, ImportanceConfig
+from tpumcia_torch.features import registry
+from tpumcia_torch.features.extract import FeatureMatrix
+from tpumcia_torch.importance import mdi
+from tpumcia_torch.importance import permutation as perm
+from tpumcia_torch.importance.channels import channel_importance
+from tpumcia_torch.models import forest_device, forest_fit
+from tpumcia_torch.models.forest_device import DeviceForest
+from tpumcia_torch.models.heads import LogisticHead, RandomForestHead, fit_head
+from tpumcia_torch.models.scaler import MinMaxScaler
+from tpumcia_torch.pipeline.run import run_pipeline
+
+TREE_ARRAYS = ("children_left", "children_right", "feature", "threshold", "value", "impurity",
+               "n_node_samples", "weighted_n_node_samples")
+
+
+def _gaussian(seed, n=300, f=10, k=3):
+    """Tie-free continuous rows (3 classes) with the label in feature 0, and
+    bootstrap counts as sample weights (zeros included)."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, k, n)
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    X[:, 0] += 0.8 * y
+    w = np.bincount(rng.integers(0, n, n), minlength=n).astype(np.float64)
+    return X, y, w
+
+
+def _sklearn_orders(tree_, num_features):
+    """A feature order per node that visits sklearn's chosen feature first:
+    with every feature visited (max_features=F), the grower then reproduces
+    sklearn's tree exactly when sklearn's choice is a first maximum of the
+    Gini proxy, and ties between features (a two-row node splits the same
+    way on every feature) break as sklearn's random order broke them. Nodes
+    are keyed by depth, left to right, as the grower asks for them."""
+    by_depth, frontier = [], [0]
+    while frontier:
+        by_depth.append([int(tree_.feature[n]) for n in frontier])
+        frontier = [c for n in frontier if tree_.children_left[n] != -1
+                    for c in (tree_.children_left[n], tree_.children_right[n])]
+
+    def orders(tree, depth, n):
+        out = np.tile(np.arange(num_features), (n, 1))
+        for i, f in enumerate(by_depth[depth][:n] if depth < len(by_depth) else []):
+            if f >= 0:
+                out[i] = [f] + [g for g in range(num_features) if g != f]
+        return torch.from_numpy(out)
+
+    return orders
+
+
+def _assert_tree_equal(got, want):
+    for name in ("children_left", "children_right", "feature", "n_node_samples"):
+        np.testing.assert_array_equal(getattr(got, name), np.asarray(getattr(want, name)), err_msg=name)
+    np.testing.assert_array_equal(got.threshold, np.asarray(want.threshold))  # bit-equal
+    for name in ("value", "impurity", "weighted_n_node_samples"):
+        np.testing.assert_allclose(getattr(got, name), np.asarray(getattr(want, name)),
+                                   rtol=0, atol=1e-12, err_msg=name)
+    assert got.max_depth == want.max_depth
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("max_depth", [None, 4])
+def test_grower_reproduces_sklearn_trees(seed, max_depth):
+    """The port's grower against ``DecisionTreeClassifier(max_features=None)``
+    with the same bootstrap counts as ``sample_weight``."""
+    X, y, w = _gaussian(seed)
+    sk = DecisionTreeClassifier(max_depth=max_depth, random_state=seed).fit(X, y, sample_weight=w)
+    got = forest_fit.grow_trees(
+        torch.from_numpy(X), torch.from_numpy(y), 3, torch.from_numpy(w)[None],
+        max_depth=max_depth, max_features=X.shape[1],
+        feature_orders=_sklearn_orders(sk.tree_, X.shape[1]),
+    )
+    assert len(got) == 1 and got[0].node_count == sk.tree_.node_count > 20
+    _assert_tree_equal(got[0], sk.tree_)
+
+
+def test_grower_chunks_trees_without_changing_them():
+    """Several trees grown in one chunk or one per chunk are the same trees."""
+    X, y, _ = _gaussian(3, n=120)
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(np.stack([np.bincount(rng.integers(0, 120, 120), minlength=120)
+                                   for _ in range(5)]).astype(np.float64))
+
+    def grow(chunk):
+        gens = [torch.Generator().manual_seed(t) for t in range(5)]
+        return forest_fit.grow_trees(torch.from_numpy(X), torch.from_numpy(y), 3, w, max_depth=None,
+                                     max_features=3, feature_orders=forest_fit.RandomOrders(gens, 10),
+                                     chunk_elems=chunk)
+
+    for a, b in zip(grow(1 << 30), grow(1)):
+        for name in TREE_ARRAYS:
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+
+
+def test_feature_visits_continue_past_constant_features():
+    """sklearn's visit rule: after ``max_features`` visits the node stops,
+    unless every feature visited so far was constant in it."""
+    rng = np.random.default_rng(0)
+    y = np.repeat([0, 1], 20)
+    X = np.zeros((40, 4), np.float32)
+    X[:, 2] = y + 0.1 * rng.random(40)  # separates the classes
+    X[:, 3] = rng.random(40)  # a weaker split
+    w = torch.ones((1, 40), dtype=torch.float64)
+
+    def root_feature(order):
+        trees = forest_fit.grow_trees(
+            torch.from_numpy(X), torch.from_numpy(y), 2, w, max_depth=1, max_features=1,
+            feature_orders=lambda t, d, n: torch.tensor([order] * n),
+        )
+        return int(trees[0].feature[0])
+
+    assert root_feature([0, 1, 3, 2]) == 3  # two constants, then one visit
+    assert root_feature([0, 1, 2, 3]) == 2
+    assert root_feature([3, 2, 0, 1]) == 3  # one visit only
+
+
+@pytest.fixture(scope="module")
+def sk_head():
+    """A tpumcia forest head (sklearn's fit) on a small 3-channel matrix, its
+    training rows and the held-out rows."""
+    rng = np.random.default_rng(7)
+    n, channels = 240, 3
+    y = rng.integers(0, 3, n)
+    X = rng.normal(size=(n, 23 * channels)).astype(np.float32)
+    X[:, 0] += 1.5 * y
+    X[:, 17 * channels] -= 1.0 * y
+    head = jheads.fit_head(X[:160], y[:160], config=JHeadConfig(kind="random_forest", n_estimators=8))
+    return head, X, y
+
+
+def _port_of(head, device="cpu"):
+    scaler = MinMaxScaler.from_stats(head.scaler.data_min, head.scaler.data_max, device=device)
+    return RandomForestHead.from_sklearn(head.model, scaler=scaler, config=HeadConfig(kind="random_forest"),
+                                         device=device)
+
+
+def test_sklearn_forest_carried_across(sk_head):
+    head, X, y = sk_head
+    port = _port_of(head)
+    for got, est in zip(port.trees, head.model.estimators_):
+        _assert_tree_equal(got, est.tree_)
+    # the inference arrays: tpumcia's own layout of the same forest
+    want = JDeviceForest.from_sklearn(head.model, head.classes, head.scaler)
+    f = port.to_device()
+    for name in ("feature", "threshold", "left", "right", "leaf_proba"):
+        np.testing.assert_array_equal(getattr(f, name).numpy(), np.asarray(getattr(want, name)), err_msg=name)
+    assert f.depth == want.depth and f.form == "gemm"
+    for g, w in zip(f.gemm, want.gemm):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # sklearn's probabilities and labels, and both inference forms agree
+    Xs = np.asarray(head.scaler.transform(X))
+    proba = port.predict_proba(X).numpy()
+    np.testing.assert_allclose(proba, head.model.predict_proba(Xs), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(port.predict(X), head.predict(X))
+    lock = f.apply(port.scaler.transform(torch.from_numpy(X)), form="lockstep").numpy()
+    np.testing.assert_allclose(lock, proba, rtol=0, atol=1e-6)
+    assert port.score(X[160:], y[160:]) == head.score(X[160:], y[160:])
+    # MDI
+    np.testing.assert_allclose(port.mdi_importance(), head.model.feature_importances_, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(mdi.mdi_importance(port), head.mdi_importance(), rtol=0, atol=1e-12)
+
+
+def test_lockstep_form_is_taken_past_the_gemm_cells(sk_head, monkeypatch):
+    """A forest whose (leaves x internal nodes) exceeds ``_GEMM_MAX_CELLS``
+    is laid out for the lock-step descent only, as in tpumcia."""
+    head, X, _ = sk_head
+    monkeypatch.setattr(forest_device, "_GEMM_MAX_CELLS", 4)
+    port = _port_of(head)
+    assert port.to_device().form == "lockstep" and port.to_device().gemm is None
+    np.testing.assert_allclose(port.predict_proba(X).numpy(),
+                               head.model.predict_proba(np.asarray(head.scaler.transform(X))),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_forest_sweep_matches_jax(sk_head, grouped, monkeypatch):
+    """The device sweep over the forest with JAX's permutations replayed:
+    drops equal to tpumcia's ``_perm_sweep`` over its ``DeviceForest``."""
+    head, X, y = sk_head
+    replay_jax_draws(monkeypatch)
+    groups = registry.columns_by_channel_positional(3) if grouped else None
+    want = jperm.permutation_importance(head, X[160:], y[160:], n_repeats=3, seed=5, groups=groups)
+    got = perm.permutation_importance(_port_of(head), X[160:], y[160:], n_repeats=3, seed=5, groups=groups)
+    assert got.baseline_score == want.baseline_score
+    np.testing.assert_allclose(got.importances, np.asarray(want.importances), rtol=0, atol=1.2e-7)
+
+
+def test_host_sweep_matches_sklearns(sk_head):
+    """``permutation_importance_host`` (numpy) against tpumcia's, which calls
+    sklearn's ``permutation_importance``: the same shuffles, the same
+    scores."""
+    head, X, y = sk_head
+    want = jperm.permutation_importance_host(head, X[160:], y[160:], n_repeats=3, seed=4)
+    port = _port_of(head)
+    got = perm.permutation_importance_host(port, X[160:], y[160:], n_repeats=3, seed=4)
+    assert got.baseline_score == want.baseline_score
+    np.testing.assert_array_equal(got.importances, want.importances)
+    np.testing.assert_array_equal(got.importances_std, want.importances_std)
+    # the host sweep takes any head with score(), a logistic one too
+    lg = fit_head(X[:160], y[:160], device="cpu", config=HeadConfig(num_steps=20))
+    res = perm.permutation_importance_host(lg, X[160:], y[160:], n_repeats=2, seed=4)
+    assert res.importances.shape == (X.shape[1], 2)
+
+
+def _graded_matrix(n, seed):
+    """(n, 69) features of 3 channels: channel 0 carries the label strongly,
+    channel 1 weakly, channel 2 not at all."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 2, n)
+    X = rng.normal(size=(n, 69)).astype(np.float32)
+    ch = registry.columns_by_channel_positional(3)
+    X[:, ch[0][:4]] += 2.0 * y[:, None]
+    X[:, ch[1][:2]] += 0.6 * y[:, None]
+    return X, y
+
+
+def test_port_forest_against_tpumcias():
+    """The port's own forest (its fit, its random streams) against tpumcia's
+    sklearn forest on the same matrix: accuracy within 0.05, the MDI and
+    permutation channel rankings equal, the signal channel first."""
+    X, y = _graded_matrix(400, 1)
+    tr, te = slice(0, 300), slice(300, 400)
+    jh = jheads.fit_head(X[tr], y[tr], config=JHeadConfig(kind="random_forest", n_estimators=40))
+    th = fit_head(X[tr], y[tr], device="cpu", config=HeadConfig(kind="random_forest", n_estimators=40))
+    assert isinstance(th, RandomForestHead) and len(th.trees) == 40
+    assert abs(th.score(X[te], y[te]) - jh.score(X[te], y[te])) <= 0.05
+    for method in ("mdi", "permutation"):
+        want = jchannels.channel_importance(jh, _jfm(X[te]), y[te], method=method,
+                                            config=JImportanceConfig(n_repeats=5))
+        got = channel_importance(th, _fm(X[te]), y[te], method=method, config=ImportanceConfig(n_repeats=5))
+        assert got.method == want.method == method
+        assert got.ranking.tolist() == want.ranking.tolist() == [0, 1, 2], (method, got.total, want.total)
+    auto = channel_importance(th, _fm(X[te]), y[te])
+    assert auto.method == "mdi"
+    np.testing.assert_allclose(auto.total.sum(), th.mdi_importance()[th.mdi_importance() > 0.01].sum())
+
+
+def _fm(X):
+    return FeatureMatrix(values=X, names=registry.feature_names(3), num_channels=3)
+
+
+def _jfm(X):
+    from tpumcia.features import registry as jregistry
+    from tpumcia.features.extract import FeatureMatrix as JFeatureMatrix
+
+    return JFeatureMatrix(values=X, names=jregistry.feature_names(3), num_channels=3, degenerate=None)
+
+
+def test_same_seed_same_forest():
+    X, y = _graded_matrix(150, 2)
+    cfg = HeadConfig(kind="random_forest", n_estimators=6, seed=3)
+    a, b = (fit_head(X, y, device="cpu", config=cfg) for _ in range(2))
+    c = fit_head(X, y, device="cpu", config=HeadConfig(kind="random_forest", n_estimators=6, seed=4))
+    for ta, tb in zip(a.trees, b.trees):
+        for name in TREE_ARRAYS:
+            np.testing.assert_array_equal(getattr(ta, name), getattr(tb, name))
+    assert any(not np.array_equal(ta.feature, tc.feature) for ta, tc in zip(a.trees, c.trees))
+    np.testing.assert_allclose(a.mdi_importance().sum(), 1.0, rtol=0, atol=1e-12)
+
+
+def test_forest_checkpoint_round_trip(tmp_path):
+    X, y = _graded_matrix(120, 3)
+    head = fit_head(X, y * 5 + 1, device="cpu",
+                    config=HeadConfig(kind="random_forest", n_estimators=5, max_depth=6, seed=9))
+    head.save(tmp_path / "rf.npz")
+    back = RandomForestHead.load(tmp_path / "rf.npz", device="cpu")
+    assert back.config == head.config and back.num_features == 69
+    np.testing.assert_array_equal(back.classes, head.classes)
+    for ta, tb in zip(head.trees, back.trees):
+        for name in TREE_ARRAYS:
+            np.testing.assert_array_equal(getattr(ta, name), getattr(tb, name))
+        assert ta.max_depth == tb.max_depth <= 6
+    np.testing.assert_array_equal(back.predict(X), head.predict(X))
+    torch.testing.assert_close(back.scaler.data_max, head.scaler.data_max)
+    np.testing.assert_array_equal(back.mdi_importance(), head.mdi_importance())
+
+
+def test_restored_forest_and_scaler_default_to_the_card():
+    """Like the other heads' ``load``, the forest's ``load``, ``from_sklearn``
+    and ``fit``'s tensors follow the rule that the port runs on the card
+    unless asked; ``MinMaxScaler.from_stats`` too."""
+    for fn in (RandomForestHead.load, RandomForestHead.from_sklearn, DeviceForest.from_arrays,
+               DeviceForest.from_sklearn, MinMaxScaler.from_stats):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    s = MinMaxScaler.from_stats([0.0, 1.0], [2.0, 3.0], device="cpu")
+    assert s.data_min.device.type == "cpu" and s.data_min.dtype == torch.float32
+
+
+def test_mdi_needs_a_forest():
+    X, y = _graded_matrix(80, 4)
+    lg = fit_head(X, y, device="cpu", config=HeadConfig(num_steps=5))
+    assert isinstance(lg, LogisticHead)
+    with pytest.raises(TypeError, match="forests"):
+        mdi.mdi_importance(lg)
+    rf = fit_head(X, y, device="cpu", config=HeadConfig(kind="random_forest", n_estimators=3))
+    out = mdi.mdi_channel_importance(rf, _fm(X))
+    assert out.method == "mdi" and out.ranking[0] == 0
+
+
+def _graded_images(n_per_class, seed):
+    """(N, 24, 24, 3) uint8 images of 2 classes on N(80, 20) backgrounds:
+    channel 0 a bright blob in class 1, channel 1 a mean shift of 4 levels
+    in class 1 (weaker), channel 2 constant (no signal, ties at 0)."""
+    rng = np.random.default_rng(seed)
+    n = 2 * n_per_class
+    labels = np.repeat([0, 1], n_per_class)
+    yy, xx = np.mgrid[:24, :24]
+    blob = np.exp(-((yy - 12) ** 2 + (xx - 12) ** 2) / 30.0)
+    x = rng.normal(80, 20, size=(n, 24, 24, 3))
+    x[..., 0] += 120 * blob[None] * labels[:, None, None]
+    x[..., 1] += 4 * labels[:, None, None]
+    x[..., 2] = 7
+    order = rng.permutation(n)
+    return np.clip(x, 0, 255).astype(np.uint8)[order], labels[order]
+
+
+@pytest.mark.parametrize("channel_method", ["auto", "mdi", "permutation"])
+def test_classic_slice_with_the_forest_matches_jax(channel_method, monkeypatch):
+    """``run_pipeline`` with ``head.kind='random_forest'`` on a CPU device
+    against tpumcia's (sklearn's forest): the same split, the same channel
+    ranking in both views, MDI as the feature view."""
+    images, labels = _graded_images(40, 0)
+    replay_jax_draws(monkeypatch)
+    cfg = {"head": {"kind": "random_forest", "n_estimators": 30}, "batch_size": 64,
+           "split": {"stratify": True}, "importance": {"channel_method": channel_method, "n_repeats": 4}}
+    want = jax_run_pipeline(images, labels, config=cfg)
+    got = run_pipeline(images, labels, config=cfg, device="cpu")
+    np.testing.assert_array_equal(got.test_idx, want.test_idx)
+    assert isinstance(got.head, RandomForestHead)
+    assert got.feature_result.method == want.feature_result.method == "mdi"
+    assert got.channel_result.method == want.channel_result.method
+    assert got.channel_result.ranking.tolist() == want.channel_result.ranking.tolist()
+    assert got.feature_result.ranking.tolist() == want.feature_result.ranking.tolist() == [0, 1, 2]
+    assert got.channel_result.ranking[0] == 0
+    assert abs(got.test_accuracy - want.test_accuracy) <= 0.1 and got.test_accuracy >= 0.9

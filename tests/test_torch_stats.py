@@ -144,10 +144,16 @@ def test_offset_without_pairs_raises():
 
 
 def test_import_leaves_jax_and_tpumcia_out():
+    """Importing the port and every module of it leaves jax, tpumcia and
+    sklearn out (the GPU machine has no jax and no sklearn)."""
     code = (
         "import sys, tpumcia_torch, tpumcia_torch.features.cuda_glcm, "
-        "tpumcia_torch.features.hybrid, tpumcia_torch.models.fused; "
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tpumcia.')) "
-        "or m == 'tpumcia']; assert not bad, bad"
+        "tpumcia_torch.features.hybrid, tpumcia_torch.models.fused, "
+        "tpumcia_torch.models.forest_fit, tpumcia_torch.models.forest_device, "
+        "tpumcia_torch.importance.mdi, tpumcia_torch.importance.permutation, "
+        "tpumcia_torch.features.morphology, tpumcia_torch.features.props, "
+        "tpumcia_torch.features.intensity_direct, tpumcia_torch.features.stats; "
+        "bad = [m for m in sys.modules if m in ('jax', 'tpumcia', 'sklearn') "
+        "or m.startswith(('jax.', 'tpumcia.', 'sklearn.'))]; assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

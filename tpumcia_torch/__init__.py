@@ -5,15 +5,18 @@ fused fast path and the classic path that tpumcia takes for every other
 configuration. Seeded noise-channel synthesis or masked multichannel input,
 the 23-per-channel intensity + GLCM feature matrix (GLCM statistics from a
 hand-written CUDA kernel, ``csrc/glcm_stats.cu``, at any image size and up
-to 4096 levels), a logistic or MLP head (``fit_head``), and channel
-importance by permutation, per-feature permutation, ablation or
-coefficients (``channel_importance``). ``extract_features`` runs tpumcia's
+to 4096 levels) with per-channel mask morphology as an option, a logistic,
+MLP or random-forest head (``fit_head``; the forest is grown on the device
+with sklearn's semantics and no sklearn), and channel importance by MDI,
+permutation, per-feature permutation, ablation or coefficients
+(``channel_importance``). ``extract_features`` runs tpumcia's
 single-device extraction in every precision (hybrid, exact, device), masked
-or not, at one GLCM offset or several. Not ported yet: the random-forest
-head and MDI, morphology, h5 ingestion, streaming, the CNN, multi-GPU and
+or not, at one GLCM offset or several; ``glcm_matrix`` and
+``glcm_properties`` give the co-occurrence matrices and their skimage
+properties. Not ported yet: h5 ingestion, streaming, the CNN, multi-GPU and
 the CLI (ROADMAP).
 Module paths and function names mirror ``tpumcia`` so each counterpart is
-easy to find. It imports neither ``jax`` nor ``tpumcia``.
+easy to find. It imports neither ``jax`` nor ``tpumcia`` nor ``sklearn``.
 
     >>> import tpumcia_torch as tt
     >>> res = tt.run_pipeline(gray, labels, device="cuda", config=tt.PipelineConfig(
@@ -37,8 +40,12 @@ from tpumcia_torch.features.extract import (
     extract_features_batched,
     extract_features_pending,
 )
+from tpumcia_torch.features.morphology import morphology_features
+from tpumcia_torch.features.props import glcm_properties
+from tpumcia_torch.features.registry import feature_names, num_features
+from tpumcia_torch.features.stats import glcm_matrix
 from tpumcia_torch.importance.channels import channel_importance
-from tpumcia_torch.models.heads import fit_head
+from tpumcia_torch.models.heads import RandomForestHead, fit_head
 from tpumcia_torch.pipeline.run import PipelineResult, run_pipeline
 from tpumcia_torch.preprocess.normalize import quantize_to_levels
 
@@ -55,7 +62,13 @@ __all__ = [
     "extract_features",
     "extract_features_batched",
     "extract_features_pending",
+    "feature_names",
+    "num_features",
+    "morphology_features",
+    "glcm_properties",
+    "glcm_matrix",
     "fit_head",
+    "RandomForestHead",
     "channel_importance",
     "PipelineResult",
     "run_pipeline",

@@ -24,8 +24,10 @@ copied to the host at the end. :func:`extract_features_batched` takes it
 when the config allows and runs :func:`extract_features` per batch
 otherwise.
 
-Morphology (ROADMAP A9) and a device mesh (A14) raise
-``NotImplementedError``. On a CUDA device the kernel's bounds (4096 levels,
+With ``include_morphology`` (a mask is required) each channel's 8 mask
+shape features come last; a shared (B, H, W) mask gives every channel its 8
+values. A device mesh (ROADMAP A14) raises ``NotImplementedError``. On a
+CUDA device the kernel's bounds (4096 levels,
 2^24 pixels) raise a ``ValueError``; a CPU device takes every size.
 """
 
@@ -274,10 +276,8 @@ def _extract_features(images, mask=None, *, device, config, channel_names, mesh=
             "extraction over a device mesh is not ported yet (ROADMAP A14); "
             "tpumcia_torch runs on the one device it is given"
         )
-    if cfg.include_morphology:
-        raise NotImplementedError(
-            "morphology features are not ported to tpumcia_torch yet (ROADMAP A9)"
-        )
+    if cfg.include_morphology and mask is None:
+        raise ValueError("include_morphology requires a mask")
     if not (cfg.include_intensity or cfg.include_glcm):
         raise ValueError("at least one feature family must be enabled")
     backends = {"exact": "host", "hybrid": "hybrid", "device": "device"}
@@ -361,14 +361,26 @@ def _extract_features(images, mask=None, *, device, config, channel_names, mesh=
         )
         add_block(done.values, done.degenerate)
 
-    stamp("finalize")
     num_channels = images.shape[-1]
+    if cfg.include_morphology:
+        from tpumcia_torch.features.morphology import morphology_features
+
+        # the mask plane's (B, 1 or C, 8) shape features, a shared mask's
+        # for every channel
+        morph = morphology_features(m.permute(0, 2, 3, 1), device=device)
+        morph = morph.expand(-1, num_channels, -1)
+        morph = morph.reshape(morph.shape[0], -1)
+        if not isinstance(value_blocks[0], torch.Tensor):
+            morph = morph.cpu().numpy().astype(value_blocks[0].dtype)
+        value_blocks.append(morph)
+    stamp("finalize")
     names = registry.feature_names(
         num_channels,
         include_intensity=cfg.include_intensity,
         include_glcm=cfg.include_glcm,
         channel_names=channel_names,
         glcm_pair_labels=cfg.glcm.pair_labels,
+        include_morphology=cfg.include_morphology,
     )
     if len(value_blocks) == 1:
         values = value_blocks[0]

@@ -1,5 +1,5 @@
 """Feature naming and column layout (a numpy copy of
-``tpumcia.features.registry``; morphology columns are not ported yet).
+``tpumcia.features.registry``).
 
 Column order is the reference's dict-insertion order (SURVEY.md §2.3;
 ipynb:327-334): the 17 intensity features for channel 1..C first, then the 6
@@ -82,7 +82,11 @@ def feature_names(
                 for f in GLCM_FEATURES
             ]
     if include_morphology:
-        _no_morphology()
+        # morphology names append last, matching extract.py and the
+        # positional layout below
+        from tpumcia_torch.features.morphology import morphology_feature_names
+
+        names += morphology_feature_names(num_channels, channel_names)
     return names
 
 
@@ -97,7 +101,9 @@ def num_features(
         NUM_GLCM * num_glcm_blocks if include_glcm else 0
     )
     if include_morphology:
-        _no_morphology()
+        from tpumcia_torch.features.morphology import MORPHOLOGY_FEATURES
+
+        per += len(MORPHOLOGY_FEATURES)
     return per * num_channels
 
 
@@ -126,7 +132,8 @@ def columns_by_channel_positional(
     include_morphology: bool = False,
 ) -> list[list[int]]:
     """Per-channel column groups from the deterministic block layout
-    (intensity C x 17 channel-major, then per-offset GLCM C x 6 blocks) —
+    (intensity C x 17 channel-major, then per-offset GLCM C x 6 blocks, then
+    morphology C x 8) —
     independent of the column *names*, so it works with custom h5 channel
     names."""
     groups: list[list[int]] = [[] for _ in range(num_channels)]
@@ -141,11 +148,10 @@ def columns_by_channel_positional(
                 groups[c].extend(range(col, col + NUM_GLCM))
                 col += NUM_GLCM
     if include_morphology:
-        _no_morphology()
+        from tpumcia_torch.features.morphology import MORPHOLOGY_FEATURES
+
+        nm = len(MORPHOLOGY_FEATURES)
+        for c in range(num_channels):
+            groups[c].extend(range(col, col + nm))
+            col += nm
     return groups
-
-
-def _no_morphology():
-    raise NotImplementedError(
-        "morphology features are not ported to tpumcia_torch yet (ROADMAP A9)"
-    )

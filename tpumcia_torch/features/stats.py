@@ -8,11 +8,14 @@ co-occurrence matrix G. :class:`SuffStats` has the fields and dtypes that
 ``tpumcia.features.pallas_glcm._pallas_stats_core`` returns, so the two
 packages can be compared field by field. The statistics themselves are
 computed in ``cuda_glcm``; :func:`prepare_mask` lays a mask out for it.
+:func:`glcm_matrix` gives the co-occurrence matrices themselves, for users
+who want them (the feature path never builds them).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -64,6 +67,11 @@ def rescale_lut_device(levels: int, device: torch.device) -> torch.Tensor:
     """Cached copy of :func:`rescale_lut` on ``device`` (one upload per
     process, not one per batch)."""
     return torch.from_numpy(rescale_lut(levels)).to(device)
+
+
+def on_device(a, device) -> torch.Tensor:
+    """A tensor (moved) or an array-like (copied) on ``device``."""
+    return a.to(device) if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a), device=device)
 
 
 def prepare_mask(mask, images_shape, device) -> torch.Tensor:
@@ -130,3 +138,83 @@ def glcm_sumsq_value(limbs, dtype=None):
         + s[..., 2] * 256.0
         + s[..., 3]
     )
+
+
+def glcm_matrix(
+    images,
+    mask=None,
+    *,
+    levels: int = 256,
+    offset=(0, 5),
+    distances=None,
+    angles=None,
+    symmetric: bool = False,
+    normed: bool = False,
+    device="cuda",
+) -> torch.Tensor:
+    """Co-occurrence matrices as float32 exact counts on ``device``
+    (tpumcia's ``glcm_matrix``, ``skimage.feature.graycomatrix``'s API with
+    its ``symmetric`` and ``normed`` options), after the reference's
+    per-channel max rescale (ipynb:293-298). ``images``: (B, H, W, C) levels
+    in [0, levels) (a level outside counts as level 0 after the rescale, as
+    in tpumcia); ``mask``: optional (B, H, W) or (B, H, W, C), a pair counts
+    when both of its pixels are selected.
+
+    - ``offset=(dr, dc)`` -> (B, C, L, L);
+    - ``distances=[...], angles=[...]`` (the reference's call, ipynb:298)
+      -> (B, C, L, L, D, A), one matrix per (distance, angle) at
+      ``(round(d sin a), round(d cos a))``.
+
+    An offset that leaves the image gives a zero matrix. Counts are summed
+    as integers (``bincount`` of ``left * L + right``) and cast to float32.
+    """
+    list_api = distances is not None or angles is not None
+    if list_api:
+        distances = tuple(distances if distances is not None else (5,))
+        angles = tuple(angles if angles is not None else (0.0,))
+        offsets = [
+            (int(round(math.sin(a) * d)), int(round(math.cos(a) * d)))
+            for d in distances for a in angles
+        ]
+    else:
+        offsets = [tuple(offset)]
+    x = on_device(images, device)
+    if x.dim() != 4:
+        raise ValueError(f"expected (B, H, W, C) images, got shape {tuple(x.shape)}")
+    from tpumcia_torch.preprocess.normalize import as_int32
+
+    B, H, W, C = x.shape
+    img = as_int32(x.permute(0, 3, 1, 2)).to(torch.int64)  # (B, C, H, W)
+    if mask is None:
+        valid = torch.ones((B, 1, H, W), dtype=torch.bool, device=img.device)
+    else:
+        valid = prepare_mask(mask, x.shape, img.device) > 0
+    valid = valid.expand(B, C, H, W)
+    L = levels
+    vmax = torch.where(valid, img, -1).amax((2, 3)).clamp(0, L - 1)
+    rows = rescale_lut_device(L, img.device).to(torch.int64)[vmax]  # (B, C, L)
+    inside = (img >= 0) & (img < L)
+    resc = torch.gather(rows, 2, img.clamp(0, L - 1).flatten(2)).view(B, C, H, W)
+    resc = torch.where(inside, resc, 0)
+    cell = torch.arange(B * C, device=img.device).view(B, C, 1, 1) * (L * L)
+    out = torch.zeros((B, len(offsets), C, L, L), dtype=torch.float32, device=img.device)
+    for o, (dr, dc) in enumerate(offsets):
+        r0, r1 = max(0, -dr), H - max(0, dr)
+        c0, c1 = max(0, -dc), W - max(0, dc)
+        if r0 >= r1 or c0 >= c1:
+            continue  # no pair inside the image: a zero matrix
+        left = resc[:, :, r0:r1, c0:c1]
+        right = resc[:, :, r0 + dr:r1 + dr, c0 + dc:c1 + dc]
+        pair = valid[:, :, r0:r1, c0:c1] & valid[:, :, r0 + dr:r1 + dr, c0 + dc:c1 + dc]
+        key = (cell + left * L + right)[pair]
+        g = torch.bincount(key, minlength=B * C * L * L).view(B, C, L, L).to(torch.float32)
+        if symmetric:
+            g = g + g.transpose(-1, -2)
+        if normed:
+            total = g.sum((-1, -2), keepdim=True)
+            g = g / torch.where(total == 0, 1.0, total)
+        out[:, o] = g
+    if not list_api:
+        return out[:, 0]
+    out = out.permute(0, 2, 3, 4, 1)  # (B, C, L, L, O)
+    return out.reshape(B, C, L, L, len(distances), len(angles))

@@ -5,8 +5,8 @@ The reference aggregates per-feature importances into channels by *name
 substring* ("Ch1" in name) with a 0.01 floor (ipynb:458-462), which breaks
 at >= 10 channels ("Ch1" matches "Ch10"). The default here groups by the
 parsed channel index; ``match='substring'`` replicates the reference.
-:func:`channel_importance` takes every method but ``'mdi'``, which needs the
-forest head (ROADMAP A10).
+:func:`channel_importance` takes every method of tpumcia's, ``'mdi'`` for
+the forest head included.
 """
 
 from __future__ import annotations
@@ -140,6 +140,7 @@ def channel_importance(
     """Per-feature importances from the head, aggregated per channel
     (tpumcia's ``channel_importance``, notebook cells 23-28). ``method``:
 
+    - ``'mdi'``: the forest head's impurity importances;
     - ``'coef'``: |weight| importances of a logistic head;
     - ``'permutation'``: each channel's columns permuted jointly, on the
       evaluation set (``eval_features``/``eval_labels``, else
@@ -148,12 +149,12 @@ def channel_importance(
       importances, aggregated per channel (ipynb:493-505);
     - ``'ablation'``: the score drop with a channel's columns set to their
       mean;
-    - ``'auto'``: ``'permutation'`` (``'mdi'`` for a forest in tpumcia).
+    - ``'auto'``: ``'mdi'`` for a forest, ``'permutation'`` otherwise.
     """
     from tpumcia_torch.config import ImportanceConfig
     from tpumcia_torch.features.extract import FeatureMatrix
     from tpumcia_torch.importance.permutation import permutation_importance
-    from tpumcia_torch.models.heads import LogisticHead
+    from tpumcia_torch.models.heads import LogisticHead, RandomForestHead
 
     cfg = config or ImportanceConfig()
     if mesh is not None:
@@ -165,16 +166,21 @@ def channel_importance(
     names = features.names
     C = features.num_channels
     if method == "auto":
-        method = "permutation"
-    if method == "mdi":
-        raise NotImplementedError(
-            "method 'mdi' needs the random-forest head, which is not ported "
-            "(ROADMAP A10: its fit is sklearn's, which the GPU machine does not have)"
-        )
+        method = "mdi" if isinstance(head, RandomForestHead) else "permutation"
     ch_names = getattr(features, "channel_names", None)
     # positional groups work whatever the channel names; substring matching
     # keeps the reference's name-based grouping
     pos_groups = features.channel_columns() if cfg.channel_match == "exact" else None
+
+    if method == "mdi":
+        if not isinstance(head, RandomForestHead):
+            raise TypeError("mdi requires a RandomForestHead")
+        out = aggregate_channel_importance(
+            head.mdi_importance(), names, C, threshold=cfg.mdi_threshold,
+            match=cfg.channel_match, method="mdi", groups=pos_groups,
+        )
+        out.channel_names = ch_names
+        return out
 
     if method == "coef":
         if not isinstance(head, LogisticHead):

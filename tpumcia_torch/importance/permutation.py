@@ -7,9 +7,11 @@ permuted jointly by permutation r)``, scores being mean accuracy. All G*R
 permuted copies are scored in one batched gather + matmul. The
 permutations are an input: :func:`draw_permutations` draws them from a
 seeded ``torch.Generator``, and the tests hand in the JAX package's own.
-:func:`permutation_importance` is the entry for a fitted logistic or MLP
-head; sklearn's host version (``permutation_importance_host``) waits with
-the forest head (ROADMAP A10).
+:func:`permutation_importance` is the entry for a fitted logistic, MLP or
+forest head (a forest is scored by its ``DeviceForest`` on the head's
+device, and the sweep takes the argmax of its class probabilities).
+:func:`permutation_importance_host` is a numpy copy of sklearn's own
+algorithm, scoring with ``head.score``.
 """
 
 from __future__ import annotations
@@ -74,21 +76,32 @@ def _scaled_mlp_apply(params, dmin, dscale, X):
     return mlp_predict_logits(params, (X - dmin) * dscale)
 
 
+def _scaled_forest_apply(forest, dmin, dscale, X):
+    return forest.apply((X - dmin) * dscale)
+
+
 def _device_score_parts(head):
     """(apply_fn, classes) of a fitted head: ``apply_fn(X)`` gives the
-    logits of raw (unscaled) X on the head's device."""
-    from tpumcia_torch.models.heads import LogisticHead, MLPHead
+    logits (class probabilities for a forest) of raw (unscaled) X on the
+    head's device."""
+    from tpumcia_torch.models.forest_device import DeviceForest
+    from tpumcia_torch.models.heads import LogisticHead, MLPHead, RandomForestHead
 
-    apply = {LogisticHead: _scaled_logistic_apply, MLPHead: _scaled_mlp_apply}.get(type(head))
+    if isinstance(head, RandomForestHead):
+        head = head.to_device()
+    apply = {LogisticHead: _scaled_logistic_apply, MLPHead: _scaled_mlp_apply,
+             DeviceForest: _scaled_forest_apply}.get(type(head))
     if apply is None:
         raise TypeError(
-            f"head {type(head).__name__} has no device scoring path; the forest "
-            "head and sklearn's host sweep are not ported (ROADMAP A10)"
+            f"head {type(head).__name__} has no device scoring path; use "
+            "permutation_importance_host"
         )
     if head.scaler is None:
         dmin, dscale = torch.zeros((), device=head.device), torch.ones((), device=head.device)
     else:
         dmin, dscale = head.scaler.data_min, head.scaler.scale
+    if isinstance(head, DeviceForest):
+        return functools.partial(apply, head, dmin, dscale), head.classes
     return functools.partial(apply, head.params, dmin, dscale), head.classes
 
 
@@ -164,3 +177,41 @@ def permutation_importance(
     call (n_repeats=10, random_state=42, ipynb:495-496)."""
     masks = group_masks(groups, X.shape[1])
     return _run_sweep(head, X, y, masks, n_repeats=n_repeats, seed=seed)
+
+
+def permutation_importance_host(
+    head,
+    X,
+    y,
+    *,
+    n_repeats: int = 10,
+    seed: int = 42,
+) -> PermutationResult:
+    """sklearn's ``permutation_importance(head, X, y, n_repeats=n_repeats,
+    random_state=seed)`` with ``head.score`` as the scorer (tpumcia's
+    ``permutation_importance_host``), as numpy: one seed drawn with
+    ``RandomState(seed).randint(2**31)``; per column, a fresh
+    ``RandomState`` from it shuffles the row index in place ``n_repeats``
+    times, and each shuffle is applied to the column of a copy in turn, so
+    the shuffles compound as in sklearn."""
+    R = check_n_repeats(n_repeats)
+    X = X.cpu().numpy() if isinstance(X, torch.Tensor) else np.asarray(X)
+    y = np.asarray(y)
+    baseline = float(head.score(X, y))
+    col_seed = np.random.RandomState(seed).randint(np.iinfo(np.int32).max + 1)
+    scores = np.empty((X.shape[1], R))
+    for col in range(X.shape[1]):
+        rng = np.random.RandomState(col_seed)
+        X_perm = X.copy()
+        idx = np.arange(X.shape[0])
+        for r in range(R):
+            rng.shuffle(idx)
+            X_perm[:, col] = X_perm[idx, col]
+            scores[col, r] = head.score(X_perm, y)
+    imp = baseline - scores
+    return PermutationResult(
+        importances=imp,
+        importances_mean=imp.mean(axis=1),
+        importances_std=imp.std(axis=1),
+        baseline_score=baseline,
+    )

@@ -1,0 +1,251 @@
+"""Random-forest inference on the device (counterpart of
+``tpumcia.models.forest_device``).
+
+A fitted forest (the port's own :class:`~tpumcia_torch.models.forest_fit.Tree`
+arrays, or sklearn's ``tree_`` objects) is laid out as dense tensors and
+scored in one of tpumcia's two forms, chosen by the same rule
+(``_GEMM_MAX_CELLS``):
+
+- *GEMM*: every internal node's comparison at once, then each sample's leaf
+  per tree from one product with the (leaves x internal nodes) path matrix
+  ``A`` in {-1, 0, +1}: leaf ``l`` is reached iff ``A_l . cmp`` equals its
+  number of left branches. Trees go in blocks of ``_GEMM_TREE_BLOCK`` and
+  samples in chunks, so no (trees, samples, leaves) tensor of the whole
+  forest is made. The products are f32 with TF32 off: leaf fractions need
+  the full f32 mantissa (tpumcia's ``Precision.HIGHEST``).
+- *lock-step descent*: every (tree, sample) lane steps down one level per
+  iteration for ``depth`` iterations, leaves looping to themselves.
+
+Thresholds are the largest f32 at or below sklearn's f64 threshold, so
+``x <= t32`` takes sklearn's branch for every f32 ``x``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tpumcia_torch.models.forest_fit import Tree
+from tpumcia_torch.models.scaler import MinMaxScaler
+
+# the largest padded (leaves x internal nodes) per tree of the GEMM form;
+# above it the dense path matrix costs more than the lock-step gathers
+_GEMM_MAX_CELLS = 1 << 20
+_GEMM_TREE_BLOCK = 8
+# elements of the per-block (samples, trees, nodes) tensors scored at once
+_GEMM_CHUNK_ELEMS = 1 << 26
+# (tree, sample) lanes of the lock-step descent at once
+_LOCKSTEP_LANES = 1 << 24
+
+
+def _thr_f32_floor(thr_f64: np.ndarray) -> np.ndarray:
+    """f64 split thresholds -> the largest f32 <= each threshold, so that
+    ``x <= t32`` equals ``x <= thr_f64`` for every f32 ``x``."""
+    t32 = np.asarray(thr_f64).astype(np.float32)
+    up = t32.astype(np.float64) > np.asarray(thr_f64)
+    return np.where(up, np.nextafter(t32, np.float32(-np.inf)), t32)
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """f32 products without TF32 for the duration."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _leaf_fractions(tree) -> np.ndarray:
+    """(n, K) class fractions of a tree's nodes (sklearn >= 1.4 stores
+    fractions already; the division keeps older count layouts right)."""
+    vals = np.asarray(tree.value)[:, 0, :]
+    sums = vals.sum(axis=1, keepdims=True)
+    sums[sums == 0] = 1
+    return vals / sums
+
+
+def _apply_lockstep(X, feature, threshold, left, right, leaf_proba, depth):
+    """X (S, F) -> (S, K) mean class probabilities by lock-step descent."""
+    T = feature.shape[0]
+    S = X.shape[0]
+    out = []
+    step = max(1, _LOCKSTEP_LANES // max(1, T))
+    tr = torch.arange(T, device=X.device)[:, None]
+    for s0 in range(0, S, step):
+        x = X[s0:s0 + step]
+        lanes = torch.arange(x.shape[0], device=X.device)[None, :]
+        node = torch.zeros((T, x.shape[0]), dtype=torch.int64, device=X.device)
+        for _ in range(depth):
+            f = feature.gather(1, node)
+            v = x[lanes, f.clamp(min=0)]
+            nxt = torch.where(v <= threshold.gather(1, node), left.gather(1, node), right.gather(1, node))
+            node = torch.where(f < 0, node, nxt)
+        out.append(leaf_proba[tr, node].mean(0))
+    return torch.cat(out)
+
+
+def _apply_gemm(X, g_feature, g_threshold, A, target, g_leaf_proba):
+    """X (S, F) -> (S, K) mean class probabilities by the GEMM form."""
+    T, L, N = A.shape
+    S = X.shape[0]
+    K = g_leaf_proba.shape[-1]
+    out = torch.zeros((S, K), dtype=torch.float32, device=X.device)
+    step = max(1, _GEMM_CHUNK_ELEMS // (min(_GEMM_TREE_BLOCK, T) * max(L, N)))
+    with _full_f32():
+        for t0 in range(0, T, _GEMM_TREE_BLOCK):
+            t1 = min(T, t0 + _GEMM_TREE_BLOCK)
+            f, thr = g_feature[t0:t1], g_threshold[t0:t1]
+            a, tgt, lp = A[t0:t1].to(torch.float32), target[t0:t1], g_leaf_proba[t0:t1]
+            for s0 in range(0, S, step):
+                x = X[s0:s0 + step]
+                cmp = (x[:, f] <= thr[None]).to(torch.float32)  # (s, b, N)
+                reached = torch.einsum("sbn,bln->bsl", cmp, a)
+                hit = (reached.to(torch.int32) == tgt[:, None, :]).to(torch.float32)
+                out[s0:s0 + step] += torch.einsum("bsl,blk->sk", hit, lp)
+    return out / T
+
+
+def _gemm_arrays(trees, K):
+    """The padded GEMM-form arrays as numpy (tpumcia's ``_gemm_arrays``),
+    or None when a tree's (leaves x internal nodes) exceeds
+    ``_GEMM_MAX_CELLS``. Path rows come from walking each leaf up to the
+    root."""
+    per_tree = []
+    max_n, max_l = 1, 1
+    for tree in trees:
+        f = np.asarray(tree.feature)
+        internal, leaves = np.flatnonzero(f >= 0), np.flatnonzero(f < 0)
+        max_n, max_l = max(max_n, len(internal)), max(max_l, len(leaves))
+        per_tree.append((tree, internal, leaves))
+    if max_n * max_l > _GEMM_MAX_CELLS:
+        return None
+    T = len(trees)
+    g_feature = np.zeros((T, max_n), np.int32)
+    g_threshold = np.full((T, max_n), -np.inf, np.float32)
+    A = np.zeros((T, max_l, max_n), np.int8)
+    target = np.full((T, max_l), -1, np.int32)  # pad rows never match
+    g_leaf_proba = np.zeros((T, max_l, K), np.float32)
+    for t, (tree, internal, leaves) in enumerate(per_tree):
+        n = len(tree.feature)
+        cl, cr = np.asarray(tree.children_left), np.asarray(tree.children_right)
+        g_feature[t, :len(internal)] = np.asarray(tree.feature)[internal]
+        g_threshold[t, :len(internal)] = _thr_f32_floor(np.asarray(tree.threshold)[internal])
+        g_leaf_proba[t, :len(leaves)] = _leaf_fractions(tree)[leaves].astype(np.float32)
+        int_idx = np.full(n, -1, np.int64)
+        int_idx[internal] = np.arange(len(internal))
+        parent = np.full(n, -1, np.int64)
+        parent[cl[internal]] = internal
+        parent[cr[internal]] = internal
+        li = np.arange(len(leaves))
+        node = leaves.copy()
+        n_left = np.zeros(len(leaves), np.int32)
+        up = parent[node]
+        while (up >= 0).any():
+            on = up >= 0
+            p = up[on]
+            went_left = cl[p] == node[on]
+            A[t, li[on], int_idx[p]] = np.where(went_left, 1, -1)
+            n_left[on] += went_left
+            node[on] = p
+            up = np.where(on, parent[node], -1)
+        target[t, :len(leaves)] = n_left  # A . cmp == #left branches on the path
+    return g_feature, g_threshold, A, target, g_leaf_proba
+
+
+@dataclass
+class DeviceForest:
+    feature: torch.Tensor  # (T, N) int64, -1 at leaves
+    threshold: torch.Tensor  # (T, N) f32
+    left: torch.Tensor  # (T, N) int64 (self at leaves)
+    right: torch.Tensor  # (T, N) int64
+    leaf_proba: torch.Tensor  # (T, N, K) f32
+    depth: int
+    classes: np.ndarray
+    scaler: MinMaxScaler | None = None
+    # GEMM-form tensors (None for forests too large for the dense path matrix)
+    gemm: tuple | None = None
+
+    @classmethod
+    def from_arrays(cls, trees, classes, scaler: MinMaxScaler | None = None, *,
+                    device="cuda") -> "DeviceForest":
+        """Lay out fitted trees (:class:`Tree` or sklearn ``tree_`` objects,
+        read by duck typing) on ``device``."""
+        T = len(trees)
+        N = max(len(t.feature) for t in trees)
+        K = np.asarray(trees[0].value).shape[-1]
+        feature = np.full((T, N), -1, np.int64)
+        threshold = np.zeros((T, N), np.float32)
+        left = np.zeros((T, N), np.int64)
+        right = np.zeros((T, N), np.int64)
+        proba = np.zeros((T, N, K), np.float32)
+        depth = 0
+        for t, tree in enumerate(trees):
+            n = len(tree.feature)
+            f = np.asarray(tree.feature, np.int64)
+            leaf = f < 0
+            idx = np.arange(n)
+            feature[t, :n] = np.where(leaf, -1, f)
+            threshold[t, :n] = _thr_f32_floor(np.asarray(tree.threshold))
+            left[t, :n] = np.where(leaf, idx, np.asarray(tree.children_left))
+            right[t, :n] = np.where(leaf, idx, np.asarray(tree.children_right))
+            proba[t, :n] = _leaf_fractions(tree).astype(np.float32)
+            depth = max(depth, int(tree.max_depth))
+        gemm = _gemm_arrays(trees, K)
+
+        def dev(a):
+            return torch.from_numpy(a).to(device)
+
+        return cls(
+            feature=dev(feature), threshold=dev(threshold), left=dev(left), right=dev(right),
+            leaf_proba=dev(proba), depth=depth, classes=np.asarray(classes), scaler=scaler,
+            gemm=None if gemm is None else tuple(dev(a) for a in gemm),
+        )
+
+    @classmethod
+    def from_sklearn(cls, model, classes=None, scaler: MinMaxScaler | None = None, *,
+                     device="cuda") -> "DeviceForest":
+        """A fitted sklearn ``RandomForestClassifier`` (``model.estimators_``
+        and their ``tree_``, read by duck typing; sklearn is not imported)."""
+        trees = [Tree.from_tree_(est.tree_) for est in model.estimators_]
+        return cls.from_arrays(trees, model.classes_ if classes is None else classes, scaler,
+                               device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.feature.device
+
+    @property
+    def form(self) -> str:
+        """The inference form that runs: ``'gemm'`` or ``'lockstep'``."""
+        return "lockstep" if self.gemm is None else "gemm"
+
+    def apply(self, X: torch.Tensor, *, form: str | None = None) -> torch.Tensor:
+        """(..., F) scaled f32 features -> (..., K) mean class probabilities,
+        by the forest's form (or ``form``)."""
+        lead = X.shape[:-1]
+        x = X.reshape(-1, X.shape[-1])
+        if (form or self.form) == "gemm":
+            p = _apply_gemm(x, *self.gemm)
+        else:
+            p = _apply_lockstep(x, self.feature, self.threshold, self.left, self.right,
+                                self.leaf_proba, self.depth)
+        return p.reshape(*lead, p.shape[-1])
+
+    def _prep(self, X) -> torch.Tensor:
+        X = torch.as_tensor(X, dtype=torch.float32, device=self.device)
+        return self.scaler.transform(X) if self.scaler is not None else X
+
+    @torch.no_grad()
+    def predict_proba(self, X) -> torch.Tensor:
+        return self.apply(self._prep(X))
+
+    def predict(self, X) -> np.ndarray:
+        return self.classes[torch.argmax(self.predict_proba(X), dim=-1).cpu().numpy()]
+
+    def score(self, X, y) -> float:
+        return float(np.mean(self.predict(X) == np.asarray(y)))

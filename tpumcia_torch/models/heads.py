@@ -2,17 +2,21 @@
 ``tpumcia.models.heads``).
 
 - :class:`LogisticHead`: multinomial logistic regression;
-- :class:`MLPHead`: a dense -> ReLU stack with a linear readout.
+- :class:`MLPHead`: a dense -> ReLU stack with a linear readout;
+- :class:`RandomForestHead`: the reference's forest (ipynb:404), fitted on
+  the device by ``forest_fit`` with sklearn's semantics and scored by
+  ``forest_device.DeviceForest``.
 
-Both are fitted on the device with full-batch Adam on softmax cross-entropy
-plus ``l2 * sum(w^2)`` over the weight matrices: optax's ``adam`` (b1 0.9,
-b2 0.999, eps 1e-8) and ``torch.optim.Adam`` apply the same update. Their
-initial weights come from a ``torch.Generator`` seeded with
-``HeadConfig.seed``, the same distributions as the JAX package's
-``jax.random`` draws but not the same numbers. :func:`fit_head` is the
-entry (scale, then fit). Checkpoints are tpumcia's npz layout, so either
-package loads the other's. The random-forest head is not ported: its fit is
-sklearn's, which the GPU machine does not have (ROADMAP A10).
+The logistic and MLP heads are fitted on the device with full-batch Adam on
+softmax cross-entropy plus ``l2 * sum(w^2)`` over the weight matrices:
+optax's ``adam`` (b1 0.9, b2 0.999, eps 1e-8) and ``torch.optim.Adam`` apply
+the same update. Their initial weights come from a ``torch.Generator``
+seeded with ``HeadConfig.seed``, the same distributions as the JAX
+package's ``jax.random`` draws but not the same numbers. :func:`fit_head` is
+the entry (scale, then fit). Their checkpoints are tpumcia's npz layout, so
+either package loads the other's; the forest's is an npz of its tree arrays
+(tpumcia pickles an sklearn object, which needs sklearn to load), and
+``RandomForestHead.from_sklearn`` carries a fitted sklearn forest across.
 """
 
 from __future__ import annotations
@@ -26,13 +30,9 @@ import torch
 from torch import nn
 
 from tpumcia_torch.config import HeadConfig
+from tpumcia_torch.models.forest_device import DeviceForest
+from tpumcia_torch.models.forest_fit import Tree, fit_forest
 from tpumcia_torch.models.scaler import MinMaxScaler
-
-_FOREST = (
-    "head kind 'random_forest' (and its MDI importance) is not ported to "
-    "tpumcia_torch (ROADMAP A10): its fit is sklearn's RandomForestClassifier, "
-    "which the GPU machine does not have"
-)
 
 
 def init_weights(num_features: int, num_classes: int, *, seed: int, device) -> torch.Tensor:
@@ -351,6 +351,131 @@ class MLPHead(_Head):
         return cls(params, classes, scaler=scaler, config=cfg)
 
 
+# the per-node arrays of a forest checkpoint, one concatenation over its trees
+_TREE_FIELDS = ("children_left", "children_right", "feature", "threshold", "value", "impurity",
+                "n_node_samples", "weighted_n_node_samples")
+
+
+def forest_mdi(trees, num_features: int) -> np.ndarray:
+    """sklearn's ``RandomForestClassifier.feature_importances_`` from tree
+    arrays, in float64: per tree, ``w*imp - w_l*imp_l - w_r*imp_r`` of each
+    internal node summed into its feature in node order, divided by the
+    root's weight and normalised; then the mean over the trees with more than
+    one node, normalised again (zeros when no tree split)."""
+    per_tree = []
+    for t in trees:
+        if t.node_count <= 1:
+            continue
+        imp = np.zeros(num_features)
+        internal = np.flatnonzero(t.children_left != -1)
+        left, right = t.children_left[internal], t.children_right[internal]
+        w, i = t.weighted_n_node_samples, t.impurity
+        np.add.at(imp, t.feature[internal],
+                  w[internal] * i[internal] - w[left] * i[left] - w[right] * i[right])
+        imp /= w[0]
+        total = np.sum(imp)
+        if total > 0.0:
+            imp /= total
+        per_tree.append(imp)
+    if not per_tree:
+        return np.zeros(num_features)
+    mean = np.mean(per_tree, axis=0, dtype=np.float64)
+    return mean / np.sum(mean)
+
+
+class RandomForestHead:
+    """Fitted random-forest head (tpumcia's ``RandomForestHead``): its trees
+    in sklearn's ``tree_`` layout (``forest_fit.Tree``) and the
+    :class:`DeviceForest` that scores them on ``device`` after MinMax scaling
+    (optional)."""
+
+    def __init__(self, trees, classes, *, num_features: int, scaler: MinMaxScaler | None = None,
+                 config: HeadConfig | None = None, device="cuda"):
+        self.trees = list(trees)
+        self.classes = np.asarray(classes)
+        self.num_features = int(num_features)
+        self.config = config or HeadConfig(kind="random_forest")
+        if scaler is not None:
+            scaler = MinMaxScaler(scaler.data_min.to(device), scaler.data_max.to(device))
+        self.forest = DeviceForest.from_arrays(self.trees, self.classes, scaler, device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.forest.device
+
+    @property
+    def scaler(self) -> MinMaxScaler | None:
+        return self.forest.scaler
+
+    def to_device(self) -> DeviceForest:
+        """The forest laid out for inference on the head's device."""
+        return self.forest
+
+    def predict_proba(self, X) -> torch.Tensor:
+        return self.forest.predict_proba(X)
+
+    def predict(self, X) -> np.ndarray:
+        return self.forest.predict(X)
+
+    def score(self, X, y) -> float:
+        """Mean accuracy (sklearn's classifier ``score`` contract)."""
+        return float(np.mean(self.predict(X) == np.asarray(y)))
+
+    def mdi_importance(self) -> np.ndarray:
+        """Mean-decrease-in-impurity importances (the reference's
+        ``model.feature_importances_``, ipynb:434)."""
+        return forest_mdi(self.trees, self.num_features)
+
+    def save(self, path) -> None:
+        """npz checkpoint: the trees' arrays concatenated (``node_count``
+        per tree), classes, config, scaler."""
+        payload = {k: np.concatenate([getattr(t, k) for t in self.trees]) for k in _TREE_FIELDS}
+        payload["node_count"] = np.array([t.node_count for t in self.trees], np.int64)
+        payload["max_depth"] = np.array([t.max_depth for t in self.trees], np.int64)
+        payload["num_features"] = np.int64(self.num_features)
+        payload["classes"] = self.classes
+        payload["config_json"] = np.asarray(json.dumps(dataclasses.asdict(self.config)))
+        if self.scaler is not None:
+            payload["scaler_min"] = self.scaler.data_min.cpu().numpy()
+            payload["scaler_max"] = self.scaler.data_max.cpu().numpy()
+        np.savez(path, **payload)
+
+    @classmethod
+    def load(cls, path, *, device="cuda") -> "RandomForestHead":
+        with np.load(path, allow_pickle=False) as z:
+            bounds = np.cumsum(z["node_count"])[:-1]
+            fields = {k: np.split(z[k], bounds) for k in _TREE_FIELDS}
+            trees = [Tree(**{k: v[t] for k, v in fields.items()}, max_depth=int(d))
+                     for t, d in enumerate(z["max_depth"])]
+            return cls(trees, z["classes"], num_features=int(z["num_features"]),
+                       scaler=_Head._scaler_from_npz(z, device), config=_config_from_npz(z),
+                       device=device)
+
+    @classmethod
+    def from_sklearn(cls, model, *, scaler: MinMaxScaler | None = None,
+                     config: HeadConfig | None = None, device="cuda") -> "RandomForestHead":
+        """Carry over a fitted sklearn ``RandomForestClassifier`` (e.g. a
+        tpumcia head's ``.model``; its ``estimators_[i].tree_`` read by duck
+        typing, sklearn not imported) and the scaler it was fitted behind."""
+        trees = [Tree.from_tree_(est.tree_) for est in model.estimators_]
+        return cls(trees, model.classes_, num_features=model.n_features_in_, scaler=scaler,
+                   config=config, device=device)
+
+    @classmethod
+    def fit(cls, X: torch.Tensor, y, *, config: HeadConfig | None = None,
+            scaler: MinMaxScaler | None = None) -> "RandomForestHead":
+        """Fit ``config.n_estimators`` trees of at most ``config.max_depth``
+        levels on ``X`` (an (N, F) f32 tensor, on the device the fit runs
+        on), with bootstraps and feature orders drawn from ``config.seed``."""
+        cfg = config or HeadConfig(kind="random_forest")
+        classes, y_idx = np.unique(np.asarray(y), return_inverse=True)
+        Xs = scaler.transform(X) if scaler is not None else X
+        trees = fit_forest(Xs, torch.as_tensor(y_idx, device=X.device), len(classes),
+                           n_estimators=cfg.n_estimators, max_depth=cfg.max_depth, seed=cfg.seed)
+        return cls(trees, classes, num_features=X.shape[1], scaler=scaler, config=cfg,
+                   device=X.device)
+
+
 def fit_head(
     features,
     labels,
@@ -379,9 +504,7 @@ def fit_head(
             f"{np.unique(labels_arr)!r} (a grouped/stratified split that "
             "left one class empty?)"
         )
-    heads = {"logistic": LogisticHead, "mlp": MLPHead}
-    if cfg.kind == "random_forest":
-        raise NotImplementedError(_FOREST)
+    heads = {"logistic": LogisticHead, "mlp": MLPHead, "random_forest": RandomForestHead}
     if cfg.kind not in heads:
         raise ValueError(f"unknown head kind {cfg.kind!r}")
     if scaler is None and scale:

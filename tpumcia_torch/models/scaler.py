@@ -31,7 +31,9 @@ class MinMaxScaler:
         )
 
     @classmethod
-    def from_stats(cls, data_min, data_max, device=None) -> "MinMaxScaler":
+    def from_stats(cls, data_min, data_max, device="cuda") -> "MinMaxScaler":
+        """A scaler from per-feature min/max (arrays or tensors), on
+        ``device``."""
         def t(x):
             return torch.as_tensor(x, dtype=torch.float32, device=device)
 

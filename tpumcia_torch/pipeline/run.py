@@ -15,9 +15,9 @@ Two paths, picked as tpumcia picks them (:func:`_fast_path_ok`):
   and the per-feature view, with the feature matrix copied to the device
   once for the head and both sweeps.
 
-What is not ported raises ``NotImplementedError`` naming its ROADMAP item:
-the forest head and MDI (A10), morphology (A9), a device mesh (A14).
-Nothing falls back to the CPU.
+A device mesh is not ported and raises ``NotImplementedError`` naming
+ROADMAP A14. Nothing falls back to the CPU: the random-forest head is fitted
+on ``device`` too.
 """
 
 from __future__ import annotations
@@ -202,16 +202,6 @@ def run_pipeline(
             f"unknown importance.channel_method "
             f"{cfg.importance.channel_method!r}; one of {_CHANNEL_METHODS}"
         )
-    if cfg.head.kind == "random_forest" or cfg.importance.channel_method == "mdi":
-        raise NotImplementedError(
-            "the random-forest head and its MDI importance are not ported "
-            "(ROADMAP A10: the forest's fit is sklearn's, which the GPU machine "
-            "does not have)"
-        )
-    if cfg.features.include_morphology:
-        raise NotImplementedError(
-            "morphology features are not ported to tpumcia_torch yet (ROADMAP A9)"
-        )
     check_use_pallas(cfg.features, device)
 
     images_arr = images if hasattr(images, "shape") else np.asarray(images)
@@ -252,7 +242,7 @@ def _run_pipeline_classic(
 ) -> PipelineResult:
     """tpumcia's classic branch (``pipeline/run.py:229-346``)."""
     from tpumcia_torch.features.extract import _extract_features, _extract_features_batched
-    from tpumcia_torch.models.heads import fit_head
+    from tpumcia_torch.models.heads import RandomForestHead, fit_head
 
     timings: dict[str, float] = {}
     if timer is not None:
@@ -315,9 +305,11 @@ def _run_pipeline_classic(
     channel_res = channel_importance(
         head, fm_test, y_te, method=cfg.importance.channel_method, config=cfg.importance,
     )
-    # the per-feature view (notebook cell 28, ipynb:493-505)
+    # the per-feature view (notebook cell 28, ipynb:493-505): MDI for a
+    # forest, the per-feature permutation sweep otherwise
+    feature_method = "mdi" if isinstance(head, RandomForestHead) else "permutation_features"
     feature_res = channel_importance(
-        head, fm_test, y_te, method="permutation_features", config=cfg.importance,
+        head, fm_test, y_te, method=feature_method, config=cfg.importance,
     )
     timings["importance_s"] = time.perf_counter() - t0
     if timer is not None:
