@@ -26,7 +26,12 @@ Phases (any failure exits nonzero, and no result line is printed):
      signal channel, times it like phase 4;
   6. extract_features: the exact, masked hybrid and 4-offset hybrid forms
      of the public extraction on the card, against each other and against
-     the same calls on the CPU;
+     the same calls on the CPU; then what lies past the kernel's argument
+     and bounds: 20 offsets (two launches of the multi-offset form,
+     bit-equal to the plain version and timed beside it with their bytes
+     and bound; the 20-block wire against the CPU), and the refusals on the
+     card (``use_pallas='never'`` and 8192 levels raise and launch nothing:
+     no plain version runs there);
   7. the classic slice at 1024 levels (B1d): the cytometry objects of phase
      5 quantized to 1024 levels on the card, ``run_pipeline`` with
      fast_path='auto', which routes them to the classic path (packed f32
@@ -52,7 +57,25 @@ Phases (any failure exits nonzero, and no result line is printed):
      donors, accuracy, the signal channel, the morphology block against the
      CPU and against the shared mask's own values, and ``glcm_matrix`` and
      ``intensity_features_direct`` on the card against the CPU; times it;
- 11. prints the kernels' JSON line and, last, the device JSON line.
+ 11. ``analyze_objects``: the native packer and quantizer (built with g++
+     from native/packer.cpp) against their numpy paths on 2,048
+     variable-size crops; then phase 5's uint16 objects as an in-memory
+     ``ObjectBatch`` (string labels and donors, channel names, the shared
+     mask) through ``analyze_objects``, quantized on the card: launches,
+     donors, accuracy, the signal channel, the ranking and accuracy of phase
+     5; times it (objects/s) and the share of upload + quantization;
+ 12. streaming (BASELINE config 5): ``stream_extract`` over 131,072 masked
+     12-channel 48x48 objects in 64 shards of 2,048 served from phase 5's
+     256-level objects: shard and launch counts, repeated objects bit-equal
+     across shards, shard 0 bit-equal to ``extract_features`` on the card,
+     the peak device memory's rise under 4 GB, staged against unstaged
+     uploads, resume (nothing recomputed; then exactly the shards whose
+     file or manifest record is gone, a torn manifest line among them),
+     objects/s over fresh directories with the ingest wait / device / save
+     profile, the same collection through ``extract_features_batched``
+     from a host array (``in_flight=8``) with its peak memory, and a
+     maskless 3-channel run (form B1a);
+ 13. prints the kernels' JSON line and, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -63,7 +86,9 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 N_IMAGES = 12_000
 BATCH = 2048
@@ -78,6 +103,16 @@ CYTO_N, CYTO_HW, CYTO_CH, CYTO_SIGNAL = 16_384, 48, 12, 4
 CLASSIC_LEVELS = 1024  # phase 7: 16-bit data at 4x finer levels than 256
 FIELD_PER_CLASS, FIELD_HW = 200, 256  # phase 8: 1,200 256x256 fields
 FOUR_OFFSETS = ((0, 5), (4, 4), (5, 0), (4, -4))  # distance 5 at 0, 45, 90, 135 degrees
+TWENTY_OFFSETS = tuple(  # 5 distances x 4 angles: past the kernel's 16-offset argument
+    (round(d * s), round(d * c)) for d in (1, 2, 3, 4, 5)
+    for s, c in ((0.0, 1.0), (0.70710678, 0.70710678), (1.0, 0.0), (0.70710678, -0.70710678)))
+PAST_LEVELS = 8192  # past the kernel's 4096 levels: refused on the card
+STREAM_N, STREAM_SHARD = 131_072, 2048  # phase 12: 64 shards
+STREAM_PEAK_BYTES = 4e9  # the most the peak device memory may rise over a streaming run
+STREAM_MASKLESS_N = 32_768  # 16 maskless shards
+PACK_N = 2048  # phase 11: variable-size crops through the native packer
+# feature columns that read an f32 wire word (sums in another order on the card and on the CPU)
+FLOAT_DERIVED = ("std_intensity", "kurtosis_intensity", "skew_intensity", "shannon_entropy", "homogeneity")
 FOREST_SMALL = (600, 10)  # phase 9's card-vs-CPU forest: rows, trees
 FOREST_PROBA_ATOL = 1e-6  # GEMM vs lock-step: the same leaves, f32 sums in another order
 SOURCE = "tpumcia_torch/csrc/glcm_stats.cu"
@@ -592,6 +627,7 @@ def phase_cytometry(device, data, timed_runs=4):
         "img_per_s": n / med, "median_s": med, "runs_s": times,
         "test_accuracy": result.test_accuracy, "stages_s": timer.totals,
         "channel_totals": total.tolist(), "test_donors": sorted(test_donors),
+        "ranking": result.channel_result.ranking.tolist(),
     }
 
 
@@ -645,6 +681,123 @@ def phase_extract(device, n=BENCH_SHAPE[0], n_cpu=64):
         f"4-offset card vs CPU {multi_err!r}")
     return launches, {"exact_s": exact_s, "hybrid_s": hybrid_s, "multi_offset_s": multi_s,
                       "hybrid_vs_exact": hyb_err, "multi_card_vs_cpu": multi_err}
+
+
+def _features_close(card, cpu, what):
+    """Card vs CPU feature matrices: the same NaNs, the integer-derived
+    columns bit-equal, every column within FEATURE_ATOL.
+    Returns the max abs difference."""
+    import numpy as np
+
+    a, b = card.to_numpy().astype(np.float64), cpu.to_numpy().astype(np.float64)
+    if a.shape != b.shape or not np.array_equal(np.isnan(a), np.isnan(b)):
+        raise AssertionError(f"{what}: card {a.shape} vs CPU {b.shape}, or NaNs differ")
+    exact = [i for i, name in enumerate(card.names) if not name.startswith(FLOAT_DERIVED)]
+    a, b = np.nan_to_num(a), np.nan_to_num(b)
+    if not np.array_equal(a[:, exact], b[:, exact]):
+        raise AssertionError(f"{what}: integer-derived columns differ by {np.abs(a - b)[:, exact].max()}")
+    if not np.allclose(a, b, rtol=0, atol=FEATURE_ATOL):
+        raise AssertionError(f"{what}: card vs CPU features differ by {np.abs(a - b).max()}")
+    return float(np.abs(a - b).max())
+
+
+def _raises_value_error(call, what):
+    """Raise unless ``call`` raises a ValueError; returns its text."""
+    try:
+        call()
+    except ValueError as e:
+        return str(e)
+    raise AssertionError(f"{what} did not raise on the card")
+
+
+def phase_faults(device, n=BENCH_SHAPE[0], n_cpu=64):
+    """What lies past the kernel's argument and bounds. 20 offsets: two
+    launches of the multi-offset form, bit-equal to the plain version and
+    timed beside it, and the 20-block wire of ``extract_features`` against
+    the CPU. ``use_pallas='never'`` and PAST_LEVELS levels must raise on the
+    card and launch nothing. Returns ({form: launches}, record): the launches
+    are those counted over the ``extract_features`` call (the wrapper's own
+    call is a comparison with the plain version; its count is in the
+    record)."""
+    import numpy as np
+    import torch
+
+    import tpumcia_torch as tt
+    from tpumcia_torch.features import cuda_glcm
+
+    rng = np.random.default_rng(6)
+    offsets = list(TWENTY_OFFSETS)
+    glcm20 = tt.GLCMConfig(distance=(1, 2, 3, 4, 5), angle=(0.0, np.pi / 4, np.pi / 2, 3 * np.pi / 4))
+    if [tuple(o) for o in glcm20.offsets] != offsets or len(offsets) != 20:
+        raise AssertionError(f"5 distances x 4 angles give offsets {glcm20.offsets}")
+    x = torch.from_numpy(rng.integers(0, LEVELS, size=(n, 3, 64, 64), dtype=np.int32)).to(device)
+    cuda_glcm.reset_launch_counts()
+    got = cuda_glcm.sufficient_stats_multi(x, levels=LEVELS, offsets=offsets)
+    wrapper_launches = dict(cuda_glcm.LAUNCHES_BY_FORM)
+    if wrapper_launches["B2"] != 2 or cuda_glcm.LAUNCHES != 2:
+        raise AssertionError(f"20 offsets launched {wrapper_launches}, want B2 twice")
+    want = cuda_glcm.sufficient_stats_multi_reference(x, levels=LEVELS, offsets=offsets)
+    _sync(device)
+    err20 = max(_stats_error(g, w) for g, w in zip(got, want))
+    del want
+    # the second launch recomputes the shared fields: they must be the first's
+    second = cuda_glcm.sufficient_stats_multi(x, levels=LEVELS, offsets=offsets[cuda_glcm.MAX_OFFSETS:])
+    for name in ("hist", "count", "vmax"):
+        if not torch.equal(getattr(second[0], name), getattr(got[0], name)):
+            raise AssertionError(f"20 offsets: {name} of the second launch differs from the first's")
+    del second, got
+    (k1, k2), (p1, p2) = _timed_pair(
+        lambda: cuda_glcm.sufficient_stats_multi(x, levels=LEVELS, offsets=offsets),
+        lambda: cuda_glcm.sufficient_stats_multi_reference(x, levels=LEVELS, offsets=offsets))
+    ms20, plain20 = min(k1, k2), min(p1, p2)
+    # two launches: each reads the images and writes the shared fields again
+    bytes20 = sum(
+        cuda_glcm.traffic_bytes(tuple(x.shape), LEVELS, offsets[i:i + cuda_glcm.MAX_OFFSETS])
+        for i in range(0, len(offsets), cuda_glcm.MAX_OFFSETS))
+    bound20 = cuda_glcm.bound_ms(bytes20)
+    imgs = x[:256].permute(0, 2, 3, 1).to(torch.uint8).cpu().numpy()
+    mask = rng.random(imgs.shape) > 0.2
+    cuda_glcm.reset_launch_counts()
+    cfg20 = tt.FeatureConfig(glcm=glcm20)
+    card20 = tt.extract_features(imgs, mask, device=device, config=cfg20)
+    path_launches = dict(cuda_glcm.LAUNCHES_BY_FORM)
+    if path_launches["B2"] != 2 or cuda_glcm.LAUNCHES != 2 or card20.shape != (len(imgs), 3 * (17 + 20 * 6)):
+        raise AssertionError(f"20-offset extract_features: {path_launches}, shape {card20.shape}")
+    wire20 = _features_close(
+        tt.FeatureMatrix(card20.values[:n_cpu], card20.names, 3),
+        tt.extract_features(imgs[:n_cpu], mask[:n_cpu], device="cpu", config=cfg20), "20-offset wire")
+    log(f"  20 offsets on {tuple(x.shape)}: {wrapper_launches['B2']} B2 launches == plain (max_abs_err {err20!r}), "
+        f"kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms (medians, CUDA events), {bytes20} bytes, bound "
+        f"{bound20!r} ms; extract_features' 20-block wire ({path_launches['B2']} B2 launches) vs CPU {wire20!r}")
+
+    # no plain version on the card: 'never' and sizes past the kernel's
+    # bounds raise, and 'auto' inside the bounds launches the kernel
+    cuda_glcm.reset_launch_counts()
+    never = tt.FeatureConfig(use_pallas="never")
+    _raises_value_error(lambda: tt.extract_features(imgs, mask, device=device, config=never),
+                        "extract_features with use_pallas='never'")
+    _raises_value_error(
+        lambda: tt.extract_features_batched(imgs, mask, device=device, batch_size=64, config=never),
+        "extract_features_batched with use_pallas='never'")
+    big = rng.integers(0, PAST_LEVELS, size=(8, 64, 64, 1), dtype=np.int32)
+    if not cuda_glcm.past_kernel_bounds(64 * 64, PAST_LEVELS):
+        raise AssertionError(f"{PAST_LEVELS} levels should lie past the kernel's bounds")
+    text = _raises_value_error(
+        lambda: tt.extract_features(big, device=device, config=tt.FeatureConfig(glcm=tt.GLCMConfig(levels=PAST_LEVELS))),
+        f"extract_features at {PAST_LEVELS} levels")
+    if cuda_glcm.LAUNCHES != 0:
+        raise AssertionError(f"the refused calls launched {cuda_glcm.LAUNCHES_BY_FORM}")
+    tt.extract_features(imgs, mask, device=device)
+    if cuda_glcm.LAUNCHES_BY_FORM["B1b"] != 1 or cuda_glcm.LAUNCHES != 1:
+        raise AssertionError(f"'auto' inside the bounds ran {cuda_glcm.LAUNCHES_BY_FORM}, want the kernel once")
+    log(f"  refused on the card, nothing launched: use_pallas='never' (extract_features, "
+        f"extract_features_batched) and {PAST_LEVELS} levels ({text.split(':')[0]})")
+    return {"B2": path_launches["B2"]}, {
+        "offsets20_ms": ms20, "offsets20_plain_ms": plain20, "offsets20_bytes": bytes20,
+        "offsets20_bound_ms": bound20, "offsets20_max_abs_err": err20, "offsets20_wire_vs_cpu": wire20,
+        "offsets20_wrapper_launches": wrapper_launches["B2"], "offsets20_path_launches": path_launches["B2"],
+        "refused": ["use_pallas='never'", f"{PAST_LEVELS} levels"],
+    }
 
 
 def _timed_runs(run, timed_runs, form, per_run=None):
@@ -1035,6 +1188,276 @@ def phase_cytometry_morphology(device, data, timed_runs=3, n_cpu=64):
     }
 
 
+def phase_native(data):
+    """The native packer and quantizer, built from native/packer.cpp, against
+    their numpy paths on PACK_N variable-size crops of phase 5's objects
+    (uint16 images, uint8 masks). Returns the record."""
+    import numpy as np
+
+    from tpumcia_torch.io import native
+
+    (raw, mask, _, _), _ = data
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise AssertionError("the native packer did not build (g++ and native/packer.cpp are needed)")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(11)
+    crops, masks = [], []
+    for i in range(PACK_N):
+        h, w = rng.integers(30, CYTO_HW + 1, size=2)
+        r, c = rng.integers(0, CYTO_HW - h + 1), rng.integers(0, CYTO_HW - w + 1)
+        crops.append(np.ascontiguousarray(raw[i, r:r + h, c:c + w]))
+        masks.append(np.ascontiguousarray(mask[i, r:r + h, c:c + w, None]).astype(np.uint8))
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    for hw in ((CYTO_HW, CYTO_HW), (40, 36)):  # pad only; crop and pad
+        packed = timed("pack_native_s", lambda: native.pack_objects(crops, hw))
+        if not np.array_equal(packed, timed("pack_numpy_s", lambda: native.pack_objects_numpy(crops, hw))):
+            raise AssertionError(f"native pack_objects (uint16, {hw}) differs from the numpy path")
+        if not np.array_equal(native.pack_objects(masks, hw), native.pack_objects_numpy(masks, hw)):
+            raise AssertionError(f"native pack_objects (uint8, {hw}) differs from the numpy path")
+    for levels in (LEVELS, 64):
+        q = timed("quantize_native_s", lambda: native.quantize_u16(packed, levels=levels))
+        if not np.array_equal(q, timed("quantize_numpy_s", lambda: native.quantize_u16_numpy(packed, levels=levels))):
+            raise AssertionError(f"native quantize_u16 ({levels} levels) differs from the numpy path")
+    log(f"  native packer {native.library_path().name} (g++, {build_s!r} s): pack_objects and quantize_u16 "
+        f"== numpy on {PACK_N} crops; seconds {json.dumps(secs)}")
+    return {"build_s": build_s, **secs}
+
+
+def phase_analyze_objects(device, data, cyto_rec, timed_runs=3):
+    """Phase 5's objects as an in-memory ``ObjectBatch`` through
+    ``analyze_objects`` (quantized on the card). Returns (B1b launches,
+    record)."""
+    import numpy as np
+    import torch
+
+    import tpumcia_torch as tt
+    from tpumcia_torch.io.h5 import ObjectBatch
+
+    (raw, mask, labels, donors), _ = data
+    n = len(raw)
+    objects = ObjectBatch(
+        images=raw, masks=mask, labels=np.array(["activated", "resting"])[labels], donors=donors,
+        experiments=None, channels=[f"Ch{i + 1:02d}" for i in range(CYTO_CH)],
+        ids=[str(i) for i in range(n)],
+    )
+    cfg = tt.PipelineConfig(
+        head=tt.HeadConfig(kind="logistic", num_steps=300),
+        split=tt.SplitConfig(test_size=0.25, seed=0, group_by="donor"),
+        fast_path="always",
+        batch_size=BATCH,
+    )
+
+    def run():
+        out = tt.analyze_objects(objects, device=device, config=cfg)
+        _sync(device)
+        return out
+
+    launches, times, result = _timed_runs(run, timed_runs, "B1b", -(-n // BATCH))
+    X = result.features.values
+    F = CYTO_CH * 23
+    if X.shape != (n, F) or not np.isfinite(np.nan_to_num(X)).all():
+        raise AssertionError(f"feature matrix {X.shape} is not finite ({n}, {F})")
+    if result.features.names[0] != "min_intensity_Ch01":
+        raise AssertionError(f"channel names did not reach the columns: {result.features.names[:2]}")
+    train_donors = {str(d) for d in donors[result.train_idx]}
+    test_donors = {str(d) for d in donors[result.test_idx]}
+    if train_donors & test_donors or not test_donors:
+        raise AssertionError(f"donor split leaks: train {train_donors}, test {test_donors}")
+    total = np.asarray(result.channel_result.total)
+    if int(np.argmax(total)) != CYTO_SIGNAL or not total[CYTO_SIGNAL] > 0:
+        raise AssertionError(f"signal channel {CYTO_SIGNAL} not first: {total.tolist()}")
+    if result.test_accuracy < 0.95:
+        raise AssertionError(f"test accuracy {result.test_accuracy} < 0.95")
+    ranking = result.channel_result.ranking.tolist()
+    if ranking != cyto_rec["ranking"] or abs(result.test_accuracy - cyto_rec["test_accuracy"]) > 1.0 / len(result.test_idx):
+        raise AssertionError(f"analyze_objects ranks {ranking} at accuracy {result.test_accuracy}; "
+                             f"run_pipeline on the same data {cyto_rec['ranking']} at {cyto_rec['test_accuracy']}")
+
+    # the part of a call that run_pipeline on levels already on the card does not pay
+    ingest = []
+    for _ in range(timed_runs):
+        _sync(device)
+        t0 = time.perf_counter()
+        x = tt.quantize_to_levels(torch.from_numpy(raw).to(device), levels=LEVELS, src_levels=65536)
+        _sync(device)
+        ingest.append(time.perf_counter() - t0)
+        del x
+    med, ingest_s = statistics.median(times), statistics.median(ingest)
+    log(f"  runs (s): {times!r}")
+    log(f"  median {med!r} s = {n / med!r} objects/s over {n} uint16 objects; B1b launches {launches}")
+    log(f"  upload + quantization on the card {ingest_s!r} s (median of {ingest!r}) = {ingest_s / med!r} of a call")
+    log(f"  test_accuracy {result.test_accuracy!r} (run_pipeline: {cyto_rec['test_accuracy']!r}); ranking "
+        f"{ranking} as run_pipeline's; test donors {sorted(test_donors)}")
+    return launches, {
+        "objects_per_s": n / med, "median_s": med, "runs_s": times, "b1b_launches": launches,
+        "upload_quantize_s": ingest_s, "upload_quantize_share": ingest_s / med,
+        "test_accuracy": result.test_accuracy, "ranking": ranking, "channel_totals": total.tolist(),
+    }
+
+
+def phase_streaming(device, data, timed_dirs=3):
+    """BASELINE config 5: ``stream_extract`` over STREAM_N masked 12-channel
+    objects in shards of STREAM_SHARD, served from phase 5's 256-level
+    objects at ``idx % CYTO_N`` (the host holds no more than phase 5 does).
+    Returns ({form: launches of the gated runs}, record)."""
+    import numpy as np
+    import torch
+
+    import tpumcia_torch as tt
+    from tpumcia_torch.features import cuda_glcm
+    from tpumcia_torch.pipeline.streaming import _manifest_jsonl_path, _manifest_path, stream_extract
+
+    (raw, mask, labels, _), _ = data
+    x8 = (raw >> 8).astype(np.uint8)
+    mask8 = mask.astype(np.uint8)
+    shards = STREAM_N // STREAM_SHARD
+    F = CYTO_CH * 23
+    fetched = []
+
+    def fetch(idx):
+        lo = int(idx[0]) % CYTO_N  # contiguous views: a shard never straddles the wrap
+        fetched.append(int(idx[0]))
+        return x8[lo:lo + len(idx)], mask8[lo:lo + len(idx)], labels[lo:lo + len(idx)]
+
+    def stream(out, n=STREAM_N, **kw):
+        res = stream_extract(fetch, n, out, device=device, shard_size=STREAM_SHARD, **kw)
+        _sync(device)
+        return res
+
+    with tempfile.TemporaryDirectory(prefix="tpumcia_stream_") as tmp:
+        # the gated first run, into a fresh directory
+        stream(os.path.join(tmp, "warm"), n=2 * STREAM_SHARD)  # allocator and pinned buffers warm
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        cuda_glcm.reset_launch_counts()
+        out = os.path.join(tmp, "run0")
+        t0 = time.perf_counter()
+        first = stream(out)
+        call_s = [time.perf_counter() - t0]
+        rise = torch.cuda.max_memory_allocated(device) - base
+        launches = cuda_glcm.LAUNCHES_BY_FORM["B1b"]
+        if (first.shards_computed, first.shards_skipped) != (shards, 0):
+            raise AssertionError(f"first run computed {first.shards_computed}, skipped {first.shards_skipped}")
+        if launches != shards or cuda_glcm.LAUNCHES != shards:
+            raise AssertionError(f"streaming launched {cuda_glcm.LAUNCHES_BY_FORM}, want B1b {shards} times")
+        X = first.features.values
+        if X.shape != (STREAM_N, F) or not np.isfinite(np.nan_to_num(X)).all():
+            raise AssertionError(f"streamed matrix {X.shape} is not finite ({STREAM_N}, {F})")
+        if not np.array_equal(first.labels, np.tile(labels, STREAM_N // CYTO_N)):
+            raise AssertionError("streamed labels differ from the labels served")
+        if not np.array_equal(X[:CYTO_N], X[CYTO_N:2 * CYTO_N], equal_nan=True):
+            raise AssertionError("the same objects served again gave other bytes")
+        direct = tt.extract_features(x8[:STREAM_SHARD], mask8[:STREAM_SHARD], device=device)
+        if not np.array_equal(X[:STREAM_SHARD], direct.values, equal_nan=True):
+            raise AssertionError("shard 0 differs from extract_features on the same objects")
+        if not rise < STREAM_PEAK_BYTES:
+            raise AssertionError(f"peak device memory rose by {rise} bytes, over {STREAM_PEAK_BYTES}")
+        rates, profiles = [first.images_per_second], [first.profile]
+
+        # staged against unstaged uploads, 8 shards
+        off = stream(os.path.join(tmp, "unstaged"), n=8 * STREAM_SHARD, stage_on_device=False)
+        if off.shards_computed != 8 or not np.array_equal(off.features.values, X[:8 * STREAM_SHARD], equal_nan=True):
+            raise AssertionError("stage_on_device=False gave other bytes than staging on the worker")
+
+        # resume: nothing to do; then 3 shard files gone, one record moved to
+        # a manifest.jsonl tail and one more lost to that tail's torn last line
+        fetched.clear()
+        again = stream(out)
+        if (again.shards_computed, again.shards_skipped) != (0, shards) or fetched:
+            raise AssertionError(f"resume computed {again.shards_computed}, skipped {again.shards_skipped}")
+        gone = [3, 17, shards - 1]
+        for k in gone:
+            os.unlink(os.path.join(out, f"shard_{k * STREAM_SHARD:09d}.npz"))
+        manifest_file = _manifest_path(Path(out))
+        manifest = json.loads(manifest_file.read_text())
+        kept_sid, torn_sid = f"shard_{5 * STREAM_SHARD:09d}", f"shard_{9 * STREAM_SHARD:09d}"
+        kept, torn = manifest["shards"].pop(kept_sid), manifest["shards"].pop(torn_sid)
+        manifest_file.write_text(json.dumps(manifest))
+        torn_line = json.dumps({"sid": torn_sid, **torn})
+        _manifest_jsonl_path(manifest_file.parent).write_text(
+            json.dumps({"version": 2, "config_tag": "default"}) + "\n"
+            + json.dumps({"sid": kept_sid, **kept}) + "\n" + torn_line[:len(torn_line) // 2])
+        fetched.clear()
+        resumed = stream(out)
+        want = sorted(k * STREAM_SHARD for k in gone + [9])
+        if sorted(fetched) != want or (resumed.shards_computed, resumed.shards_skipped) != (4, shards - 4):
+            raise AssertionError(f"resume fetched shards at {sorted(fetched)}, want {want}; computed "
+                                 f"{resumed.shards_computed}, skipped {resumed.shards_skipped}")
+        if not np.array_equal(resumed.features.values, X, equal_nan=True):
+            raise AssertionError("the resumed matrix differs from the first run's")
+
+        # throughput over fresh directories
+        for k in range(1, timed_dirs):
+            t0 = time.perf_counter()
+            res = stream(os.path.join(tmp, f"run{k}"))
+            call_s.append(time.perf_counter() - t0)
+            rates.append(res.images_per_second)
+            profiles.append(res.profile)
+
+        # a maskless 3-channel collection: form B1a once per shard
+        gray = np.random.default_rng(12).integers(0, LEVELS, size=(STREAM_SHARD, 64, 64, 3), dtype=np.uint8)
+        cuda_glcm.reset_launch_counts()
+        plain_shards = STREAM_MASKLESS_N // STREAM_SHARD
+        t0 = time.perf_counter()
+        maskless = stream_extract(lambda idx: (gray[:len(idx)], None, None), STREAM_MASKLESS_N,
+                                  os.path.join(tmp, "maskless"), device=device, shard_size=STREAM_SHARD)
+        _sync(device)
+        maskless_s = time.perf_counter() - t0
+        b1a = cuda_glcm.LAUNCHES_BY_FORM["B1a"]
+        M = maskless.features.values
+        if maskless.shards_computed != plain_shards or b1a != plain_shards or cuda_glcm.LAUNCHES != b1a:
+            raise AssertionError(f"maskless run: {maskless.shards_computed} shards, launches {cuda_glcm.LAUNCHES_BY_FORM}")
+        if M.shape != (STREAM_MASKLESS_N, 69) or maskless.labels is not None or not np.array_equal(
+                M[:STREAM_SHARD], M[-STREAM_SHARD:], equal_nan=True):
+            raise AssertionError(f"maskless matrix {M.shape}: repeated shards differ, or labels appeared")
+
+    # the same collection from a host array through the batched entry (C3)
+    big = np.tile(x8, (STREAM_N // CYTO_N, 1, 1, 1))
+    big_mask = np.tile(mask8, (STREAM_N // CYTO_N, 1, 1))
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    cuda_glcm.reset_launch_counts()
+    t0 = time.perf_counter()
+    batched = tt.extract_features_batched(big, big_mask, device=device, batch_size=STREAM_SHARD, in_flight=8)
+    _sync(device)
+    batched_s = time.perf_counter() - t0
+    batched_rise = torch.cuda.max_memory_allocated(device) - base
+    if cuda_glcm.LAUNCHES_BY_FORM["B1b"] != shards or not np.array_equal(batched.values, X, equal_nan=True):
+        raise AssertionError(f"extract_features_batched from the host: launches {cuda_glcm.LAUNCHES_BY_FORM}, "
+                             "or its matrix differs from the streamed one")
+    if not batched_rise < STREAM_PEAK_BYTES:
+        raise AssertionError(f"extract_features_batched: peak device memory rose by {batched_rise} bytes")
+    med = statistics.median(rates)
+    profile = profiles[rates.index(med)] if med in rates else profiles[0]  # an even count has no median run
+    log(f"  {STREAM_N} objects in {shards} shards of {STREAM_SHARD}: {launches} B1b launches; rows of repeated "
+        f"objects bit-equal; shard 0 == extract_features; peak device memory rose {rise / 1e9!r} GB")
+    log(f"  images_per_second of {timed_dirs} fresh directories: {rates!r}; median {med!r} objects/s; whole "
+        f"calls (with the matrix reassembled from the shards) {call_s!r} s")
+    log(f"  profile of the median run (s): {json.dumps(profile)}; all: {json.dumps(profiles)}")
+    log("  unstaged 8 shards == staged; resume: 0 computed / 64 skipped, then exactly the 3 deleted shards "
+        "and the one on the torn manifest line")
+    log(f"  extract_features_batched(in_flight=8) from a {big.nbytes / 1e9!r} GB host array: {batched_s!r} s = "
+        f"{STREAM_N / batched_s!r} objects/s, == the streamed matrix, peak device memory rose {batched_rise / 1e9!r} GB")
+    log(f"  maskless {STREAM_MASKLESS_N} 64x64x3 images in {plain_shards} shards: {b1a} B1a launches, "
+        f"{maskless_s!r} s = {STREAM_MASKLESS_N / maskless_s!r} images/s ({json.dumps(maskless.profile)})")
+    return {"B1b": launches, "B1a": b1a}, {
+        "objects": STREAM_N, "shards": shards, "objects_per_s": med, "rates": rates, "call_s": call_s,
+        "profile_s": profile, "profiles_s": profiles, "peak_rise_bytes": rise, "b1b_launches": launches,
+        "batched_s": batched_s, "batched_objects_per_s": STREAM_N / batched_s,
+        "batched_peak_rise_bytes": batched_rise,
+        "maskless": {"images": STREAM_MASKLESS_N, "b1a_launches": b1a, "seconds": maskless_s,
+                     "images_per_s": STREAM_MASKLESS_N / maskless_s, "profile_s": maskless.profile},
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -1050,8 +1473,9 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: tpumcia_torch not found next to this script ({e})", file=sys.stderr)
         return 1
-    if any(m in sys.modules for m in ("jax", "tpumcia", "sklearn")):
-        print("chip_smoke: importing tpumcia_torch pulled in jax/tpumcia/sklearn", file=sys.stderr)
+    banned = ("jax", "tpumcia", "sklearn", "h5py", "imageio", "matplotlib")
+    if any(m in sys.modules for m in banned):
+        print(f"chip_smoke: importing tpumcia_torch pulled in one of {banned}", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
 
@@ -1098,6 +1522,8 @@ def main() -> int:
     launches, extract_rec = phase_extract(device)
     kernels["B1c"]["launches"] = launches["B1c"]
     kernels["B2"]["launches"] = launches["B2"]
+    launches, faults_rec = phase_faults(device)
+    kernels["B2"]["launches"] += launches["B2"]
 
     log("== classic slice at 1024 levels (B1d)")
     levels_launches, classic_1024 = phase_classic_levels(device, cyto)
@@ -1113,6 +1539,17 @@ def main() -> int:
     log("== cytometry with morphology (random forest, MDI)")
     launches, cyto_morph_rec = phase_cytometry_morphology(device, cyto)
     kernels["B1b"]["launches"] += launches
+
+    log("== analyze_objects (native packer; an in-memory ObjectBatch)")
+    native_rec = phase_native(cyto)
+    launches, analyze_rec = phase_analyze_objects(device, cyto, cyto_rec)
+    kernels["B1b"]["launches"] += launches
+    analyze_rec["native"] = native_rec
+
+    log("== streaming (stream_extract over 131,072 objects)")
+    launches, streaming_rec = phase_streaming(device, cyto)
+    kernels["B1b"]["launches"] += launches["B1b"]
+    kernels["B1a"]["launches"] += launches["B1a"]
     del cyto
 
     print(gpu_line, flush=True)
@@ -1121,6 +1558,7 @@ def main() -> int:
         "slice": slice_rec, "cytometry": cyto_rec, "extract_features": extract_rec,
         "classic_1024": classic_1024, "classic_256px": classic_256px,
         "forest": forest_rec, "cytometry_morphology": cyto_morph_rec,
+        "faults": faults_rec, "analyze_objects": analyze_rec, "streaming": streaming_rec,
     }), flush=True)
     print(json.dumps({
         "ok": True,

@@ -1,0 +1,169 @@
+"""tpumcia_torch's workflow API against tpumcia's: ``analyze_objects`` on an
+``ObjectBatch`` of masked uint16 objects with donors, the package's exports
+and its import guard.
+
+Both packages get the same objects (numpy, from a seed) and the same config;
+tpumcia's head init and permutation draws are replayed into the port.
+Tolerances: the quantized levels and the split are identical; features 1e-5
+max abs with the integer-derived columns bit-equal (see
+``test_torch_streaming.py``); test accuracy within 0.02; the channel ranking
+identical.
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import tpumcia
+import tpumcia_torch as tt
+from torch_parity import cytometry_objects, replay_jax_draws
+from tpumcia.io.h5 import ObjectBatch as JObjectBatch
+from tpumcia_torch.io.h5 import ObjectBatch
+
+FLOAT_DERIVED = ("std_intensity", "kurtosis_intensity", "skew_intensity", "shannon_entropy", "homogeneity")
+CHANNELS = [f"Ch{i:02d}-λ" for i in range(12)]
+N = 190  # 2 * 64 + 62: the last batch is wrap-padded
+
+
+def _cfg():
+    return dict(
+        head={"kind": "logistic", "num_steps": 300},
+        split={"test_size": 0.25, "seed": 0, "group_by": "donor"},
+        fast_path="always",
+        batch_size=64,
+    )
+
+
+def _batches(dtype=np.uint16):
+    raw, mask, labels, donors = cytometry_objects(192, hw=32, seed=0)
+    raw, mask, labels, donors = raw[:N], mask[:N], labels[:N], donors[:N]
+    if dtype == np.uint8:
+        raw = (raw >> 8).astype(np.uint8)
+    names = np.array(["activated", "resting"])[labels]
+    kw = dict(images=raw, masks=mask.astype(np.uint8), labels=names, donors=donors,
+              experiments=np.array(["exp1"] * N), channels=list(CHANNELS),
+              ids=[str(i) for i in range(N)])
+    return ObjectBatch(**kw), JObjectBatch(**kw)
+
+
+def _assert_same_analysis(got, want, donors):
+    assert got.features.names == want.features.names
+    assert got.features.names[0] == f"min_intensity_{CHANNELS[0]}"
+    a, b = got.features.to_numpy(), np.asarray(want.features.values, np.float64)
+    assert a.shape == b.shape == (N, 12 * 23)
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    exact = [i for i, n in enumerate(got.features.names) if not n.startswith(FLOAT_DERIVED)]
+    np.testing.assert_array_equal(a[:, exact], b[:, exact])
+    np.testing.assert_allclose(np.nan_to_num(a), np.nan_to_num(b), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got.train_idx, want.train_idx)
+    np.testing.assert_array_equal(got.test_idx, want.test_idx)
+    assert not set(donors[got.train_idx]) & set(donors[got.test_idx])
+    assert abs(got.test_accuracy - want.test_accuracy) <= 0.02
+    assert got.channel_result.ranking.tolist() == want.channel_result.ranking.tolist()
+    assert got.channel_result.ranking[0] == 4 and got.channel_result.total[4] > 0
+
+
+@pytest.mark.parametrize("dtype,config", [
+    (np.uint16, "dataclass"), (np.uint16, "dict"), (np.uint8, "dict"),
+])
+def test_analyze_objects_matches_jax(monkeypatch, dtype, config):
+    """Masked 12-channel objects with string labels and donors: uint16 is
+    quantized with ``src_levels=65536`` (on the device in the port), uint8
+    is taken as levels; a dict config and a dataclass one."""
+    objs, jobjs = _batches(dtype)
+    if config == "dict":
+        cfg, jcfg = _cfg(), {**_cfg(), "mesh": {"data": 1}}
+    else:
+        cfg = tt.PipelineConfig.from_dict(_cfg())
+        jcfg = tpumcia.PipelineConfig.from_dict({**_cfg(), "mesh": {"data": 1}})
+    want = tpumcia.analyze_objects(jobjs, config=jcfg)
+    replay_jax_draws(monkeypatch)
+    got = tt.analyze_objects(objs, device="cpu", config=cfg)
+    _assert_same_analysis(got, want, objs.donors)
+    assert got.features.channel_names == CHANNELS
+
+
+def test_analyze_objects_groups_labels_and_errors(monkeypatch):
+    objs, jobjs = _batches()
+    # group_by='experiment' reads the experiments; one experiment cannot be split
+    by_exp = {**_cfg(), "split": {"test_size": 0.25, "seed": 0, "group_by": "experiment"}}
+    objs.experiments = jobjs.experiments = np.array([f"e{i % 5}" for i in range(N)])
+    want = tpumcia.analyze_objects(jobjs, config={**by_exp, "mesh": {"data": 1}})
+    replay_jax_draws(monkeypatch)
+    got = tt.analyze_objects(objs, device="cpu", config=by_exp)
+    np.testing.assert_array_equal(got.test_idx, want.test_idx)
+    assert not set(objs.experiments[got.train_idx]) & set(objs.experiments[got.test_idx])
+    # explicit labels override the batch's
+    flipped = np.where(objs.labels == "activated", "b", "a")
+    res = tt.analyze_objects(objs, device="cpu", config=_cfg(), labels=flipped)
+    assert res.channel_result.ranking[0] == 4
+    # no labels anywhere; float images; a grouped split without the groups
+    objs.labels = None
+    with pytest.raises(ValueError, match="objects carry no labels; pass labels= explicitly"):
+        tt.analyze_objects(objs, device="cpu", config=_cfg())
+    objs.labels = flipped
+    objs.images = objs.images.astype(np.float32)
+    with pytest.raises(TypeError, match="unsupported image dtype float32"):
+        tt.analyze_objects(objs, device="cpu", config=_cfg())
+    objs.images = jobjs.images
+    objs.donors = None
+    with pytest.raises(ValueError, match="no groups were provided"):
+        tt.analyze_objects(objs, device="cpu", config=_cfg())
+
+
+def test_load_then_analyze_from_h5_files(tmp_path, monkeypatch):
+    """The documented flow: per-object files -> ``load_objects`` ->
+    ``analyze_objects``, the same in both packages."""
+    objs, _ = _batches()
+    for i in range(96):
+        tt.io.h5.write_object(
+            tmp_path / f"{i:04d}.h5", objs.images[i], mask=objs.masks[i], label=str(objs.labels[i]),
+            donor=str(objs.donors[i]), channels=CHANNELS,
+        )
+    loaded, jloaded = tt.load_objects(tmp_path), tpumcia.load_objects(tmp_path)
+    np.testing.assert_array_equal(loaded.images, jloaded.images)
+    np.testing.assert_array_equal(loaded.images, objs.images[:96])
+    assert loaded.masks.shape == (96, 32, 32) and loaded.channels == CHANNELS
+    cfg = {**_cfg(), "head": {"kind": "logistic", "num_steps": 100}}
+    want = tpumcia.analyze_objects(jloaded, config={**cfg, "mesh": {"data": 1}})
+    replay_jax_draws(monkeypatch)
+    got = tt.analyze_objects(loaded, device="cpu", config=cfg)
+    np.testing.assert_array_equal(got.test_idx, want.test_idx)
+    np.testing.assert_allclose(got.features.values, np.asarray(want.features.values), rtol=0, atol=1e-5)
+    assert got.channel_result.ranking.tolist() == want.channel_result.ranking.tolist()
+
+
+def test_feature_importance_matches_jax(monkeypatch):
+    """``feature_importance`` is the sklearn-shaped permutation importance of
+    both packages, on one head carried across."""
+    from tpumcia.models.heads import fit_head as jfit_head
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(120, 6)).astype(np.float32)
+    y = (X[:, 2] > 0).astype(np.int64)
+    replay_jax_draws(monkeypatch)
+    head = tt.api.fit_head(X, y, device="cpu", config=tt.HeadConfig(kind="logistic", num_steps=80))
+    jhead = jfit_head(X, y, config=tpumcia.HeadConfig(kind="logistic", num_steps=80))
+    got = tt.feature_importance(head, X, y, n_repeats=4, seed=3)
+    want = tpumcia.feature_importance(jhead, X, y, n_repeats=4, seed=3)
+    assert got.importances_mean.shape == (6,) and int(np.argmax(got.importances_mean)) == 2
+    np.testing.assert_allclose(got.importances_mean, np.asarray(want.importances_mean), atol=2 / 120 + 1e-6)
+
+
+def test_exports_and_import_guard():
+    """What tpumcia exports for this workflow the port exports too, and
+    importing the port pulls in no package it must stay free of."""
+    for name in ("load_objects", "analyze_objects", "feature_importance", "run_pipeline",
+                 "fit_head", "channel_importance", "extract_features"):
+        assert name in tpumcia.__all__ and name in tt.__all__ and callable(getattr(tt, name))
+    assert "Not ported yet: h5 ingestion" not in tt.__doc__ and "streaming" in tt.__doc__
+    code = (
+        "import sys, tpumcia_torch, tpumcia_torch.api, tpumcia_torch.io.h5, tpumcia_torch.io.mednist, "
+        "tpumcia_torch.io.native, tpumcia_torch.io.loader, tpumcia_torch.io.staging, "
+        "tpumcia_torch.pipeline.streaming, tpumcia_torch.utils.logging\n"
+        "bad = {'jax', 'tpumcia', 'sklearn', 'h5py', 'imageio', 'matplotlib'} & set(sys.modules)\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

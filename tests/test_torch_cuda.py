@@ -3,7 +3,9 @@ maskless, B1b masked, B1c with the difference histogram, B2 several
 offsets, B1d at 65536 pixels or more than 256 levels) against its plain
 version, the wrapper's checks, and the slice and
 ``extract_features`` on the card against the same calls on the CPU, the
-forest fitted on the card against the CPU fit and the morphology block.
+forest fitted on the card against the CPU fit and the morphology block;
+offset lists past the kernel's 16, the refusals past the kernel's bounds
+and of ``use_pallas='never'``, per-batch uploads with ``in_flight`` and ``stream_extract`` with staged uploads.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The file
 imports neither jax nor tpumcia, so it also runs where only torch is
@@ -264,8 +266,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="mask"):
         cuda_glcm.sufficient_stats(x, torch.ones((1, 1, 8, 8), dtype=torch.bool, device=dev),
                                    levels=256, offset=(0, 1))
+    # one launch takes at most 16 offsets; the entry point runs several
     with pytest.raises(ValueError, match="offsets"):
-        cuda_glcm.sufficient_stats_multi(x, levels=256, offsets=[(0, 1)] * 17)
+        cuda_glcm._launch(x, None, 256, [(0, 1)] * 17, False)
+    with pytest.raises(ValueError, match="at least one offset"):
+        cuda_glcm.sufficient_stats_multi(x, levels=256, offsets=[])
+    assert len(cuda_glcm.sufficient_stats_multi(x, levels=256, offsets=[(0, 1)] * 17)) == 17
     # the need_diff form launches and equals its plain version
     got = cuda_glcm.sufficient_stats(x, levels=256, offset=(0, 1), need_diff=True)
     want = cuda_glcm.sufficient_stats_reference(x, levels=256, offset=(0, 1), need_diff=True)
@@ -358,3 +364,139 @@ def test_morphology_on_card_matches_cpu():
     card = extract_features(images, mask, device=dev, config=cfg)
     cpu = extract_features(images, mask, device="cpu", config=cfg)
     np.testing.assert_allclose(card.values[:, -32:], cpu.values[:, -32:], rtol=1e-5, atol=1e-5)
+
+
+def test_twenty_offsets_on_card_match_plain():
+    """More offsets than the kernel's argument holds: two launches, each
+    counted, bit-equal to the plain version; masked and with the difference
+    histogram too; ``extract_features``' 20-block wire against the CPU."""
+    dev = require_cuda()
+    import tpumcia_torch as tt
+
+    rng = np.random.default_rng(20)
+    offsets = [(dr, dc) for dr in (-3, -1, 0, 2) for dc in range(0, 5)]
+    assert len(offsets) == 20 > cuda_glcm.MAX_OFFSETS
+    x = torch.from_numpy(rng.integers(0, 256, size=(64, 3, 64, 64), dtype=np.int32)).to(dev)
+    m = torch.from_numpy(_edge_mask(rng, (64, 3, 64, 64), shared=False)).to(dev)
+    for mask, need_diff in [(None, False), (m, False), (m, True)]:
+        cuda_glcm.reset_launch_counts()
+        got = cuda_glcm.sufficient_stats_multi(x, mask, levels=256, offsets=offsets, need_diff=need_diff)
+        assert cuda_glcm.LAUNCHES == 2 and cuda_glcm.LAUNCHES_BY_FORM["B2"] == 2
+        want = cuda_glcm.sufficient_stats_multi_reference(x, mask, levels=256, offsets=offsets, need_diff=need_diff)
+        assert len(got) == 20
+        for g, w in zip(got, want):
+            _assert_stats_equal(g, w)
+        tail = cuda_glcm.sufficient_stats_multi(x, mask, levels=256, offsets=offsets[16:], need_diff=need_diff)
+        assert torch.equal(tail[0].hist, got[0].hist) and torch.equal(tail[0].vmax, got[0].vmax)
+    imgs = x.permute(0, 2, 3, 1).to(torch.uint8).cpu().numpy()
+    cfg = tt.FeatureConfig(glcm=tt.GLCMConfig(distance=(1, 2, 3, 4, 5), angle=(0.0, 0.785398, 1.570796, 2.356194)))
+    card = tt.extract_features(imgs, device=dev, config=cfg)
+    cpu = tt.extract_features(imgs, device="cpu", config=cfg)
+    assert card.shape == (64, 3 * (17 + 20 * 6))
+    np.testing.assert_allclose(card.values, cpu.values, rtol=0, atol=1e-5)
+
+
+def test_no_plain_version_on_the_card():
+    """A CUDA device launches the kernel or raises: ``use_pallas='never'``
+    and sizes past the kernel's bounds raise from every entry point and
+    launch nothing; inside the bounds ``'auto'`` and ``'always'`` launch."""
+    dev = require_cuda()
+    import tpumcia_torch as tt
+    from tpumcia_torch.pipeline.streaming import stream_extract
+
+    rng = np.random.default_rng(21)
+    x = (rng.random((40, 32, 32, 3)) * 256).astype(np.uint8)
+    m = rng.random((40, 32, 32, 3)) > 0.2
+    for value in ("auto", "always"):
+        cuda_glcm.reset_launch_counts()
+        tt.extract_features(x, m, device=dev, config=tt.FeatureConfig(use_pallas=value))
+        assert cuda_glcm.LAUNCHES == 1 and cuda_glcm.LAUNCHES_BY_FORM["B1b"] == 1
+    cuda_glcm.reset_launch_counts()
+    never = tt.FeatureConfig(use_pallas="never")
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tt.extract_features(x, m, device=dev, config=never)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tt.extract_features_batched(x, m, device=dev, batch_size=16, config=never)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        stream_extract(lambda idx: x[idx], len(x), "unused", device=dev, shard_size=16, config=never)
+    t = torch.from_numpy(rng.integers(0, 8192, size=(4, 1, 48, 48), dtype=np.int32)).to(dev)
+    with pytest.raises(ValueError, match="4096 levels"):
+        cuda_glcm.sufficient_stats_multi(t, levels=8192, offsets=[(0, 5), (5, 0)], need_diff=True)
+    with pytest.raises(ValueError, match="4096 levels"):
+        tt.extract_features(
+            t.permute(0, 2, 3, 1).cpu().numpy(), device=dev,
+            config=tt.FeatureConfig(glcm=tt.GLCMConfig(levels=8192)))
+    assert cuda_glcm.LAUNCHES == 0 and set(cuda_glcm.LAUNCHES_BY_FORM) == {"B1a", "B1b", "B1c", "B2", "B1d"}
+
+
+def test_batched_extraction_from_host_is_bounded_and_bit_equal():
+    """A collection on the host crosses a batch at a time: the same bytes as
+    the collection uploaded whole and sliced on the card, for every
+    ``in_flight``, with the peak device memory far under the collection's
+    int32 size."""
+    dev = require_cuda()
+    import tpumcia_torch as tt
+
+    rng = np.random.default_rng(22)
+    n, batch = 4000, 256  # 16 batches, the last wrap-padded
+    x = rng.integers(0, 256, size=(n, 48, 48, 12), dtype=np.uint8)
+    m = rng.random((n, 48, 48)) < 0.7
+    whole = tt.extract_features_batched(
+        torch.from_numpy(x).to(dev), torch.from_numpy(m).to(dev), device=dev, batch_size=batch)
+    torch.cuda.synchronize()
+    for in_flight in (1, 2, 8):
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        cuda_glcm.reset_launch_counts()
+        got = tt.extract_features_batched(x, m, device=dev, batch_size=batch, in_flight=in_flight)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated(dev) - base
+        assert cuda_glcm.LAUNCHES_BY_FORM["B1b"] == 16
+        np.testing.assert_array_equal(got.values, whole.values)
+        np.testing.assert_array_equal(got.degenerate, whole.degenerate)
+        assert rise < x.size * 4 / 2, (in_flight, rise)  # the whole collection as int32: 442 MB
+    pending = tt.extract_features_pending(x, m, device=dev, batch_size=batch, keep_device_values=True, in_flight=2)
+    assert tuple(pending.device_values.shape) == (n, 276) and pending.device_values.device.type == "cuda"
+    np.testing.assert_array_equal(pending.result().values, whole.values)
+
+
+def test_stream_extract_on_card_staged_equals_unstaged(tmp_path):
+    """Uploads on the prefetch worker (pinned ring, side stream) or in the
+    consumer: the same shard files; a partial last shard; fetches that
+    return tensors on the card; the non-wire branch."""
+    dev = require_cuda()
+    import tpumcia_torch as tt
+    from tpumcia_torch.pipeline.streaming import stream_extract
+
+    rng = np.random.default_rng(23)
+    n, shard = 1100, 128  # 9 shards, the last of 76
+    x = rng.integers(0, 256, size=(n, 48, 48, 12), dtype=np.uint8)
+    m = (rng.random((n, 48, 48)) < 0.7).astype(np.uint8)
+    labels = rng.integers(0, 3, size=n)
+
+    def fetch(idx):
+        return x[idx], m[idx], labels[idx]
+
+    def fetch_on_card(idx):
+        return torch.from_numpy(x[idx]).to(dev), torch.from_numpy(m[idx]).to(dev), labels[idx]
+
+    cuda_glcm.reset_launch_counts()
+    staged = stream_extract(fetch, n, tmp_path / "staged", device=dev, shard_size=shard)
+    assert staged.shards_computed == 9 and cuda_glcm.LAUNCHES_BY_FORM["B1b"] == 9
+    direct = tt.extract_features_batched(x, m, device=dev, batch_size=shard)
+    np.testing.assert_array_equal(staged.features.values, direct.values)
+    np.testing.assert_array_equal(staged.labels, labels)
+    for name, kw in [("unstaged", dict(stage_on_device=False)), ("sync", dict(prefetch_depth=0)),
+                     ("deep", dict(prefetch_depth=4))]:
+        other = stream_extract(fetch, n, tmp_path / name, device=dev, shard_size=shard, **kw)
+        np.testing.assert_array_equal(other.features.values, staged.features.values)
+    on_card = stream_extract(fetch_on_card, n, tmp_path / "card", device=dev, shard_size=shard)
+    np.testing.assert_array_equal(on_card.features.values, staged.features.values)
+    exact = tt.FeatureConfig(precision="exact")
+    cuda_glcm.reset_launch_counts()
+    ex = stream_extract(fetch, 300, tmp_path / "exact", device=dev, shard_size=shard, config=exact)
+    assert cuda_glcm.LAUNCHES_BY_FORM["B1c"] == 3
+    np.testing.assert_array_equal(
+        ex.features.values, tt.extract_features(x[:300], m[:300], device="cpu", config=exact).values)
+    again = stream_extract(fetch, n, tmp_path / "staged", device=dev, shard_size=shard)
+    assert (again.shards_computed, again.shards_skipped) == (0, 9)

@@ -13,8 +13,11 @@ permutation, per-feature permutation, ablation or coefficients
 single-device extraction in every precision (hybrid, exact, device), masked
 or not, at one GLCM offset or several; ``glcm_matrix`` and
 ``glcm_properties`` give the co-occurrence matrices and their skimage
-properties. Not ported yet: h5 ingestion, streaming, the CNN, multi-GPU and
-the CLI (ROADMAP).
+properties. ``load_objects`` reads per-object HDF5 files into an
+``ObjectBatch`` and ``analyze_objects`` runs the whole analysis on one;
+``pipeline.streaming.stream_extract`` (and ``stream_extract_h5``) extracts
+a collection of any size in resumable shards, with a bounded share of it on
+the device. Not ported yet: the CNN, multi-GPU and the CLI (ROADMAP).
 Module paths and function names mirror ``tpumcia`` so each counterpart is
 easy to find. It imports neither ``jax`` nor ``tpumcia`` nor ``sklearn``.
 
@@ -25,6 +28,7 @@ easy to find. It imports neither ``jax`` nor ``tpumcia`` nor ``sklearn``.
 """
 
 from tpumcia_torch.version import __version__
+from tpumcia_torch.api import analyze_objects, feature_importance, load_objects
 from tpumcia_torch.config import (
     FeatureConfig,
     GLCMConfig,
@@ -73,4 +77,7 @@ __all__ = [
     "PipelineResult",
     "run_pipeline",
     "quantize_to_levels",
+    "load_objects",
+    "analyze_objects",
+    "feature_importance",
 ]

@@ -127,7 +127,7 @@ class ImportanceConfig:
     # breaks for >= 10 channels (SURVEY.md §3.3).
     channel_match: str = "exact"
     # how run_pipeline scores channels: 'permutation' (reference default,
-    # ipynb:458-462), 'ablation' (column fill-in score drop), 'mdi'/'coef'
+    # ipynb:493-505), 'ablation' (column fill-in score drop), 'mdi'/'coef'
     # (head-derived; head kind must match), or 'auto' (mdi for forests,
     # permutation otherwise). See importance/channels.py::channel_importance.
     channel_method: str = "permutation"

@@ -39,14 +39,15 @@ atomics and keeps several blocks on each SM:
 
 The source says more.
 
-:func:`sufficient_stats` and :func:`sufficient_stats_multi` take the kernel
-for a CUDA tensor and the plain version only for a CPU tensor; anything
-else raises. The plain version takes every size; the kernel takes up to
-:data:`MAX_KERNEL_LEVELS` levels and :data:`MAX_KERNEL_PIXELS` pixels and
-raises a ``ValueError`` stating the bound past them. At the B1d sizes both
-refuse ``need_diff=False``: the ``dstats`` sums are not exact in f32 there.
-:data:`LAUNCHES` counts kernel launches over all forms, so a run can show
-that it went through the kernel.
+:func:`sufficient_stats` and :func:`sufficient_stats_multi` take the plain
+version for a CPU tensor and for nothing else. For a CUDA tensor they
+launch the kernel or raise: past the kernel's bounds
+(:data:`MAX_KERNEL_LEVELS` levels, :data:`MAX_KERNEL_PIXELS` pixels) they
+raise a ``ValueError``, while an offset list longer than the kernel's
+:data:`MAX_OFFSETS` runs as several launches whose per-offset outputs are
+joined. At the B1d sizes both refuse ``need_diff=False``: the ``dstats``
+sums are not exact in f32 there. :data:`LAUNCHES` counts kernel launches
+over all forms, so a run can show that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -58,7 +59,6 @@ import torch
 from tpumcia_torch.features.stats import (
     SuffStats,
     cheap_limbs,
-    glcm_sumsq_limbs,
     rescale_lut_device,
 )
 
@@ -74,9 +74,6 @@ MAX_KERNEL_LEVELS = 4096
 MAX_KERNEL_PIXELS = (1 << 24) - 1  # H*W
 MAX_OFFSETS = 16  # the kernel's fixed-size offset argument
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory at 700 W (NVIDIA's data sheet)
-# co-occurrence cells the plain version counts at once: 512 images' G at
-# 256 levels, 256 MB of int64
-_G_CELLS_PER_CHUNK = 1 << 25
 
 
 def reset_launch_counts() -> None:
@@ -90,6 +87,12 @@ def is_large(hw: int, levels: int) -> bool:
     """True at the B1d sizes: H*W >= 65536 (a u16 G cell could overflow)
     or more than 256 levels."""
     return hw >= 65536 or levels > 256
+
+
+def past_kernel_bounds(hw: int, levels: int) -> bool:
+    """True where no kernel form reaches: a CUDA tensor raises there, a CPU
+    tensor takes the plain version as at every size."""
+    return levels > MAX_KERNEL_LEVELS or hw > MAX_KERNEL_PIXELS
 
 
 def kernel_form(*, hw: int, levels: int, masked: bool, need_diff: bool, num_offsets: int) -> str:
@@ -204,15 +207,12 @@ def sufficient_stats(
 
     ``mask``: None, or the (B, 1 or C, H, W) uint8 plane of
     ``stats.prepare_mask`` (nonzero selects a pixel). ``need_diff``: emit
-    the difference histogram (``diff_hist``) instead of ``dstats``. A CUDA
-    tensor launches the kernel; a CPU tensor takes
-    :func:`sufficient_stats_reference`."""
-    _check_need_diff(img.shape[-2] * img.shape[-1], levels, need_diff)
-    if img.device.type == "cpu":
-        return sufficient_stats_reference(
-            img, mask, levels=levels, offset=offset, need_diff=need_diff
-        )
-    return _launch(img, mask, levels, [tuple(offset)], need_diff)[0]
+    the difference histogram (``diff_hist``) instead of ``dstats``. A CPU
+    tensor takes :func:`sufficient_stats_reference`; a CUDA tensor launches
+    the kernel, or raises past its bounds."""
+    return sufficient_stats_multi(
+        img, mask, levels=levels, offsets=[offset], need_diff=need_diff
+    )[0]
 
 
 def sufficient_stats_multi(
@@ -221,14 +221,33 @@ def sufficient_stats_multi(
 ) -> tuple[SuffStats, ...]:
     """:func:`sufficient_stats` for several offsets in one pass: one
     :class:`SuffStats` per offset, all sharing one ``hist``, ``count`` and
-    ``vmax`` (as the Pallas multi-offset kernel returns them)."""
+    ``vmax`` (as the Pallas multi-offset kernel returns them). More than
+    :data:`MAX_OFFSETS` offsets run as several kernel launches, each counted;
+    the shared fields are the first launch's."""
     offsets = [tuple(o) for o in offsets]
     _check_need_diff(img.shape[-2] * img.shape[-1], levels, need_diff)
     if img.device.type == "cpu":
         return sufficient_stats_multi_reference(
             img, mask, levels=levels, offsets=offsets, need_diff=need_diff
         )
-    return _launch(img, mask, levels, offsets, need_diff)
+    return _launch_chunked(img, mask, levels, offsets, need_diff)
+
+
+def _launch_chunked(img, mask, levels, offsets, need_diff) -> tuple[SuffStats, ...]:
+    """:func:`_launch` over an offset list of any length: launches of at most
+    :data:`MAX_OFFSETS` offsets (the kernel's fixed-size argument), their
+    per-offset outputs joined in order. Every launch recomputes the shared
+    ``hist``, ``count`` and ``vmax``; the first launch's are kept."""
+    if not offsets:
+        raise ValueError("sufficient_stats_multi needs at least one offset")
+    out: list[SuffStats] = []
+    for i in range(0, len(offsets), MAX_OFFSETS):
+        part = _launch(img, mask, levels, offsets[i:i + MAX_OFFSETS], need_diff)
+        if out:
+            first = out[0]
+            part = [s._replace(hist=first.hist, count=first.count, vmax=first.vmax) for s in part]
+        out.extend(part)
+    return tuple(out)
 
 
 def _launch(img, mask, levels, offsets, need_diff) -> tuple[SuffStats, ...]:
@@ -244,7 +263,7 @@ def _launch(img, mask, levels, offsets, need_diff) -> tuple[SuffStats, ...]:
     B, C, H, W = img.shape
     if levels < 1:
         raise ValueError(f"levels must be >= 1; got {levels}")
-    if levels > MAX_KERNEL_LEVELS or H * W > MAX_KERNEL_PIXELS:
+    if past_kernel_bounds(H * W, levels):
         raise ValueError(
             f"{H}x{W} images at {levels} levels are past the CUDA GLCM kernel: "
             f"at most {MAX_KERNEL_LEVELS} levels (its per-level tables and one "
@@ -348,13 +367,40 @@ def _prologue(img: torch.Tensor, mask: torch.Tensor | None, L: int):
         count = counted.sum(1).to(torch.float32)
         vmax = torch.where(m, x, -1).amax(1)
     hist = _row_bincount(x.clamp(0, L - 1), L, keep=counted)
-    row = rescale_lut_device(L, img.device).to(torch.int64)[vmax.clamp(0, L - 1)]
+    row = rescale_lut_device(L, img.device)[vmax.clamp(0, L - 1)].to(torch.int64)
     resc = torch.where(in_range, torch.gather(row, 1, x.clamp(0, L - 1)), 0)
     shape = (B, C)
     return (
         hist.to(torch.float32).reshape(*shape, L), count.reshape(shape),
         vmax.to(torch.int32).reshape(shape), resc.reshape(n, H, W), m,
     )
+
+
+def _sumsq_limbs_occupied(left, right, keep, L: int, cheap: bool) -> torch.Tensor:
+    """(n, P) int64 pair levels -> (n, 4) int32 limbs of ``sum(G^2)``, the
+    values of ``stats.glcm_sumsq_limbs`` over a dense G, from the occupied
+    cells alone (at most P a row): every limb is a sum over cells of a
+    function that is 0 at a count of 0. The cells come from sorting the pair
+    keys, so no L x L array is built at any level count."""
+    n = left.shape[0]
+    row = torch.arange(n, device=left.device)[:, None]
+    key = (row * L + left) * L + right
+    key = key.reshape(-1) if keep is None else key[keep]
+    cells, g = torch.unique_consecutive(key.sort().values, return_counts=True)
+    cell_row = torch.div(cells, L * L, rounding_mode="floor")
+
+    def per_row(v):
+        return torch.zeros(n, dtype=torch.int64, device=left.device).index_add_(0, cell_row, v)
+
+    if cheap:
+        s2 = per_row(g * g)
+        z = torch.zeros_like(s2)
+        limbs = [z, z, s2 >> 8, s2 & 255]
+    else:
+        a, b = g >> 12, g & 4095
+        bb = b * b
+        limbs = [per_row(a * a), per_row(a * b), per_row(bb >> 8), per_row(bb & 255)]
+    return torch.stack(limbs, -1).to(torch.int32)
 
 
 def _offset_stats(resc, m, offset, *, shape, levels, need_diff, hist, count, vmax):
@@ -378,14 +424,7 @@ def _offset_stats(resc, m, offset, *, shape, levels, need_diff, hist, count, vma
     dh = _row_bincount(left - right + (L - 1), 2 * L - 1, keep)
 
     cheap = cheap_limbs(H * W, L)
-    step = max(1, _G_CELLS_PER_CHUNK // (L * L))
-    sumsq = torch.cat([
-        glcm_sumsq_limbs(_row_bincount(
-            left[s:s + step] * L + right[s:s + step], L * L,
-            None if keep is None else keep[s:s + step],
-        ), cheap)
-        for s in range(0, n, step)
-    ]) if n else torch.zeros((0, 4), dtype=torch.int32, device=dev)
+    sumsq = _sumsq_limbs_occupied(left, right, keep, L, cheap)
 
     f32 = torch.float32
     if need_diff:
@@ -409,9 +448,9 @@ def sufficient_stats_reference(
 ) -> SuffStats:
     """The plain PyTorch version of the kernel: the same outputs from
     ``torch.bincount`` on flat keys (masked-out pixels and pairs are not
-    counted), with an explicit G per (image, channel) built a chunk of
-    images at a time, so that a 2048-image batch stays within a few GB. Used
-    by the CPU tests and, on the card, only to check the kernel."""
+    counted), with ``sum(G^2)`` from the counts of the sorted pair keys, G's
+    occupied cells. It serves CPU tensors and checks the kernel on the
+    card."""
     return sufficient_stats_multi_reference(
         img, mask, levels=levels, offsets=[offset], need_diff=need_diff
     )[0]

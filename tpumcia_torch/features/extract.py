@@ -29,6 +29,11 @@ shape features come last; a shared (B, H, W) mask gives every channel its 8
 values. A device mesh (ROADMAP A14) raises ``NotImplementedError``. On a
 CUDA device the kernel's bounds (4096 levels,
 2^24 pixels) raise a ``ValueError``; a CPU device takes every size.
+
+A collection on the host crosses to a CUDA device one batch at a time
+(``io.staging``: pinned buffers, a side stream), at most ``in_flight``
+batches ahead of the device; a tensor already on the device is used as it
+is.
 """
 
 from __future__ import annotations
@@ -183,8 +188,25 @@ def _to_device(images, device: torch.device) -> torch.Tensor:
     host integer types as int32."""
     if isinstance(images, torch.Tensor):
         return images.to(device)
-    host = images if images.dtype == np.uint8 else images.astype(np.int32)
+    host = images.astype(_level_dtype(images), copy=False)
     return torch.from_numpy(np.ascontiguousarray(host)).to(device)
+
+
+def _level_dtype(images: np.ndarray):
+    """What a host level array crosses to the device as: uint8 as is, any
+    other integer type as int32."""
+    return np.uint8 if images.dtype == np.uint8 else np.int32
+
+
+def _host_or_device(a, device: torch.device):
+    """How a batched entry holds an input: a tensor on an accelerator stays
+    (moved to ``device``), a CPU tensor or array-like becomes a numpy array
+    whose batches cross one at a time; None stays None."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return a.to(device) if a.device.type != "cpu" else a.numpy()
+    return np.asarray(a)
 
 
 def _chw_levels(imgs: torch.Tensor) -> torch.Tensor:
@@ -450,6 +472,7 @@ def extract_features_pending(
     synth_noise: int = 0,
     synth_var: float = 0.01,
     synth_seed: int = 0,
+    in_flight: int = 8,
     timer=None,
 ) -> PendingFeatureMatrix:
     """Run the batched hybrid extraction on ``device`` and return before the
@@ -461,14 +484,25 @@ def extract_features_pending(
     ``synth.synth_batch_seed(synth_seed, i)``; no mask). The last batch is
     padded by wrapping around to the first images (and their mask rows), so
     every batch has one shape; the pad rows are dropped from the result.
+
+    Images and masks on the host stay there: each batch is sliced and
+    wrap-padded on the host and sent to a CUDA device through a pinned
+    buffer on a side stream while the previous batch computes. ``in_flight``
+    bounds the batches enqueued ahead of the device, and with them the
+    batches resident on it: batch ``i`` is not sent before batch
+    ``i - in_flight`` has finished. A tensor already on the device is
+    sliced there.
     """
-    from tpumcia_torch.features.stats import prepare_mask
+    from tpumcia_torch.features.stats import check_mask_shape, mask_plane
+    from tpumcia_torch.io.staging import HostStager, rows_to_device, take
     from tpumcia_torch.preprocess.synth import synth_batch_seed
 
     device = torch.device(device)
     cfg = config or FeatureConfig()
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1; got {batch_size}")
+    if in_flight < 1:
+        raise ValueError(f"in_flight must be >= 1; got {in_flight}")
     check_use_pallas(cfg, device)
     images = _as_level_array(images, cfg.glcm.levels)
     n = len(images)
@@ -488,12 +522,12 @@ def extract_features_pending(
             f"image shape {tuple(images.shape)}"
         )
     num_channels = images.shape[-1] if synth_noise == 0 else 1 + synth_noise
+    if mask is not None:
+        check_mask_shape(mask, images.shape)
     if timer is not None:
         timer.start()
-    imgs = _to_device(images, device)
-    m = prepare_mask(mask, images.shape, device) if mask is not None else None
-    if timer is not None:
-        timer.stamp("inputs")
+    images, mask = _host_or_device(images, device), _host_or_device(mask, device)
+    stager = HostStager(device) if device.type == "cuda" else None
 
     batch_size = min(batch_size, n)
     num_batches = math.ceil(n / batch_size)
@@ -503,20 +537,33 @@ def extract_features_pending(
     ]
     offset = tuple(cfg.glcm.offset)
 
-    def pad_batch(arr, sl):
+    def pad_batch(arr, sl, is_mask=False):
         # wrap-around pad: one batch shape for every launch
-        b = arr[sl]
         short = batch_size - (sl.stop - sl.start)
-        return torch.cat([b, arr[:short]]) if short else b
+        parts = [arr[sl], arr[:short]] if short else [arr[sl]]
+        if isinstance(arr, torch.Tensor):  # on the device already
+            b = torch.cat(parts) if short else parts[0]
+            return (b != 0).to(torch.uint8) if is_mask else b
+        if is_mask:
+            return rows_to_device([p != 0 for p in parts], device, np.uint8, stager, "mask")
+        return rows_to_device(parts, device, _level_dtype(arr), stager)
 
-    wires, feats = [], []
+    wires, feats, done = [], [], []
     for i, sl in enumerate(slices):
+        if i >= in_flight and done[i - in_flight] is not None:
+            done[i - in_flight].synchronize()  # the bound on resident batches
+        imgs_b = pad_batch(images, sl)
+        mask_b = None if mask is None else pad_batch(mask, sl, is_mask=True)
+        imgs_b = take(imgs_b)
+        mask_b = None if mask_b is None else mask_plane(take(mask_b))
+        if timer is not None:
+            timer.stamp("inputs")
         gen = None
         if synth_noise:
             gen = torch.Generator(device=device)
             gen.manual_seed(synth_batch_seed(synth_seed, i))
         wire, f = _batch_fused_dispatch(
-            pad_batch(imgs, sl), None if m is None else pad_batch(m, sl), gen,
+            imgs_b, mask_b, gen,
             levels=cfg.glcm.levels, offset=offset,
             keep_device=keep_device_values, synth_noise=synth_noise,
             synth_var=synth_var, timer=timer,
@@ -524,6 +571,11 @@ def extract_features_pending(
         wires.append(wire)
         if keep_device_values:
             feats.append(f)
+        event = None
+        if device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+        done.append(event)
 
     device_values = torch.cat(feats)[:n] if keep_device_values else None
     names = registry.feature_names(num_channels, channel_names=channel_names)
@@ -548,22 +600,25 @@ def extract_features_batched(
     config: FeatureConfig | None = None,
     channel_names: list[str] | None = None,
     keep_device_values: bool = False,
+    in_flight: int = 8,
 ) -> FeatureMatrix:
     """Large-collection extraction in fixed-size batches: the fused fast
-    path (:func:`extract_features_pending`) when the config is eligible,
-    else :func:`extract_features` per batch, concatenated on the host.
+    path (:func:`extract_features_pending`, at most ``in_flight`` batches
+    ahead of the device) when the config is eligible, else
+    :func:`extract_features` per batch, concatenated on the host.
     ``keep_device_values=True`` also returns the device-resident NaN-cleaned
     f32 matrix (``FeatureMatrix.device_values``) and requires the fast
     path."""
     return _extract_features_batched(
         images, mask, device=device, batch_size=batch_size, config=config,
         channel_names=channel_names, keep_device_values=keep_device_values,
+        in_flight=in_flight,
     )
 
 
 def _extract_features_batched(
     images, mask=None, *, device, batch_size, config, channel_names,
-    keep_device_values=False, timer=None,
+    keep_device_values=False, in_flight=8, timer=None,
 ) -> FeatureMatrix:
     """:func:`extract_features_batched`; ``timer``, a started
     ``StageTimer``, gets the per-batch calls' stages (the fused path
@@ -590,7 +645,7 @@ def _extract_features_batched(
         return extract_features_pending(
             images, mask, device=device, batch_size=batch_size, config=cfg,
             channel_names=channel_names, keep_device_values=keep_device_values,
-            timer=timer,
+            in_flight=in_flight, timer=timer,
         ).result()
     fms = [
         _extract_features(

@@ -82,16 +82,28 @@ def prepare_mask(mask, images_shape, device) -> torch.Tensor:
     a shared mask (never copied C-fold) and C otherwise. ``images_shape``
     is the (B, H, W, C) shape of the images it masks."""
     m = mask if isinstance(mask, torch.Tensor) else np.asarray(mask)
-    mshape, ishape = tuple(m.shape), tuple(images_shape)
+    check_mask_shape(m, images_shape)
+    if isinstance(m, torch.Tensor):
+        m = (m != 0).to(torch.uint8).to(device)
+    else:
+        m = torch.from_numpy((m != 0).astype(np.uint8)).to(device)
+    return mask_plane(m)
+
+
+def check_mask_shape(mask, images_shape) -> None:
+    """Raise unless ``mask`` has the (B, H, W, C) ``images_shape`` or its
+    per-object (B, H, W)."""
+    mshape, ishape = tuple(np.shape(mask)), tuple(images_shape)
     if mshape not in (ishape, ishape[:3]):
         raise ValueError(
             f"mask shape {mshape} must equal the images' {ishape} or "
             f"per-object {ishape[:3]}"
         )
-    if isinstance(m, torch.Tensor):
-        m = (m != 0).to(torch.uint8).to(device)
-    else:
-        m = torch.from_numpy((m != 0).astype(np.uint8)).to(device)
+
+
+def mask_plane(m: torch.Tensor) -> torch.Tensor:
+    """A binarized (B, H, W) or (B, H, W, C) uint8 mask -> the kernel's
+    contiguous (B, 1 or C, H, W) plane."""
     m = m.unsqueeze(1) if m.dim() == 3 else m.permute(0, 3, 1, 2)
     return m.contiguous()
 

@@ -1,5 +1,6 @@
-"""Synthetic datasets for tests and benchmarks (numpy; a copy of
-``tpumcia.io.synthetic.synthetic_mednist``).
+"""Synthetic datasets for tests and benchmarks (counterpart of
+``tpumcia.io.synthetic``: ``synthetic_mednist`` is a numpy copy,
+``synthetic_multichannel`` draws its noise channels on a device).
 
 The reference demonstrates on MedNIST (12 000 images, 6 classes, 64x64
 grayscale — ipynb:70-73) downloaded from Dropbox; this environment has no
@@ -67,3 +68,38 @@ def synthetic_mednist(
     images = np.stack(images)[order]
     labels = np.asarray(labels, np.int32)[order]
     return images, labels, list(CLASS_NAMES[:num_classes])
+
+
+def synthetic_multichannel(
+    n_per_class: int,
+    *,
+    device,
+    num_classes: int = 6,
+    hw: int = 64,
+    num_noise: int = 2,
+    seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray, list[str]]:
+    """Synthetic MedNIST + the reference's noise-channel synthesis: channel 1
+    carries the class signal, the rest are clipped gaussian noise — the setup
+    whose ground-truth channel ranking (Ch1 first) the importance pipeline
+    must recover (markdown cells 24/27 of the notebook). The noise is drawn
+    on ``device`` from a ``torch.Generator`` seeded with ``seed``: channel 1
+    equals tpumcia's bit for bit, the noise channels follow the same
+    distribution from another stream.
+
+    -> (images (N, hw, hw, 1 + num_noise) uint8, labels, class_names)
+    """
+    import torch
+
+    from tpumcia_torch.preprocess.synth import add_noise_channels
+
+    gray, labels, class_names = synthetic_mednist(
+        n_per_class, num_classes=num_classes, hw=hw, seed=seed
+    )
+    device = torch.device(device)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    out = add_noise_channels(
+        torch.from_numpy(gray).to(device), generator, num_noise=num_noise
+    )
+    return out.cpu().numpy(), labels, class_names

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -45,3 +46,13 @@ class MinMaxScaler:
 
     def transform(self, X: torch.Tensor) -> torch.Tensor:
         return (X - self.data_min) * self.scale
+
+    def inverse_transform(self, X: torch.Tensor) -> torch.Tensor:
+        rng = self.data_max - self.data_min
+        return X * torch.where(rng != 0, rng, 1.0) + self.data_min
+
+    def to_numpy(self) -> dict[str, np.ndarray]:
+        return {
+            "data_min": self.data_min.detach().cpu().numpy(),
+            "data_max": self.data_max.detach().cpu().numpy(),
+        }
