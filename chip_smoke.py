@@ -8,7 +8,10 @@ Phases (any failure exits nonzero, and no result line is printed):
   2. build: compiles the CUDA kernels from the sources in this checkout;
   3. kernel vs plain: each form of the GLCM statistics kernel (B1a
      maskless, B1b masked, B1c difference histogram, B2 several offsets, B1d
-     at 65536 pixels or more than 256 levels) against its plain PyTorch
+     at 65536 pixels or more than 256 levels, B1e past 4096 levels: 8192,
+     16384 and 32768 levels, masked and maskless, one and four offsets, a
+     constant channel, an empty and a one-pixel mask, 37x53, and a pair table
+     too large for shared memory) against its plain PyTorch
      version at the main paths' shapes and at edge cases (integer fields
      bit-equal, dstats[3] to rel 1e-6), both versions' median times, and per
      main-path shape the bytes it must move, its bound at the card's memory
@@ -29,14 +32,18 @@ Phases (any failure exits nonzero, and no result line is printed):
      the same calls on the CPU; then what lies past the kernel's argument
      and bounds: 20 offsets (two launches of the multi-offset form,
      bit-equal to the plain version and timed beside it with their bytes
-     and bound; the 20-block wire against the CPU), and the refusals on the
-     card (``use_pallas='never'`` and 8192 levels raise and launch nothing:
-     no plain version runs there);
+     and bound; the 20-block wire against the CPU), 8192 levels (one B1e
+     launch, features within 1e-5 of the CPU), and the refusals on the card
+     (``use_pallas='never'`` and 2^24 pixels raise and launch nothing: no
+     plain version runs there);
   7. the classic slice at 1024 levels (B1d): the cytometry objects of phase
      5 quantized to 1024 levels on the card, ``run_pipeline`` with
      fast_path='auto', which routes them to the classic path (packed f32
      wire, logistic head, both permutation views); checks launches, donors,
      accuracy, the signal channel and a card-vs-CPU feature check, times it;
+     then the same path at 8192 levels (B1e): 8,192 of those objects at
+     ``v >> 3`` in batches of 1,024 (2.0 GB of statistics a batch), the same
+     gates, 8 B1e launches per run, with the peak device memory;
   8. the classic slice on 256x256 fields (B1d): 1,200 synthetic 256x256
      images with 2 noise channels synthesized on the card, the host f64
      backend that hybrid becomes at 65536 pixels, logistic head; then an
@@ -75,7 +82,20 @@ Phases (any failure exits nonzero, and no result line is printed):
      profile, the same collection through ``extract_features_batched``
      from a host array (``in_flight=8``) with its peak memory, and a
      maskless 3-channel run (form B1a);
- 13. prints the kernels' JSON line and, last, the device JSON line.
+ 13. the CNN path (BASELINE config 3 at full width): the bench workload's
+     12,000 images with 2 noise channels synthesized on the card through
+     ``run_cnn_pipeline`` (ResNet-18, width 64, batch 256, 8 epochs, bf16
+     autocast): test accuracy, the signal channel first by occlusion and by
+     image permutation, ``occlusion_map`` on 16 test images, the float32
+     model on the card against the same weights on the CPU (TF32 off), the
+     bf16 model's argmax against the float32 model's, trained and occluded
+     images/s, peak device memory, and a batch-size sweep (2 epochs each at
+     batch 64 to 1024). It launches no GLCM kernel: its convolutions are
+     cuDNN's, as they are XLA's in the JAX package;
+ 14. the ``eval`` CLI in process (``tpumcia_torch.eval.main``, the synthetic
+     source, 200 images a class): returns 0, both metrics events, channel 0
+     first, the kernel launched;
+ 15. prints the kernels' JSON line and, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -106,7 +126,9 @@ FOUR_OFFSETS = ((0, 5), (4, 4), (5, 0), (4, -4))  # distance 5 at 0, 45, 90, 135
 TWENTY_OFFSETS = tuple(  # 5 distances x 4 angles: past the kernel's 16-offset argument
     (round(d * s), round(d * c)) for d in (1, 2, 3, 4, 5)
     for s, c in ((0.0, 1.0), (0.70710678, 0.70710678), (1.0, 0.0), (0.70710678, -0.70710678)))
-PAST_LEVELS = 8192  # past the kernel's 4096 levels: refused on the card
+HUGE_LEVELS = 8192  # past 4096 levels: form B1e (16-bit data kept at 13 bits)
+HUGE_N, HUGE_BATCH = 8192, 1024  # the 8192-level classic run: 2.0 GB of statistics a batch
+CNN_BATCHES = (64, 128, 256, 512, 1024)  # phase 13's batch-size sweep
 STREAM_N, STREAM_SHARD = 131_072, 2048  # phase 12: 64 shards
 STREAM_PEAK_BYTES = 4e9  # the most the peak device memory may rise over a streaming run
 STREAM_MASKLESS_N = 32_768  # 16 maskless shards
@@ -124,6 +146,8 @@ FORMS = {
     "B2": ("glcm_stats multi-offset", "tpumcia/features/pallas_glcm.py:878"),
     "B1d": ("glcm_stats_large (u64 pair table or u32 G in bands; also replaces :878 at these sizes)",
             "tpumcia/features/pallas_glcm.py:400"),
+    "B1e": ("glcm_stats_workspace (past 4096 levels: per-level tables in a device-memory workspace, "
+            "persistent grid; also replaces :878 at these sizes)", "tpumcia/features/pallas_glcm.py:400"),
 }
 LIBRARY = "none: no single PyTorch call computes these statistics"
 
@@ -298,6 +322,18 @@ def timed_cases(device):
     pc_mask[0, :, :, 1] = False  # an empty (image, channel)
     yield item("B1d", rand((4, 3, 256, 256)), mask=pc_mask, need_diff=True,
                note="per-channel mask")
+    # B1e: the main path's batch first (one 1024-object batch of the
+    # 8192-level classic run: cytometry levels at v >> 3 with the cell mask,
+    # 2.0 GB of outputs), then a 2048-object batch (4.0 GB), and 8x1x64x64
+    # at 32768 levels
+    raw, cell, _, _ = cytometry_objects(BENCH_SHAPE[0], seed=3)
+    huge = dev((raw.astype(np.int32) >> 3).transpose(0, 3, 1, 2))
+    del raw
+    yield item("B1e", huge[:HUGE_BATCH].contiguous(), mask=cell[:HUGE_BATCH], need_diff=True,
+               levels=HUGE_LEVELS, note="cytometry levels", per_run=HUGE_N // HUGE_BATCH)
+    yield item("B1e", huge, mask=cell, need_diff=True, levels=HUGE_LEVELS, note="cytometry levels")
+    del huge
+    yield item("B1e", rand((8, 1, 64, 64), 32768), need_diff=True, levels=32768)
 
 
 def timed_label(shape, offsets, mask, levels, note) -> str:
@@ -402,6 +438,29 @@ def phase_kernel(device):
         raise AssertionError("128x128 at 1024 levels: the kernel did not plan the bands")
     case((2, 2, 128, 128), [(0, 1)], need_diff=True, levels=CLASSIC_LEVELS)
 
+    # B1e, past 4096 levels: 8x1x64x64 random levels with an all-zero, a
+    # constant and a top-level channel at 8192, 16384 and 32768 levels,
+    # maskless and with a mask that is empty, one pixel and full in turn,
+    # one and four offsets; 37x53 (scalar loads) at a level count no power
+    # of two divides; more items than the persistent grid has blocks; and
+    # 128x128, whose pair table (32,768 slots, 256 KB) lives in the workspace
+    b1e_mask = rng.random((8, 64, 64)) < 0.8
+    b1e_mask[0] = False
+    b1e_mask[1] = False
+    b1e_mask[1, 30, 31] = True
+    b1e_mask[2] = True
+    for levels in (HUGE_LEVELS, 16384, 32768):
+        fill = {(3, 0): 0, (4, 0): levels - 1, (5, 0): levels // 3}
+        for offsets in ([OFFSET], list(FOUR_OFFSETS)):
+            for mask in (None, b1e_mask):
+                case((8, 1, 64, 64), offsets, fill=fill, mask=mask, need_diff=True, levels=levels)
+    case((3, 2, 37, 53), [(1, 2), (-2, 1)], mask=rng.random((3, 37, 53)) < 0.7, need_diff=True, levels=5001)
+    case((700, 2, 16, 16), [(0, 1)], need_diff=True, levels=HUGE_LEVELS)
+    if cuda_glcm.launch_info((2, 2, 128, 128), HUGE_LEVELS, [(0, 1)], masked=False,
+                             need_diff=True)["table_in_smem"]:
+        raise AssertionError("128x128 at 8192 levels: the pair table should not fit in shared memory")
+    case((2, 2, 128, 128), [(0, 1), (3, -2)], need_diff=True, levels=HUGE_LEVELS)
+
     records = {}
 
     def bench(form, x, offsets, mask, need_diff, levels, note, per_run, min_blocks):
@@ -425,16 +484,29 @@ def phase_kernel(device):
         log(f"  {form} at {tuple(t.shape)} levels={levels} offsets={list(offsets)} mask={mask is not None} "
             f"need_diff={need_diff}: kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms "
             "(median of runs, CUDA events)")
-        nbytes = cuda_glcm.traffic_bytes(tuple(t.shape), levels, offsets, need_diff=need_diff,
-                                         mask_channels=0 if m is None else m.shape[1])
-        bound = cuda_glcm.bound_ms(nbytes)
         info = cuda_glcm.launch_info(tuple(t.shape), levels, offsets, masked=m is not None,
                                      need_diff=need_diff)
+        # the bound counts each input and output once; what form B1e moves to
+        # and from its own workspace is stated beside it
+        in_ws = not info.get("table_in_smem", True)
+        total = cuda_glcm.traffic_bytes(tuple(t.shape), levels, offsets, need_diff=need_diff,
+                                        mask_channels=0 if m is None else m.shape[1],
+                                        table_in_workspace=in_ws)
+        ws_bytes = (cuda_glcm.workspace_traffic_bytes(tuple(t.shape), levels, offsets, table_in_workspace=in_ws)
+                    if form == "B1e" else 0)
+        nbytes = total - ws_bytes
+        bound = cuda_glcm.bound_ms(nbytes)
         ms = min(k1, k2)
         log(f"    {nbytes} bytes, bound {bound!r} ms at 3.35 TB/s, share {bound / ms!r}; layout "
             f"{info['layout']} ({info['table_slots']} slots), {info['threads']} threads, "
             f"{info['smem_bytes']} B dynamic shared memory, {info['blocks_per_sm']} blocks per SM, "
             f"plane in shared memory {info['plane_in_smem']}")
+        if form == "B1e":
+            log(f"    workspace: {info['grid_blocks']} persistent blocks, {info['workspace_bytes']} bytes "
+                f"allocated, pair table in shared memory {info['table_in_smem']}; its own traffic "
+                f"{ws_bytes} bytes, bound with it {cuda_glcm.bound_ms(total)!r} ms")
+            info = {**info, "workspace_traffic_bytes": ws_bytes,
+                    "bound_with_workspace_ms": cuda_glcm.bound_ms(total)}
         if info["blocks_per_sm"] < min_blocks:
             raise AssertionError(f"{form} at {tuple(t.shape)}: {info['blocks_per_sm']} blocks per SM "
                                  f"< {min_blocks}")
@@ -714,8 +786,9 @@ def phase_faults(device, n=BENCH_SHAPE[0], n_cpu=64):
     """What lies past the kernel's argument and bounds. 20 offsets: two
     launches of the multi-offset form, bit-equal to the plain version and
     timed beside it, and the 20-block wire of ``extract_features`` against
-    the CPU. ``use_pallas='never'`` and PAST_LEVELS levels must raise on the
-    card and launch nothing. Returns ({form: launches}, record): the launches
+    the CPU. HUGE_LEVELS levels launch form B1e once and match the CPU.
+    ``use_pallas='never'`` and 2^24 pixels must raise on the card and launch
+    nothing. Returns ({form: launches}, record): the launches
     are those counted over the ``extract_features`` call (the wrapper's own
     call is a comparison with the plain version; its count is in the
     record)."""
@@ -779,24 +852,37 @@ def phase_faults(device, n=BENCH_SHAPE[0], n_cpu=64):
     _raises_value_error(
         lambda: tt.extract_features_batched(imgs, mask, device=device, batch_size=64, config=never),
         "extract_features_batched with use_pallas='never'")
-    big = rng.integers(0, PAST_LEVELS, size=(8, 64, 64, 1), dtype=np.int32)
-    if not cuda_glcm.past_kernel_bounds(64 * 64, PAST_LEVELS):
-        raise AssertionError(f"{PAST_LEVELS} levels should lie past the kernel's bounds")
+    if not cuda_glcm.past_kernel_bounds(1 << 24, LEVELS) or cuda_glcm.past_kernel_bounds(64 * 64, HUGE_LEVELS):
+        raise AssertionError("the kernel's bounds should be 2^24 pixels and 32768 levels")
+    field = torch.zeros((1, 1, 4096, 4096), dtype=torch.int32, device=device)  # 2^24 pixels
     text = _raises_value_error(
-        lambda: tt.extract_features(big, device=device, config=tt.FeatureConfig(glcm=tt.GLCMConfig(levels=PAST_LEVELS))),
-        f"extract_features at {PAST_LEVELS} levels")
+        lambda: cuda_glcm.sufficient_stats(field, levels=LEVELS, offset=OFFSET, need_diff=True),
+        "sufficient_stats on 2^24 pixels")
+    del field
     if cuda_glcm.LAUNCHES != 0:
         raise AssertionError(f"the refused calls launched {cuda_glcm.LAUNCHES_BY_FORM}")
     tt.extract_features(imgs, mask, device=device)
     if cuda_glcm.LAUNCHES_BY_FORM["B1b"] != 1 or cuda_glcm.LAUNCHES != 1:
         raise AssertionError(f"'auto' inside the bounds ran {cuda_glcm.LAUNCHES_BY_FORM}, want the kernel once")
     log(f"  refused on the card, nothing launched: use_pallas='never' (extract_features, "
-        f"extract_features_batched) and {PAST_LEVELS} levels ({text.split(':')[0]})")
-    return {"B2": path_launches["B2"]}, {
+        f"extract_features_batched) and 2^24 pixels ({text.split(':')[0]})")
+    # past 4096 levels the card launches form B1e and agrees with the CPU
+    big = rng.integers(0, HUGE_LEVELS, size=(8, 64, 64, 1), dtype=np.int32)
+    big_cfg = tt.FeatureConfig(glcm=tt.GLCMConfig(levels=HUGE_LEVELS))
+    cuda_glcm.reset_launch_counts()
+    card_big = tt.extract_features(big, device=device, config=big_cfg)
+    b1e_launches = cuda_glcm.LAUNCHES_BY_FORM["B1e"]
+    if b1e_launches != 1 or cuda_glcm.LAUNCHES != 1:
+        raise AssertionError(f"{HUGE_LEVELS} levels ran {cuda_glcm.LAUNCHES_BY_FORM}, want B1e once")
+    big_diff = _features_close(card_big, tt.extract_features(big, device="cpu", config=big_cfg),
+                               f"{HUGE_LEVELS} levels")
+    log(f"  {HUGE_LEVELS} levels on 8x64x64x1: one B1e launch, features vs CPU {big_diff!r}")
+    return {"B2": path_launches["B2"], "B1e": b1e_launches}, {
+        "levels8192_vs_cpu": big_diff,
         "offsets20_ms": ms20, "offsets20_plain_ms": plain20, "offsets20_bytes": bytes20,
         "offsets20_bound_ms": bound20, "offsets20_max_abs_err": err20, "offsets20_wire_vs_cpu": wire20,
         "offsets20_wrapper_launches": wrapper_launches["B2"], "offsets20_path_launches": path_launches["B2"],
-        "refused": ["use_pallas='never'", f"{PAST_LEVELS} levels"],
+        "refused": ["use_pallas='never'", "2^24 pixels"],
     }
 
 
@@ -822,11 +908,13 @@ def _timed_runs(run, timed_runs, form, per_run=None):
     return launches, times, result
 
 
-def phase_classic_levels(device, data, timed_runs=3, n_cpu=64):
-    """The classic slice at 1024 levels: phase 5's objects quantized to
-    CLASSIC_LEVELS on the card, ``run_pipeline`` with fast_path='auto'
-    (tpumcia's classic path for > 256 levels: the packed f32 wire, a
-    logistic head, both permutation views). Returns (B1d launches, record)."""
+def phase_classic_levels(device, data, timed_runs=3, n_cpu=64, *, levels=CLASSIC_LEVELS, form="B1d",
+                         n=None, batch_size=BATCH):
+    """The classic slice above 256 levels: the first ``n`` of phase 5's
+    objects quantized to ``levels`` on the card, ``run_pipeline`` with
+    fast_path='auto' (tpumcia's classic path for > 256 levels: the packed
+    f32 wire, a logistic head, both permutation views), in batches of
+    ``batch_size``. Returns (``form``'s launches, record)."""
     import numpy as np
     import torch
 
@@ -835,31 +923,36 @@ def phase_classic_levels(device, data, timed_runs=3, n_cpu=64):
     from tpumcia_torch.utils.profiling import StageTimer
 
     (raw, mask, labels, donors), _ = data
-    n = len(raw)
+    n = len(raw) if n is None else n
+    raw, mask, labels, donors = raw[:n], mask[:n], labels[:n], donors[:n]
+    shift = 16 - (levels - 1).bit_length()
     t0 = time.perf_counter()
-    x = tt.quantize_to_levels(torch.from_numpy(raw).to(device), levels=CLASSIC_LEVELS, src_levels=65536)
+    x = tt.quantize_to_levels(torch.from_numpy(raw).to(device), levels=levels, src_levels=65536)
     _sync(device)
     quant_s = time.perf_counter() - t0
-    if not np.array_equal(x[:n_cpu].cpu().numpy(), (raw[:n_cpu] >> 6).astype(np.int32)):
-        raise AssertionError("quantize_to_levels(1024) on the card differs from v >> 6")
-    feats = tt.FeatureConfig(glcm=tt.GLCMConfig(levels=CLASSIC_LEVELS))
+    if not np.array_equal(x[:n_cpu].cpu().numpy(), (raw[:n_cpu] >> shift).astype(np.int32)):
+        raise AssertionError(f"quantize_to_levels({levels}) on the card differs from v >> {shift}")
+    feats = tt.FeatureConfig(glcm=tt.GLCMConfig(levels=levels))
     cfg = tt.PipelineConfig(
         features=feats,
         head=tt.HeadConfig(kind="logistic", num_steps=300),
         split=tt.SplitConfig(test_size=0.25, seed=0, group_by="donor"),
         fast_path="auto",
-        batch_size=BATCH,
+        batch_size=batch_size,
     )
     if _fast_path_ok(cfg, x, mask):
-        raise AssertionError("1024 levels should route to the classic path")
+        raise AssertionError(f"{levels} levels should route to the classic path")
 
     def run(timer=None):
         out = tt.run_pipeline(x, labels, mask=mask, groups=donors, config=cfg, device=device, timer=timer)
         _sync(device)
         return out
 
-    per_run = -(-n // BATCH) if n > 4096 else 1  # run_pipeline batches above 4096 objects
-    launches, times, result = _timed_runs(run, timed_runs, "B1d", per_run)
+    per_run = -(-n // batch_size) if n > 4096 else 1  # run_pipeline batches above 4096 objects
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    launches, times, result = _timed_runs(run, timed_runs, form, per_run)
+    peak_rise = torch.cuda.max_memory_allocated(device) - base
     X = result.features.values
     F = CYTO_CH * 23
     if X.shape != (n, F) or not np.isfinite(np.nan_to_num(X)).all():
@@ -881,17 +974,19 @@ def phase_classic_levels(device, data, timed_runs=3, n_cpu=64):
     timer = StageTimer(device)
     run(timer)
     med = statistics.median(times)
-    log(f"  {n} objects at {CLASSIC_LEVELS} levels (quantized on the card in {quant_s!r} s)")
+    log(f"  {n} objects at {levels} levels (quantized on the card in {quant_s!r} s), batches of {batch_size}")
     log(f"  runs (s): {times!r}")
-    log(f"  median {med!r} s = {n / med!r} objects/s; B1d launches {launches} over {timed_runs} runs")
+    log(f"  median {med!r} s = {n / med!r} objects/s; {form} launches {launches} over {timed_runs} runs; "
+        f"peak device memory rose {peak_rise / 1e9!r} GB")
     log(f"  test_accuracy {result.test_accuracy!r}; test donors {sorted(test_donors)}; "
         f"channel totals {total.tolist()!r}")
     log(f"  card vs CPU on {n_cpu} objects: features max abs diff {diff!r}")
     log(f"  staged run (synchronised at each stage, s): {json.dumps(timer.totals)}")
     return launches, {
-        "objects_per_s": n / med, "median_s": med, "runs_s": times, "b1d_launches": launches,
+        "objects": n, "levels": levels, "batch_size": batch_size,
+        "objects_per_s": n / med, "median_s": med, "runs_s": times, f"{form.lower()}_launches": launches,
         "test_accuracy": result.test_accuracy, "stages_s": timer.totals,
-        "channel_totals": total.tolist(), "card_vs_cpu": diff,
+        "channel_totals": total.tolist(), "card_vs_cpu": diff, "peak_rise_bytes": peak_rise,
     }
 
 
@@ -1458,6 +1553,162 @@ def phase_streaming(device, data, timed_dirs=3):
     }
 
 
+def phase_cnn(device, n_images=N_IMAGES, n_cpu=32, width=64, depth="18"):
+    """BASELINE config 3 at full width through ``run_cnn_pipeline``: the
+    bench workload's images with 2 noise channels synthesized on the card,
+    ResNet-18 at width 64, batch 256, 8 epochs, bf16 autocast; then the
+    batch-size sweep. ``width`` and ``depth`` let the control flow be rehearsed
+    at a small size. Returns the record."""
+    import numpy as np
+    import torch
+
+    from tpumcia_torch.features import cuda_glcm
+    from tpumcia_torch.importance.occlusion import occlusion_map
+    from tpumcia_torch.io.synthetic import synthetic_mednist
+    from tpumcia_torch.models.cnn import make_resnet
+    from tpumcia_torch.models.train import CNNConfig, CNNHead, fit_cnn
+    from tpumcia_torch.pipeline.run_cnn import run_cnn_pipeline
+    from tpumcia_torch.preprocess.synth import add_noise_channels_batched
+
+    torch.backends.cudnn.benchmark = True  # cuDNN picks each convolution's algorithm by timing it once
+    settings = {
+        "cudnn.benchmark": torch.backends.cudnn.benchmark,
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+        "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "compute": "bf16 autocast, float32 parameters, channels_last",
+    }
+    gray, labels, _ = synthetic_mednist(n_images // 6, num_classes=6, seed=0)
+    images = add_noise_channels_batched(gray, seed=0, batch_size=BATCH, device=device)  # uint8 on the card
+    cfg = CNNConfig(num_classes=6, depth=depth, width=width, batch_size=256, epochs=8)
+    n_repeats = 5
+
+    cuda_glcm.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    res = run_cnn_pipeline(images, labels, device=device, config=cfg, n_repeats=n_repeats)
+    _sync(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    if cuda_glcm.LAUNCHES != 0:
+        raise AssertionError(f"the CNN path launched GLCM kernels: {cuda_glcm.LAUNCHES_BY_FORM}")
+    n_train, n_test, C = len(res.train_idx), len(res.test_idx), images.shape[-1]
+    occ, perm = res.occlusion, res.permutation
+    if res.test_accuracy < 0.90:
+        raise AssertionError(f"CNN test accuracy {res.test_accuracy} < 0.90; history {res.head.history}")
+    if occ.top_channel() != 0 or perm.top_channel() != 0:
+        raise AssertionError(f"signal channel not first: occlusion {occ.mean}, permutation {perm.mean}")
+    if not (np.isfinite(occ.mean).all() and np.isfinite(perm.mean).all() and perm.per_channel[0].shape == (n_repeats,)):
+        raise AssertionError(f"importances not finite: {occ.mean}, {perm.mean}")
+    losses = [h["loss"] for h in res.head.history]
+    if len(losses) != cfg.epochs or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"training history {res.head.history}")
+    x = images.to(torch.float32) / 255.0
+    x_test, y_test = x[torch.from_numpy(res.test_idx).to(device)], labels[res.test_idx]
+    t0 = time.perf_counter()
+    maps = occlusion_map(res.head, x_test[:16], y_test[:16], window=8, stride=8)
+    map_s = time.perf_counter() - t0
+    if maps.shape != (16, 8, 8) or not np.isfinite(maps).all():
+        raise AssertionError(f"occlusion_map gave {maps.shape}")
+
+    # the same weights in float32, on the card (TF32 off) and on the CPU
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        state = res.head.model.state_dict()
+        heads = {}
+        for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            model = make_resnet(6, in_channels=C, width=width, depth=depth, dtype=torch.float32)
+            model.load_state_dict(state)
+            heads[where] = CNNHead(model=model.to(dev, memory_format=torch.channels_last), classes=res.head.classes)
+        f32_card = heads["card"].predict_logits(x_test)
+        f32_cpu = heads["cpu"].predict_logits(x_test[:n_cpu].cpu())
+        logit_diff = (f32_card[:n_cpu].cpu() - f32_cpu).abs().max().item()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    if not logit_diff <= 1e-3:
+        raise AssertionError(f"float32 logits on the card differ from the CPU's by {logit_diff}")
+    bf16_logits = res.head.predict_logits(x_test)
+    agree = (bf16_logits.argmax(1) == f32_card.argmax(1)).float().mean().item()
+    if agree < 0.99:
+        raise AssertionError(f"bf16 and float32 predictions agree on {agree} of the test images")
+
+    fit_s, imp_s = res.timings["fit_s"], res.timings["importance_s"]
+    sweeps = 2 + C + C * n_repeats  # forward passes over the test set: two baselines, C occlusions, C*R shuffles
+    log(f"  settings: {json.dumps(settings)}")
+    log(f"  {n_train} training images, {cfg.epochs} epochs at batch {cfg.batch_size}: fit {fit_s!r} s = "
+        f"{n_train * cfg.epochs / fit_s!r} trained images/s (init and cuDNN's autotuning inside); "
+        f"losses {losses!r}")
+    log(f"  test accuracy {res.test_accuracy!r} on {n_test} images; occlusion drops {occ.mean.tolist()!r}; "
+        f"image-permutation drops {perm.mean.tolist()!r}")
+    log(f"  importance {imp_s!r} s for {sweeps} sweeps = {sweeps * n_test / imp_s!r} occluded images/s; "
+        f"occlusion_map of 16 images (64 windows) {map_s!r} s; peak device memory {peak / 1e9!r} GB")
+    log(f"  float32 logits card vs CPU on {n_cpu} images (TF32 off): {logit_diff!r}; bf16 argmax == float32 "
+        f"argmax on {agree!r} of {n_test}")
+
+    # the batch-size sweep: a 1-epoch fit first (cuDNN times its algorithms
+    # at each new shape), then 2 epochs timed
+    x_train, y_train = x[torch.from_numpy(res.train_idx).to(device)], labels[res.train_idx]
+    test_accuracy = res.test_accuracy
+    del res, heads, f32_card, bf16_logits
+    sweep = []
+    for bs in CNN_BATCHES:
+        fit_cnn(x_train, y_train, device=device, config=dataclasses.replace(cfg, batch_size=bs, epochs=1))
+        _sync(device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        head = fit_cnn(x_train, y_train, device=device, config=dataclasses.replace(cfg, batch_size=bs, epochs=2))
+        _sync(device)
+        secs = time.perf_counter() - t0
+        sweep.append({"batch_size": bs, "seconds": secs, "images_per_s": 2 * n_train / secs,
+                      "peak_bytes": torch.cuda.max_memory_allocated(device),
+                      "loss": head.history[-1]["loss"]})
+        log(f"  batch {bs}: 2 epochs in {secs!r} s = {2 * n_train / secs!r} trained images/s, peak "
+            f"{sweep[-1]['peak_bytes'] / 1e9!r} GB, loss {sweep[-1]['loss']!r}")
+        if not np.isfinite(sweep[-1]["loss"]):
+            raise AssertionError(f"batch {bs}: loss {sweep[-1]['loss']}")
+        del head
+    torch.backends.cudnn.benchmark = False
+    return {
+        "settings": settings, "train_images": n_train, "test_images": n_test, "epochs": cfg.epochs,
+        "batch_size": cfg.batch_size, "fit_s": fit_s, "trained_images_per_s": n_train * cfg.epochs / fit_s,
+        "importance_s": imp_s, "occluded_images_per_s": sweeps * n_test / imp_s, "occlusion_map_s": map_s,
+        "peak_bytes": peak, "test_accuracy": test_accuracy,
+        "losses": losses, "occlusion_drops": occ.mean.tolist(), "permutation_drops": perm.mean.tolist(),
+        "f32_card_vs_cpu": logit_diff, "bf16_argmax_agreement": agree, "sweep": sweep,
+    }
+
+
+def phase_eval(device):
+    """The ``eval`` CLI in process on the synthetic source: returns 0, logs
+    both events, ranks channel 0 first and launches the kernel. Returns
+    ({form: launches}, record)."""
+    from tpumcia_torch import eval as eval_cli
+    from tpumcia_torch.features import cuda_glcm
+
+    with tempfile.TemporaryDirectory(prefix="tpumcia_eval_") as tmp:
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        cuda_glcm.reset_launch_counts()
+        t0 = time.perf_counter()
+        code = eval_cli.main(["--source", "synthetic", "--n-per-class", "200", "--metrics", metrics,
+                              "--device", str(device)])
+        _sync(device)
+        secs = time.perf_counter() - t0
+        events = [json.loads(line) for line in Path(metrics).read_text().splitlines()]
+    launches = {f: c for f, c in cuda_glcm.LAUNCHES_BY_FORM.items() if c}
+    if code != 0 or [e["event"] for e in events] != ["data_loaded", "pipeline_done"]:
+        raise AssertionError(f"eval returned {code} with events {[e.get('event') for e in events]}")
+    done = events[1]
+    if events[0]["shape"] != [1200, 64, 64, 3] or done["channel_ranking"][0] != 0 or done["test_accuracy"] < 0.90:
+        raise AssertionError(f"eval: {events}")
+    if launches != {"B1a": 1}:
+        raise AssertionError(f"eval launched {cuda_glcm.LAUNCHES_BY_FORM}, want B1a once")
+    log(f"  python -m tpumcia_torch.eval --source synthetic --n-per-class 200: {secs!r} s in process, test "
+        f"accuracy {done['test_accuracy']!r}, ranking {done['channel_ranking']}, launches {launches}, "
+        f"timings {json.dumps(done['timings'])}")
+    return launches, {"seconds": secs, "test_accuracy": done["test_accuracy"],
+                      "channel_ranking": done["channel_ranking"], "timings_s": done["timings"],
+                      "launches": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1524,9 +1775,15 @@ def main() -> int:
     kernels["B2"]["launches"] = launches["B2"]
     launches, faults_rec = phase_faults(device)
     kernels["B2"]["launches"] += launches["B2"]
+    kernels["B1e"]["launches"] = launches["B1e"]
 
     log("== classic slice at 1024 levels (B1d)")
     levels_launches, classic_1024 = phase_classic_levels(device, cyto)
+
+    log("== classic slice at 8192 levels (B1e)")
+    launches, classic_8192 = phase_classic_levels(
+        device, cyto, levels=HUGE_LEVELS, form="B1e", n=HUGE_N, batch_size=HUGE_BATCH)
+    kernels["B1e"]["launches"] += launches
 
     log("== classic slice on 256x256 fields (B1d)")
     fields_launches, classic_256px = phase_classic_fields(device)
@@ -1552,13 +1809,21 @@ def main() -> int:
     kernels["B1a"]["launches"] += launches["B1a"]
     del cyto
 
+    log("== the CNN path (ResNet-18, width 64; occlusion and image-permutation importance)")
+    cnn_rec = phase_cnn(device)
+
+    log("== the eval CLI (synthetic source)")
+    launches, eval_rec = phase_eval(device)
+    kernels["B1a"]["launches"] += launches["B1a"]
+
     print(gpu_line, flush=True)
     print(json.dumps({
         "kernels": [{"form": form, **kernels[form]} for form in FORMS],
         "slice": slice_rec, "cytometry": cyto_rec, "extract_features": extract_rec,
-        "classic_1024": classic_1024, "classic_256px": classic_256px,
+        "classic_1024": classic_1024, "classic_8192": classic_8192, "classic_256px": classic_256px,
         "forest": forest_rec, "cytometry_morphology": cyto_morph_rec,
         "faults": faults_rec, "analyze_objects": analyze_rec, "streaming": streaming_rec,
+        "cnn": cnn_rec, "eval": eval_rec,
     }), flush=True)
     print(json.dumps({
         "ok": True,

@@ -7,7 +7,9 @@ one NVIDIA GPU, in turns, on the cases chip_smoke.py's kernel phase times
 OTHER is another checkout (its ``tpumcia_torch/csrc/glcm_stats.cu``) or a
 ``.cu`` file: an earlier source, whose C entry ``tpumcia_glcm_stats`` takes
 no ``table_bits`` argument (the layout before the pair table), or a variant
-of this one (told apart by its ``tpumcia_glcm_launch_info`` entry). Both
+of this one (told apart by its ``tpumcia_glcm_launch_info`` entry). The
+cases past 4096 levels (form B1e) go through ``tpumcia_glcm_stats_workspace``;
+a source without that entry is not timed there. Both
 sources are built with nvcc (the other one into ``build/kernel_ab/``), fed
 the same inputs and output buffers, and timed with CUDA events in the order
 other, this, this, other: the median of ``--reps`` launches after 3 warm-up
@@ -97,25 +99,47 @@ def main() -> int:
                 ((O, B, C, L), f32), ((O, B, C, 2 * L - 1 if need_diff else 4), f32),
                 ((O, B, C, 4), torch.int32), ((O, B, C), f32))]
 
-        lut = rescale_lut_device(L, device)
         flat = (ctypes.c_int * (2 * O))(*[v for off in offsets for v in off])
-        cheap = int(cheap_limbs(H * W, L))
         bits = cuda_glcm.table_bits(cuda_glcm.pair_table_slots(H, W, offsets, L))
         stream = torch.cuda.current_stream(device).cuda_stream
-        head = [x.data_ptr(), None if m is None else m.data_ptr(), 1 if m is None else m.shape[1],
-                lut.data_ptr(), B, C, H, W, L, flat, O, int(need_diff), cheap]
+        mask_args = [None if m is None else m.data_ptr(), 1 if m is None else m.shape[1]]
         out_this, out_other = outputs(), outputs()
+        if c["form"] == "B1e":
+            # both kernels share one workspace: they run in turns
+            plan = cuda_glcm._workspace_info(H, W, L, m is not None, offsets, B * C)
+            ws = torch.empty(plan["workspace_bytes"], dtype=torch.uint8, device=device)
+            call = [x.data_ptr(), *mask_args, B, C, H, W, L, flat, O, bits, ws.data_ptr(), ws.numel()]
+            other_runs = hasattr(other, "tpumcia_glcm_stats_workspace")
 
-        def run_this():
-            _build.check(this.tpumcia_glcm_stats(*head, bits, *[t.data_ptr() for t in out_this], stream),
-                         "this kernel")
+            def run_this():
+                _build.check(this.tpumcia_glcm_stats_workspace(
+                    *call, *[t.data_ptr() for t in out_this], stream), "this kernel")
 
-        def run_other():
-            _build.check(other.tpumcia_glcm_stats(*head, *([bits] if other_bits else []),
-                                                  *[t.data_ptr() for t in out_other], stream),
-                         "the other kernel")
+            def run_other():
+                _build.check(other.tpumcia_glcm_stats_workspace(
+                    *call, *[t.data_ptr() for t in out_other], stream), "the other kernel")
+        else:
+            lut = rescale_lut_device(L, device)
+            head = [x.data_ptr(), *mask_args, lut.data_ptr(), B, C, H, W, L, flat, O, int(need_diff),
+                    int(cheap_limbs(H * W, L))]
+            other_runs = True
+
+            def run_this():
+                _build.check(this.tpumcia_glcm_stats(*head, bits, *[t.data_ptr() for t in out_this], stream),
+                             "this kernel")
+
+            def run_other():
+                _build.check(other.tpumcia_glcm_stats(*head, *([bits] if other_bits else []),
+                                                      *[t.data_ptr() for t in out_other], stream),
+                             "the other kernel")
 
         run_this()
+        if not other_runs:
+            t1 = _cuda_events_ms(run_this, args.reps, 3)
+            t2 = _cuda_events_ms(run_this, args.reps, 3)
+            print(f"  {name}: other has no workspace entry, this {t1!r} / {t2!r} ms", flush=True)
+            results.append({"shape": name, "other_ms": None, "this_ms": [t1, t2]})
+            continue
         run_other()
         torch.cuda.synchronize()
         for o in range(O):

@@ -162,8 +162,11 @@ def test_exports_and_import_guard():
     code = (
         "import sys, tpumcia_torch, tpumcia_torch.api, tpumcia_torch.io.h5, tpumcia_torch.io.mednist, "
         "tpumcia_torch.io.native, tpumcia_torch.io.loader, tpumcia_torch.io.staging, "
-        "tpumcia_torch.pipeline.streaming, tpumcia_torch.utils.logging\n"
-        "bad = {'jax', 'tpumcia', 'sklearn', 'h5py', 'imageio', 'matplotlib'} & set(sys.modules)\n"
+        "tpumcia_torch.pipeline.streaming, tpumcia_torch.utils.logging, tpumcia_torch.models.cnn, "
+        "tpumcia_torch.models.train, tpumcia_torch.importance.occlusion, tpumcia_torch.pipeline.run_cnn, "
+        "tpumcia_torch.eval, tpumcia_torch.reports.plots, tpumcia_torch.utils.profiling\n"
+        "bad = {'jax', 'flax', 'optax', 'orbax', 'tpumcia', 'sklearn', 'h5py', 'imageio', 'matplotlib'} "
+        "& set(sys.modules)\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

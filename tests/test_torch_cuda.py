@@ -1,11 +1,11 @@
 """tpumcia_torch on the GPU: the CUDA kernel in each of its forms (B1a
 maskless, B1b masked, B1c with the difference histogram, B2 several
-offsets, B1d at 65536 pixels or more than 256 levels) against its plain
-version, the wrapper's checks, and the slice and
+offsets, B1d at 65536 pixels or more than 256 levels, B1e past 4096 levels)
+against its plain version, the wrapper's checks, and the slice and
 ``extract_features`` on the card against the same calls on the CPU, the
 forest fitted on the card against the CPU fit and the morphology block;
 offset lists past the kernel's 16, the refusals past the kernel's bounds
-and of ``use_pallas='never'``, per-batch uploads with ``in_flight`` and ``stream_extract`` with staged uploads.
+(2^24 pixels, 32768 levels) and of ``use_pallas='never'``, per-batch uploads with ``in_flight`` and ``stream_extract`` with staged uploads.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The file
 imports neither jax nor tpumcia, so it also runs where only torch is
@@ -254,10 +254,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         cuda_glcm.sufficient_stats(x.to(torch.int64), levels=256, offset=(0, 1))
     with pytest.raises(ValueError, match="contiguous"):
         cuda_glcm.sufficient_stats(x.transpose(2, 3), levels=256, offset=(0, 1))
-    with pytest.raises(ValueError, match="4096 levels"):
-        cuda_glcm.sufficient_stats(x, levels=8192, offset=(0, 1), need_diff=True)
+    with pytest.raises(ValueError, match="32768 levels"):
+        cuda_glcm.sufficient_stats(x, levels=32769, offset=(0, 1), need_diff=True)
     with pytest.raises(ValueError, match="need_diff=False"):
         cuda_glcm.sufficient_stats(x, levels=512, offset=(0, 1))
+    with pytest.raises(ValueError, match="need_diff=False"):
+        cuda_glcm.sufficient_stats(x, levels=8192, offset=(0, 1))
     with pytest.raises(ValueError, match="need_diff=False"):
         cuda_glcm.sufficient_stats_multi(
             torch.zeros((1, 1, 256, 256), dtype=torch.int32, device=dev),
@@ -398,8 +400,9 @@ def test_twenty_offsets_on_card_match_plain():
 
 def test_no_plain_version_on_the_card():
     """A CUDA device launches the kernel or raises: ``use_pallas='never'``
-    and sizes past the kernel's bounds raise from every entry point and
-    launch nothing; inside the bounds ``'auto'`` and ``'always'`` launch."""
+    and sizes past the kernel's bounds (2^24 pixels) raise from every entry
+    point and launch nothing; inside the bounds ``'auto'`` and ``'always'``
+    launch, and 8192 levels launch form B1e and match the CPU."""
     dev = require_cuda()
     import tpumcia_torch as tt
     from tpumcia_torch.pipeline.streaming import stream_extract
@@ -419,14 +422,73 @@ def test_no_plain_version_on_the_card():
         tt.extract_features_batched(x, m, device=dev, batch_size=16, config=never)
     with pytest.raises(ValueError, match="CUDA kernel"):
         stream_extract(lambda idx: x[idx], len(x), "unused", device=dev, shard_size=16, config=never)
-    t = torch.from_numpy(rng.integers(0, 8192, size=(4, 1, 48, 48), dtype=np.int32)).to(dev)
-    with pytest.raises(ValueError, match="4096 levels"):
-        cuda_glcm.sufficient_stats_multi(t, levels=8192, offsets=[(0, 5), (5, 0)], need_diff=True)
-    with pytest.raises(ValueError, match="4096 levels"):
-        tt.extract_features(
-            t.permute(0, 2, 3, 1).cpu().numpy(), device=dev,
-            config=tt.FeatureConfig(glcm=tt.GLCMConfig(levels=8192)))
-    assert cuda_glcm.LAUNCHES == 0 and set(cuda_glcm.LAUNCHES_BY_FORM) == {"B1a", "B1b", "B1c", "B2", "B1d"}
+    huge = torch.zeros((1, 1, 4096, 4096), dtype=torch.int32, device=dev)  # 2^24 pixels
+    with pytest.raises(ValueError, match="16777215 pixels"):
+        cuda_glcm.sufficient_stats(huge, levels=256, offset=(0, 1), need_diff=True)
+    with pytest.raises(ValueError, match="16777215 pixels"):
+        cuda_glcm.sufficient_stats(huge, levels=8192, offset=(0, 1), need_diff=True)
+    del huge
+    assert cuda_glcm.past_kernel_bounds(1 << 24, 256) and not cuda_glcm.past_kernel_bounds((1 << 24) - 1, 32768)
+    assert cuda_glcm.LAUNCHES == 0
+    assert set(cuda_glcm.LAUNCHES_BY_FORM) == {"B1a", "B1b", "B1c", "B2", "B1d", "B1e"}
+    big = rng.integers(0, 8192, size=(4, 48, 48, 1), dtype=np.int32)
+    cfg = tt.FeatureConfig(glcm=tt.GLCMConfig(levels=8192))
+    card = tt.extract_features(big, device=dev, config=cfg)
+    assert cuda_glcm.LAUNCHES == 1 and cuda_glcm.LAUNCHES_BY_FORM["B1e"] == 1
+    cpu = tt.extract_features(big, device="cpu", config=cfg)
+    np.testing.assert_allclose(card.values, cpu.values, rtol=0, atol=1e-5)
+
+
+def _b1e_case(dev, shape, levels, offsets, *, masked, fill=None, seed=30):
+    """One B1e call against the plain version, bit-equal; returns the
+    statistics."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, levels, size=shape, dtype=np.int32)
+    x[0, 0, :2, :2] = levels - 1
+    for (b, c), v in (fill or {}).items():
+        x[b, c] = v
+    t = torch.from_numpy(x).to(dev)
+    m = torch.from_numpy(_edge_mask(rng, shape, shared=True)).to(dev) if masked else None
+    cuda_glcm.reset_launch_counts()
+    got = cuda_glcm.sufficient_stats_multi(t, m, levels=levels, offsets=offsets, need_diff=True)
+    want = cuda_glcm.sufficient_stats_multi_reference(t, m, levels=levels, offsets=offsets, need_diff=True)
+    torch.cuda.synchronize()
+    assert cuda_glcm.LAUNCHES == 1 and cuda_glcm.LAUNCHES_BY_FORM["B1e"] == 1
+    assert len(got) == len(offsets)
+    for g, w in zip(got, want):
+        _assert_stats_equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("levels", [8192, 16384, 32768])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("offsets", [[(0, 5)], [(0, 5), (4, 4), (5, 0), (4, -4)]])
+def test_b1e_matches_plain_past_4096_levels(levels, masked, offsets):
+    """Form B1e on 8x1x64x64 random levels with a constant and an all-zero
+    channel; the edge mask has an empty and a one-pixel (image, channel)."""
+    dev = require_cuda()
+    got = _b1e_case(dev, (8, 1, 64, 64), levels, offsets, masked=masked,
+                    fill={(2, 0): 0, (3, 0): levels - 1, (4, 0): levels // 3})
+    if masked:
+        assert int(got[0].vmax[0, 0]) == -1 and float(got[0].count[0, 0]) == 0
+        assert float(got[0].pair_count[-1, -1]) == 0 and float(got[0].count[-1, -1]) == 1
+
+
+@pytest.mark.parametrize("shape,levels,masked", [
+    ((3, 2, 37, 53), 8192, True),     # the scalar load path, a level count that no power of two divides
+    ((3, 2, 37, 53), 5001, False),
+    ((600, 2, 16, 16), 8192, True),   # more items than resident blocks: every block loops
+    ((2, 2, 128, 128), 8192, False),  # the pair table (32,768 slots, 256 KB) in the workspace
+    ((1, 1, 300, 300), 4097, True),
+])
+def test_b1e_shapes_and_layouts(shape, levels, masked):
+    dev = require_cuda()
+    offsets = [(1, 2), (-2, 1)]
+    info = cuda_glcm.launch_info(shape, levels, offsets, masked=masked, need_diff=True)
+    assert info["layout"] == "workspace" and info["grid_blocks"] <= shape[0] * shape[1], info
+    assert info["table_in_smem"] == (shape[2] * shape[3] < 128 * 128), info
+    assert info["workspace_bytes"] >= info["grid_blocks"] * 4 * (6 * levels - 1)
+    _b1e_case(dev, shape, levels, offsets, masked=masked, seed=31)
 
 
 def test_batched_extraction_from_host_is_bounded_and_bit_equal():
@@ -500,3 +562,66 @@ def test_stream_extract_on_card_staged_equals_unstaged(tmp_path):
         ex.features.values, tt.extract_features(x[:300], m[:300], device="cpu", config=exact).values)
     again = stream_extract(fetch, n, tmp_path / "staged", device=dev, shard_size=shard)
     assert (again.shards_computed, again.shards_skipped) == (0, 9)
+
+
+def test_cnn_path_on_card_matches_cpu():
+    """A tiny ResNet on the card: the float32 model against the same weights
+    on the CPU (TF32 off: 1e-4 on logits), the bf16 model close to it, a
+    short ``fit_cnn`` that learns, and the probes' shapes. It launches no
+    GLCM kernel."""
+    dev = require_cuda()
+    from tpumcia_torch.importance.occlusion import (
+        channel_occlusion_importance,
+        channel_permutation_importance_images,
+        occlusion_map,
+    )
+    from tpumcia_torch.io.synthetic import synthetic_multichannel
+    from tpumcia_torch.models.cnn import init_parameters, make_resnet
+    from tpumcia_torch.models.train import CNNConfig, CNNHead, fit_cnn
+
+    images, labels, _ = synthetic_multichannel(32, num_classes=3, hw=32, seed=9, device=dev)
+    x = images.astype(np.float32) / 255.0
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = make_resnet(3, in_channels=3, width=16, depth="10", dtype=torch.float32)
+        init_parameters(ref, torch.Generator().manual_seed(1))
+        card = make_resnet(3, in_channels=3, width=16, depth="10", dtype=torch.float32)
+        card.load_state_dict(ref.state_dict())
+        card = card.to(dev, memory_format=torch.channels_last)
+        with torch.no_grad():
+            want = ref(torch.from_numpy(x[:16]))
+            got = card(torch.from_numpy(x[:16]).to(dev)).cpu()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    cuda_glcm.reset_launch_counts()
+    cfg = CNNConfig(num_classes=3, width=16, depth="10", epochs=6, batch_size=16, learning_rate=3e-3)
+    head = fit_cnn(x, labels, device=dev, config=cfg)
+    assert head.device.type == "cuda" and head.history[-1]["loss"] < head.history[0]["loss"]
+    assert head.score(x, labels) > 0.6
+    f32 = make_resnet(3, in_channels=3, width=16, depth="10", dtype=torch.float32)
+    f32.load_state_dict(head.model.state_dict())
+    f32_head = CNNHead(model=f32.to(dev, memory_format=torch.channels_last), classes=head.classes)
+    torch.testing.assert_close(head.predict_logits(x), f32_head.predict_logits(x), rtol=0, atol=0.25)
+    occ = channel_occlusion_importance(head, x, labels)
+    perm = channel_permutation_importance_images(head, x, labels, n_repeats=3)
+    assert occ.shape == (3,) and perm.shape == (3, 3) and occ[0] == occ.max()
+    assert occlusion_map(head, x[:4], labels[:4]).shape == (4, 4, 4)
+    assert cuda_glcm.LAUNCHES == 0
+
+
+def test_eval_cli_on_card(tmp_path):
+    """``python -m tpumcia_torch.eval`` in process, its default device: both
+    events, channel 0 first, the kernel launched."""
+    require_cuda()
+    import json
+
+    from tpumcia_torch import eval as eval_cli
+
+    metrics = tmp_path / "m.jsonl"
+    cuda_glcm.reset_launch_counts()
+    assert eval_cli.main(["--source", "synthetic", "--n-per-class", "40", "--metrics", str(metrics)]) == 0
+    events = [json.loads(line) for line in metrics.read_text().splitlines()]
+    assert [e["event"] for e in events] == ["data_loaded", "pipeline_done"]
+    assert events[1]["channel_ranking"][0] == 0 and cuda_glcm.LAUNCHES_BY_FORM["B1a"] == 1

@@ -3,9 +3,10 @@ are in ``test_torch_cuda.py``):
 
 - more than 16 GLCM offsets (the CUDA wrapper's launches of at most
   ``MAX_OFFSETS`` offsets, joined);
-- ``use_pallas='never'`` and level counts past the kernel's bounds: what a
-  CPU device computes (``sum(G^2)`` from the occupied cells) and a CUDA
-  device refuses;
+- ``use_pallas='never'`` (what a CPU device computes and a CUDA device
+  refuses) and level counts past 4096, which kernel form B1e takes on a CUDA
+  device: the plain version there (``sum(G^2)`` from the occupied cells, the
+  rescale rows without the L x L table) against tpumcia up to 16384 levels;
 - ``in_flight`` and per-batch uploads in the batched extraction;
 - ``MinMaxScaler.inverse_transform`` / ``to_numpy``;
 - the citation of the reference's permutation importance.
@@ -110,8 +111,9 @@ def test_use_pallas_never_matches_jax(precision):
 
 def test_use_pallas_never_and_the_bounds_on_either_device():
     """``'never'`` is refused on a CUDA device and taken on the CPU; the
-    counts hold the five kernel forms and nothing else; a tensor on neither
-    a CPU nor a CUDA device raises rather than take the plain version."""
+    counts hold the six kernel forms and nothing else; the kernel's bounds
+    are tpumcia's 32768 levels and 2^24 pixels; a tensor on neither a CPU
+    nor a CUDA device raises rather than take the plain version."""
     import dataclasses
 
     cfg = dataclasses.replace(tt.FeatureConfig(), use_pallas="never")
@@ -120,12 +122,18 @@ def test_use_pallas_never_and_the_bounds_on_either_device():
     check_use_pallas(cfg, torch.device("cpu"))
     for value in ("auto", "always"):
         check_use_pallas(dataclasses.replace(cfg, use_pallas=value), torch.device("cuda"))
-    assert set(cuda_glcm.LAUNCHES_BY_FORM) == {"B1a", "B1b", "B1c", "B2", "B1d"}
+    assert set(cuda_glcm.LAUNCHES_BY_FORM) == {"B1a", "B1b", "B1c", "B2", "B1d", "B1e"}
     cuda_glcm.LAUNCHES_BY_FORM["B2"] = 3
     cuda_glcm.reset_launch_counts()
     assert set(cuda_glcm.LAUNCHES_BY_FORM.values()) == {0} and cuda_glcm.LAUNCHES == 0
-    assert cuda_glcm.past_kernel_bounds(64 * 64, 8192) and cuda_glcm.past_kernel_bounds(1 << 24, 256)
+    assert cuda_glcm.past_kernel_bounds(64 * 64, 32769) and cuda_glcm.past_kernel_bounds(1 << 24, 256)
     assert not cuda_glcm.past_kernel_bounds(256 * 256, 4096)
+    assert not cuda_glcm.past_kernel_bounds(64 * 64, 8192) and not cuda_glcm.past_kernel_bounds(64 * 64, 32768)
+    form = dict(hw=64 * 64, masked=True, need_diff=True, num_offsets=4)
+    assert cuda_glcm.kernel_form(levels=4096, **form) == "B1d"
+    assert cuda_glcm.kernel_form(levels=4097, **form) == cuda_glcm.kernel_form(levels=32768, **form) == "B1e"
+    with pytest.raises(ValueError, match="need_diff=False"):
+        cuda_glcm.sufficient_stats(torch.zeros((1, 1, 8, 8), dtype=torch.int32), levels=8192, offset=(0, 1))
     meta = torch.empty((1, 1, 8, 8), dtype=torch.int32, device="meta")
     for levels in (256, 8192):
         with pytest.raises(ValueError, match="CPU or CUDA tensor"):
@@ -133,12 +141,25 @@ def test_use_pallas_never_and_the_bounds_on_either_device():
     assert "plain" not in inspect.signature(cuda_glcm.sufficient_stats_multi).parameters
 
 
-def test_8192_levels_match_jax():
-    """Past the kernel's 4096 levels: the packed f32 wire holds to 32768
-    levels in both packages. 2 x 16 x 16 x 1 keeps tpumcia's dense G small."""
-    from tpumcia.features import stats as jstats
+def _no_rescale_table(monkeypatch):
+    """Fail if the port builds an L x L rescale table from here on."""
     from tpumcia_torch.features import stats as tstats
 
+    def refuse(levels=256):
+        raise AssertionError(f"the port built a {levels} x {levels} rescale table")
+
+    monkeypatch.setattr(tstats, "rescale_lut", refuse)
+    tstats.rescale_lut_device.cache_clear()
+
+
+def test_8192_levels_match_jax(monkeypatch):
+    """Past 4096 levels (kernel form B1e on a CUDA device): the plain
+    version computes its rescale rows without the 8192 x 8192 table, and the
+    packed f32 wire holds to 32768 levels in both packages. 2 x 16 x 16 x 1
+    keeps tpumcia's dense G small."""
+    from tpumcia.features import stats as jstats
+
+    _no_rescale_table(monkeypatch)
     x = np.random.default_rng(0).integers(0, 8192, size=(2, 16, 16, 1)).astype(np.int32)
     x[0, :4, :4, 0] = 8191
     try:
@@ -151,10 +172,56 @@ def test_8192_levels_match_jax():
             a, b = got.values, np.asarray(want.values)
             assert a.shape == (2, 23) and np.isfinite(a).all()
             np.testing.assert_allclose(a, b, rtol=rtol, atol=1e-9)
-    finally:  # 256 MB tables each
+    finally:  # tpumcia's 256 MB table
+        jstats.rescale_lut.cache_clear()
+
+
+def test_16384_levels_match_jax(monkeypatch):
+    """16384 levels, masked, the largest level count held against tpumcia
+    here: its CPU run builds a 1 GB rescale table (2 GB of float64 on the
+    way) and a dense G of 2^28 cells per channel, ~14 s; at 32768 levels
+    both are four times that. The port's side takes 0.1 s. Above this the
+    port is held to its own kernel (bit-equal to this plain version on a
+    CUDA device) and to ``rescale_rows`` == ``rescale_lut`` rows."""
+    from tpumcia.features import stats as jstats
+
+    _no_rescale_table(monkeypatch)
+    rng = np.random.default_rng(1)
+    x = rng.integers(0, 16384, size=(2, 16, 16, 1)).astype(np.int32)
+    x[1, :3, :3, 0] = 16383
+    m = rng.random((2, 16, 16)) < 0.85
+    try:
+        got = tt.extract_features(
+            x, m, device="cpu", config=tt.FeatureConfig(glcm=tt.GLCMConfig(levels=16384)))
+        want = jax_extract(x, mask=m, config=JFeatureConfig(
+            use_pallas="never", chunk_size=1, glcm=JGLCMConfig(levels=16384)))
+        a, b = got.values, np.asarray(want.values)
+        assert a.shape == (2, 23) and np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-9)
+    finally:
+        jstats.rescale_lut.cache_clear()
+
+
+@pytest.mark.parametrize("levels", [256, 1024, 8192])
+def test_rescale_rows_equal_the_table_rows(levels):
+    """``rescale_rows`` (what the plain version uses above 4096 levels, and
+    what kernel form B1e computes per block) against every row of
+    ``rescale_lut``, entry by entry, with vmax past both ends clamped."""
+    from tpumcia_torch.features import stats as tstats
+
+    try:
+        lut = torch.from_numpy(tstats.rescale_lut(levels))
+        vmax = torch.arange(-2, levels + 2)
+        rows = tstats.rescale_rows(levels, vmax)
+        assert rows.dtype == torch.int32 and tuple(rows.shape) == (levels + 4, levels)
+        assert torch.equal(rows, lut[vmax.clamp(0, levels - 1)])
+        assert not bool(rows[:3].any())  # vmax <= 0: the all-zero row
+        few = torch.tensor([[0, 5], [levels - 1, levels // 2]])
+        assert torch.equal(tstats.rescale_rows_for(levels, few), lut[few])
+        assert tstats.rescale_rows_for(levels, few).dtype == torch.int32
+    finally:
         tstats.rescale_lut.cache_clear()
         tstats.rescale_lut_device.cache_clear()
-        jstats.rescale_lut.cache_clear()
 
 
 @pytest.mark.parametrize("shape,levels,masked", [

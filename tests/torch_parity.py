@@ -33,6 +33,14 @@ def jax_permutations(seed: int, num_draws: int, n: int) -> np.ndarray:
     return np.array(jax.vmap(lambda k: jax.random.permutation(k, n))(keys))
 
 
+def jax_image_permutations(seed: int, num_channels: int, n_repeats: int, n: int) -> np.ndarray:
+    """The (C, R, B) batch permutations of tpumcia's
+    ``channel_permutation_importance_images``: ``split(key(seed), C * R)``
+    reshaped (C, R), then ``permutation(k, B)`` per key
+    (occlusion.py:109-116)."""
+    return jax_permutations(seed, num_channels * n_repeats, n).reshape(num_channels, n_repeats, n)
+
+
 def jax_init_weights(seed: int, num_features: int, num_classes: int) -> np.ndarray:
     """tpumcia's head init, ``0.01 * normal(key(seed), (F, k))``."""
     import jax

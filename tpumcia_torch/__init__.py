@@ -4,8 +4,8 @@ It runs tpumcia's ``run_pipeline`` on one device, on both of its paths: the
 fused fast path and the classic path that tpumcia takes for every other
 configuration. Seeded noise-channel synthesis or masked multichannel input,
 the 23-per-channel intensity + GLCM feature matrix (GLCM statistics from a
-hand-written CUDA kernel, ``csrc/glcm_stats.cu``, at any image size and up
-to 4096 levels) with per-channel mask morphology as an option, a logistic,
+hand-written CUDA kernel, ``csrc/glcm_stats.cu``, below 2^24 pixels and up
+to 32768 levels) with per-channel mask morphology as an option, a logistic,
 MLP or random-forest head (``fit_head``; the forest is grown on the device
 with sklearn's semantics and no sklearn), and channel importance by MDI,
 permutation, per-feature permutation, ablation or coefficients
@@ -17,9 +17,15 @@ properties. ``load_objects`` reads per-object HDF5 files into an
 ``ObjectBatch`` and ``analyze_objects`` runs the whole analysis on one;
 ``pipeline.streaming.stream_extract`` (and ``stream_extract_h5``) extracts
 a collection of any size in resumable shards, with a bounded share of it on
-the device. Not ported yet: the CNN, multi-GPU and the CLI (ROADMAP).
+the device. The CNN path is ``models.cnn`` (a ResNet with a C-channel stem),
+``models.train.fit_cnn``, ``importance.occlusion`` and
+``pipeline.run_cnn.run_cnn_pipeline``; ``python -m tpumcia_torch.eval`` is the
+config-driven command line, with ``reports.plots`` and ``utils.profiling``
+behind it. Not ported yet: multi-GPU and multi-process runs and the examples
+(ROADMAP A14, A15).
 Module paths and function names mirror ``tpumcia`` so each counterpart is
-easy to find. It imports neither ``jax`` nor ``tpumcia`` nor ``sklearn``.
+easy to find. It imports neither ``jax`` (nor ``flax``, ``optax``, ``orbax``)
+nor ``tpumcia`` nor ``sklearn``.
 
     >>> import tpumcia_torch as tt
     >>> res = tt.run_pipeline(gray, labels, device="cuda", config=tt.PipelineConfig(

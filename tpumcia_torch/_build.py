@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_Q = ctypes.c_longlong
 # name -> (restype, argtypes) of every C entry the library exports
 _SIGNATURES = {
     "tpumcia_glcm_stats": (
@@ -43,6 +44,16 @@ _SIGNATURES = {
     ),
     # H, W, L, masked, need_diff, table_bits, info (5 host ints)
     "tpumcia_glcm_launch_info": (_I, [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]),
+    "tpumcia_glcm_stats_workspace": (
+        _I,
+        # img, mask, mask_channels, batch, channels, H, W, L, offsets (host
+        # ints), num_offsets, table_bits, workspace, workspace_bytes, hist,
+        # count, vmax, marg_l, marg_r, dout, sumsq, pairs, stream
+        [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I, _I, _P, _Q,
+         _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    ),
+    # H, W, L, masked, table_bits, items, info (8 host long longs)
+    "tpumcia_glcm_workspace_info": (_I, [_I, _I, _I, _I, _I, _Q, ctypes.POINTER(_Q)]),
     "tpumcia_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

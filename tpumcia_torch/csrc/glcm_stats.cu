@@ -6,7 +6,7 @@
 //   emitting dstats (need_diff=False) or the difference histogram
 //   (need_diff=True); and _kernel_multi (driven by _pallas_stats_multi_core),
 //   the same outputs for up to kMaxOffsets GLCM offsets in one pass; at any
-//   image size and level count up to the bounds below.
+//   image size below 2^24 pixels and any level count up to 32768.
 // For every (image, channel) it emits the raw-level histogram, the pixel
 // count, the channel max vmax, and per offset (dr, dc) the left/right
 // marginals of the rescaled levels (rescale = row lut[clamp(vmax)] of the
@@ -109,15 +109,40 @@
 // Its limbs are always the generic ones: the cheap gate needs H*W <= 4096
 // and L <= 256, which B1d never meets.
 //
+// Past 4096 levels (form B1e: 4096 < L <= kMaxWorkspaceLevels = 32768, the
+// JAX package's own bound; the difference histogram always, generic limbs)
+// the 6L-1 int per-level tables alone outgrow a block's shared memory (196
+// KB at 8192 levels, 786 KB at 32768), so glcm_stats_workspace_kernel keeps
+// them in device memory: a workspace that the caller allocates, one slice
+// per block. One slice per (image, channel) would be 19 GB for a 2048x12
+// batch at 32768 levels, so the grid is persistent: a fixed number of blocks
+// (what fits on the card at once, at most kPersistentPerSM per SM) that loop
+// over the items, each reusing its slice. The tables are filled with global
+// atomics (they stay in L2 while a block works on its item); G is still the
+// u64 pair table sized to the pairs, in shared memory where its 8 bytes a
+// slot fit (64 KB at 48x48 and 64x64) and in the block's workspace slice
+// otherwise, with sum(G^2) from the returned counts as above; the plane of
+// rescaled levels stays in shared memory where it fits beside the table
+// (levels are below 2^15, under the u16 sentinels). The key i*L + j is below
+// 2^30. An L x L rescale table would be 256 MB at 8192 levels and 4 GB at
+// 32768, so this form takes none: each block computes its item's row
+// lut[clamp(vmax)] itself, in double and in the table's order of operations
+// (rescale_level below), so every entry equals the table's. What bounds it:
+// bytes, and here the outputs' (per item and offset 3L + 2L-1 floats: 4.0 GB
+// for 2048x12 items at 8192 levels against 0.23 GB of pixels), then the
+// workspace's own traffic (each table zeroed, filled and read back per item).
+//
 // Exactness: every integer sum is accumulated in 64 bits and stored in the
 // dtype the JAX package returns (f32 fields hold integers < 2^24).
 // dstats[3] is summed in double by warp 0 over the difference histogram, in
 // a fixed order, and rounded once to f32.
 //
-// Entry points (plain C, loaded with ctypes): tpumcia_glcm_stats launches
-// on the caller's stream, allocates nothing, and returns cudaGetLastError();
-// tpumcia_glcm_launch_info reports the block size, dynamic shared memory and
-// resident blocks per SM a launch of that shape would use.
+// Entry points (plain C, loaded with ctypes): tpumcia_glcm_stats (up to 4096
+// levels) and tpumcia_glcm_stats_workspace (form B1e) launch on the caller's
+// stream, allocate nothing, and return cudaGetLastError();
+// tpumcia_glcm_launch_info and tpumcia_glcm_workspace_info report the block
+// size, dynamic shared memory, resident blocks per SM and (B1e) the grid and
+// the workspace bytes a launch of that shape would use.
 
 #include <climits>
 #include <cstdint>
@@ -130,11 +155,13 @@ namespace {
 
 constexpr int kMaxLevels = 256;  // the small kernel's static tables
 constexpr int kMaxLargeLevels = 4096;
+constexpr int kMaxWorkspaceLevels = 32768;  // form B1e; the rescaled levels must stay below the sentinels
+constexpr int kPersistentPerSM = 4;  // form B1e: at most this many resident blocks per SM
 constexpr int kMaxPixels = 1 << 24;  // H*W bound: f32-exact counts
 constexpr int kMaxOffsets = 16;
 constexpr int kThreads = 256;      // table layouts: several blocks per SM
 constexpr int kBandThreads = 512;  // the band layout holds the whole SM
-// the shared plane's sentinels (levels are < 4096)
+// the shared plane's sentinels (levels are < 32768)
 constexpr unsigned short kMasked = 0xFFFF;
 constexpr unsigned short kOutOfRange = 0xFFFE;  // counts as level 0 in a pair
 
@@ -163,6 +190,7 @@ struct Layout {
   int band_words;  // bands: the u32 cells of one band
   int plane;       // the block's levels live in shared memory
   int vec;         // 16-byte pixel loads (H*W % 4 == 0, aligned planes)
+  int table_global;  // form B1e: the pair table lives in the workspace slice
 };
 
 // The shared scalars of a block.
@@ -213,15 +241,31 @@ __device__ __forceinline__ void item_planes(
   }
 }
 
-// Pass 1 of both kernels: the raw histogram, pixel count and channel max
+// Entry v of the rescale row of a channel whose max raw level is m, 0 < m <=
+// top = L - 1: the reference's trunc(((v/top) / (m/top)) * top) clipped to
+// [0, top], in double and in the order tpumcia_torch.features.stats
+// .rescale_lut computes its table, so the entry equals the table's. Every
+// step is one correctly rounded IEEE operation (the intrinsics say so to the
+// reader; there is no add, so nothing could contract into an FMA).
+__device__ __forceinline__ int rescale_level(int v, int m, int top_level) {
+  const double top = static_cast<double>(top_level);
+  const double a = __ddiv_rn(static_cast<double>(v), top);
+  const double b = __ddiv_rn(static_cast<double>(m), top);
+  const double s = __dmul_rn(__ddiv_rn(a, b), top);
+  return static_cast<int>(fmin(fmax(s, 0.0), top));
+}
+
+// Pass 1 of every kernel: the raw histogram, pixel count and channel max
 // over the (masked) pixels; then the rescale row lut[clamp(vmax)] into s_row
 // and hist, count and vmax out. vmax takes -1 for every masked-out pixel, as
 // the JAX package's max(where(mask, x, -1)) does. A level outside [0, L)
 // breaks the caller's contract; it is dropped from the histogram (as a
 // one-hot drops it) and rescales to 0, so that no shared-memory index leaves
 // its table. With s_lv, the pass also leaves the block's rescaled levels
-// there (kMasked for a masked-out pixel).
-template <bool kMask, int kBlock>
+// there (kMasked for a masked-out pixel). With kComputeRow (form B1e) there
+// is no table: the row is computed entry by entry (row 0 is all zeros), and
+// s_hist and s_row may lie in device memory.
+template <bool kMask, int kBlock, bool kComputeRow = false>
 __device__ void histogram_pass(const int* px, const unsigned char* mk,
                                int HW, int L, const int* lut, long long item,
                                bool vec, int* s_hist, int* s_row,
@@ -269,10 +313,12 @@ __device__ void histogram_pass(const int* px, const unsigned char* mk,
   }
   __syncthreads();
   const int vmax = s->vmax;
-  const int* row = lut + static_cast<long long>(min(max(vmax, 0), L - 1)) * L;
+  const int m = min(max(vmax, 0), L - 1);
+  const int* row = kComputeRow ? nullptr : lut + static_cast<long long>(m) * L;
   for (int k = tid; k < L; k += nt) {
-    s_row[k] = row[k];
-    out.hist[item * L + k] = static_cast<float>(s_hist[k]);
+    s_row[k] = kComputeRow ? (m > 0 ? rescale_level(k, m, L - 1) : 0) : row[k];
+    // a table in device memory was filled by atomics, which work in L2: read it there
+    out.hist[item * L + k] = static_cast<float>(kComputeRow ? __ldcg(&s_hist[k]) : s_hist[k]);
   }
   if (tid == 0) {
     // masked: the pixels the histogram holds (the JAX kernel's sum(hist));
@@ -708,12 +754,95 @@ __global__ void __launch_bounds__(kBlock) glcm_stats_large_kernel(
   }
 }
 
+
+// Form B1e (see the header): past 4096 levels. A persistent grid: block b
+// reduces items b, b + gridDim.x, ... with its 6L-1 int tables (raw
+// histogram, rescale row, both marginals, the difference histogram) in its
+// slice of the workspace, slice_ints ints a block; the u64 pair table in
+// shared memory, or behind the tables in the slice (lay.table_global).
+template <bool kMask>
+__global__ void __launch_bounds__(kThreads) glcm_stats_workspace_kernel(
+    const int* __restrict__ img, const unsigned char* __restrict__ mask,
+    int mask_channels, int channels, int* __restrict__ workspace,
+    long long slice_ints, long long items, int H, int W, int L, Offsets offs,
+    Layout lay, Outputs out) {
+  // the pair table (unless it lives in the workspace), then the plane when it is kept
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bits = lay.table_bits;
+  const long long tables_ints = (6LL * L - 1 + 3) & ~3LL;  // the table behind them stays 16-byte aligned
+  int* ws = workspace + blockIdx.x * slice_ints;
+  int* w_hist = ws;
+  int* w_row = w_hist + L;    // L: the rescale row of this item's vmax
+  int* w_ml = w_row + L;      // L
+  int* w_mr = w_ml + L;       // L
+  int* w_dh = w_mr + L;       // 2L-1: signed difference histogram
+  unsigned long long* table = lay.table_global
+      ? reinterpret_cast<unsigned long long*>(ws + tables_ints)
+      : reinterpret_cast<unsigned long long*>(smem);
+  unsigned short* s_lv = lay.plane
+      ? reinterpret_cast<unsigned short*>(smem + (lay.table_global ? 0LL : (8LL << bits)))
+      : nullptr;
+  __shared__ BlockScalars s;
+  __shared__ long long s_red[kThreads / 32][4];
+
+  const int tid = threadIdx.x, nt = kThreads;
+  const int HW = H * W;
+  const int n_diff = 2 * L - 1;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int* px;
+    const unsigned char* mk;
+    item_planes<kMask>(img, mask, mask_channels, channels, item, HW, &px, &mk);
+    histogram_pass<kMask, kThreads, true>(px, mk, HW, L, nullptr, item, lay.vec, w_hist, w_row,
+                                          s_lv, &s, out);
+    const PairSource src{s_lv, px, mk, w_row, L, W};
+
+    for (int o = 0; o < offs.n; ++o) {
+      const Window win(H, W, offs.dr[o], offs.dc[o]);
+      const long long oi = o * items + item;  // row of this offset's outputs
+
+      zero_words<kThreads>(reinterpret_cast<unsigned*>(table), 2 << bits);
+      for (int k = tid; k < 4 * L - 1; k += nt) w_ml[k] = 0;  // both marginals and w_dh
+      if (tid == 0) s.pairs = 0;
+      __syncthreads();
+
+      long long acc[4] = {0, 0, 0, 0};
+      int local_pairs = walk_pairs<kMask, kThreads>(src, win, w_ml, w_mr, w_dh, [&](int i, int j) {
+        const unsigned k = static_cast<unsigned>(i * L + j);  // < 2^30
+        add_delta(table_add<unsigned long long, 32>(table, bits, k), false, acc);
+      });
+      local_pairs = warp_sum(local_pairs);
+      if ((tid & 31) == 0) atomicAdd(&s.pairs, local_pairs);
+      __syncthreads();
+      for (int k = tid; k < L; k += nt) {
+        // filled by atomics, which work in L2: read them there (__ldcg)
+        out.marg_l[oi * L + k] = static_cast<float>(__ldcg(&w_ml[k]));
+        out.marg_r[oi * L + k] = static_cast<float>(__ldcg(&w_mr[k]));
+      }
+      for (int k = tid; k < n_diff; k += nt) {
+        out.dout[oi * n_diff + k] = static_cast<float>(__ldcg(&w_dh[k]));
+      }
+      reduce_limbs(acc, s_red);
+      if (tid == 0) {
+        long long sq4[4];
+        sum_warps<kThreads>(s_red, sq4);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) out.sumsq[oi * 4 + m] = static_cast<int>(sq4[m]);
+        out.pairs[oi] = static_cast<float>(kMask ? s.pairs : win.n_pairs);
+      }
+      __syncthreads();  // the next offset, or the next item, resets these tables
+    }
+  }
+}
+
 using KernelFn = void (*)(const int*, const unsigned char*, int, int, const int*,
                           int, int, int, Offsets, Layout, Outputs);
+using WorkspaceKernelFn = void (*)(const int*, const unsigned char*, int, int, int*, long long,
+                                   long long, int, int, int, Offsets, Layout, Outputs);
 
-// The eight instances: small <mask, need_diff>, then large <mask> with the
-// table's block size and with the bands'.
-constexpr int kInstances = 8;
+// The ten instances: small <mask, need_diff>, then large <mask> with the
+// table's block size and with the bands', then the workspace form <mask>.
+constexpr int kInstances = 10;
+constexpr int kWorkspaceInstance = 8;
 
 KernelFn kernel_at(int index) {
   switch (index) {
@@ -728,6 +857,16 @@ KernelFn kernel_at(int index) {
   }
 }
 
+WorkspaceKernelFn workspace_kernel_at(bool masked) {
+  return masked ? glcm_stats_workspace_kernel<true> : glcm_stats_workspace_kernel<false>;
+}
+
+const void* instance_at(int index) {
+  return index < kWorkspaceInstance
+      ? reinterpret_cast<const void*>(kernel_at(index))
+      : reinterpret_cast<const void*>(workspace_kernel_at(index > kWorkspaceInstance));
+}
+
 // Per instance, once: the dynamic shared memory a block of it may ask for
 // (the device's opt-in less the kernel's static use), raised to that cap,
 // and the carveout set to shared memory first, so that several blocks fit.
@@ -736,7 +875,7 @@ struct KernelLimits {
   int smem_max;
 };
 
-KernelLimits configure(KernelFn kernel) {
+KernelLimits configure(const void* kernel) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
@@ -758,7 +897,7 @@ KernelLimits configure(KernelFn kernel) {
 const KernelLimits& limits(int index) {
   static std::once_flag once[kInstances];
   static KernelLimits lim[kInstances];
-  std::call_once(once[index], [index] { lim[index] = configure(kernel_at(index)); });
+  std::call_once(once[index], [index] { lim[index] = configure(instance_at(index)); });
   return lim[index];
 }
 
@@ -814,6 +953,50 @@ cudaError_t plan(bool large, bool masked, bool need_diff, int HW, int L,
 }
 
 bool is_large(long long hw, int L) { return hw >= 65536 || L > kMaxLevels; }
+
+struct WorkspacePlan {
+  WorkspaceKernelFn kernel;
+  int smem;
+  Layout lay;
+  int blocks_per_sm;     // resident blocks per SM the grid counts on
+  int grid;              // blocks: every one resident at once
+  long long slice_ints;  // workspace ints per block
+};
+
+// The layout of a B1e launch over `items` (image, channel)s: the pair table
+// in shared memory where it fits, else in the workspace slice; the plane in
+// shared memory where it fits beside it; the persistent grid.
+cudaError_t plan_workspace(bool masked, int HW, int L, int table_bits, long long items,
+                           WorkspacePlan* p) {
+  const KernelLimits& lim = limits(kWorkspaceInstance + masked);
+  if (lim.err != cudaSuccess) return lim.err;
+  const long long table = 8LL << table_bits, plane = 2LL * HW;
+  p->kernel = workspace_kernel_at(masked);
+  p->lay = Layout{0, table_bits, 0, 0, 0, table > lim.smem_max};
+  long long smem = p->lay.table_global ? 0 : table;
+  p->lay.plane = smem + plane <= lim.smem_max;
+  if (p->lay.plane) smem += plane;
+  p->smem = static_cast<int>(smem);
+  p->slice_ints = ((6LL * L - 1 + 3) & ~3LL) + (p->lay.table_global ? 2LL << table_bits : 0);
+  int dev = 0, sms = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, reinterpret_cast<const void*>(p->kernel), kThreads, p->smem);
+  }
+  if (err != cudaSuccess) return err;
+  if (blocks < 1) return cudaErrorInvalidValue;
+  p->blocks_per_sm = blocks < kPersistentPerSM ? blocks : kPersistentPerSM;
+  const long long resident = static_cast<long long>(p->blocks_per_sm) * sms;
+  p->grid = static_cast<int>(items < resident ? (items > 0 ? items : 1) : resident);
+  return cudaSuccess;
+}
+
+bool workspace_shape_ok(long long hw, int H, int W, int L, int table_bits) {
+  return H >= 1 && W >= 1 && hw < kMaxPixels && L > kMaxLargeLevels &&
+         L <= kMaxWorkspaceLevels && table_bits >= 1 && table_bits <= 25;
+}
 
 }  // namespace
 
@@ -887,6 +1070,74 @@ extern "C" int tpumcia_glcm_launch_info(int H, int W, int L, int masked, int nee
   info[2] = blocks;
   info[3] = p.lay.plane;
   info[4] = p.lay.table_bits;
+  return 0;
+}
+
+// Form B1e: 4096 < L <= 32768, always the difference histogram in dout and
+// the generic limbs; no rescale table. workspace: workspace_bytes of device
+// memory, 16-byte aligned, at least what tpumcia_glcm_workspace_info reports
+// for this shape and item count; its contents before and after are
+// meaningless. table_bits: log2 of the pair table's slots, at least 2x the
+// largest offset's pair window. The other arguments as tpumcia_glcm_stats.
+extern "C" int tpumcia_glcm_stats_workspace(
+    const int* img, const unsigned char* mask, int mask_channels, int batch,
+    int channels, int H, int W, int L, const int* offsets, int num_offsets,
+    int table_bits, void* workspace, long long workspace_bytes, float* hist,
+    float* count, int* vmax, float* marg_l, float* marg_r, float* dout,
+    int* sumsq, float* pairs, void* stream) {
+  const long long hw = static_cast<long long>(H) * W;
+  if (!workspace_shape_ok(hw, H, W, L, table_bits) || batch < 0 || channels < 1 ||
+      num_offsets < 1 || num_offsets > kMaxOffsets ||
+      (mask != nullptr && mask_channels != 1 && mask_channels != channels)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long items = static_cast<long long>(batch) * channels;
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  Offsets offs{};
+  offs.n = num_offsets;
+  for (int o = 0; o < num_offsets; ++o) {
+    offs.dr[o] = offsets[2 * o];
+    offs.dc[o] = offsets[2 * o + 1];
+    const long long n_pairs = static_cast<long long>(H - abs(offs.dr[o])) * (W - abs(offs.dc[o]));
+    if ((1LL << table_bits) < 2 * n_pairs) return cudaErrorInvalidValue;
+  }
+  WorkspacePlan p;
+  cudaError_t err = plan_workspace(mask != nullptr, static_cast<int>(hw), L, table_bits, items, &p);
+  if (err != cudaSuccess) return err;
+  if (workspace == nullptr || reinterpret_cast<uintptr_t>(workspace) % 16 != 0 ||
+      workspace_bytes < 4LL * p.slice_ints * p.grid) {
+    return cudaErrorInvalidValue;
+  }
+  p.lay.vec = hw % 4 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0 &&
+              (mask == nullptr || reinterpret_cast<uintptr_t>(mask) % 4 == 0);
+  if (items == 0) return cudaSuccess;
+  const Outputs out{hist, count, vmax, marg_l, marg_r, dout, sumsq, pairs};
+  p.kernel<<<p.grid, kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
+      img, mask, mask == nullptr ? 1 : mask_channels, channels, static_cast<int*>(workspace),
+      p.slice_ints, items, H, W, L, offs, p.lay, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// info[0..7] <- threads per block, dynamic shared memory bytes, resident
+// blocks per SM the grid counts on, whether the plane is kept in shared
+// memory, whether the pair table is, the grid's blocks, the workspace bytes
+// the launch needs, and the bytes of one block's slice, for a B1e launch of
+// that shape over `items` (image, channel)s.
+extern "C" int tpumcia_glcm_workspace_info(int H, int W, int L, int masked, int table_bits,
+                                           long long items, long long* info) {
+  const long long hw = static_cast<long long>(H) * W;
+  if (!workspace_shape_ok(hw, H, W, L, table_bits) || items < 0) return cudaErrorInvalidValue;
+  WorkspacePlan p;
+  const cudaError_t err = plan_workspace(masked != 0, static_cast<int>(hw), L, table_bits, items, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = kThreads;
+  info[1] = p.smem;
+  info[2] = p.blocks_per_sm;
+  info[3] = p.lay.plane;
+  info[4] = !p.lay.table_global;
+  info[5] = p.grid;
+  info[6] = 4LL * p.slice_ints * p.grid;
+  info[7] = 4LL * p.slice_ints;
   return 0;
 }
 

@@ -2,7 +2,7 @@
 PyTorch version.
 
 The kernel (``tpumcia_torch/csrc/glcm_stats.cu``) replaces the TPU kernels
-of ``tpumcia/features/pallas_glcm.py`` in the five forms the single-device
+of ``tpumcia/features/pallas_glcm.py`` in the six forms the single-device
 extraction runs, each counted on its own in :data:`LAUNCHES_BY_FORM`:
 
 - ``B1a``: ``_kernel`` maskless, ``need_diff=False`` (the fused fast path);
@@ -11,8 +11,17 @@ extraction runs, each counted on its own in :data:`LAUNCHES_BY_FORM`:
   ``precision='exact'``), masked or not, one offset;
 - ``B2``: ``_kernel_multi``, several offsets in one pass (masked or not,
   either ``need_diff``);
-- ``B1d``: either of them at H*W >= 65536 or more than 256 levels, whatever
-  the mask or offset count; always with the difference histogram.
+- ``B1d``: either of them at H*W >= 65536 or more than 256 levels (up to
+  4096), whatever the mask or offset count; always with the difference
+  histogram;
+- ``B1e``: either of them at more than 4096 levels, up to tpumcia's own bound
+  of 32768: the per-level tables no longer fit in a block's shared memory,
+  so they live in a device-memory workspace that this wrapper allocates, one
+  slice per block of a persistent grid that loops over the (image,
+  channel)s; the pair table stays in shared memory where it fits; no L x L
+  rescale table exists at these sizes (256 MB at 8192 levels, 4 GB at 32768),
+  each block computes its row from its own ``vmax``. Always with the
+  difference histogram.
 
 One thread block reduces one (image, channel): shared-memory atomic
 histograms for the raw levels, the two marginals and the difference
@@ -42,10 +51,10 @@ The source says more.
 :func:`sufficient_stats` and :func:`sufficient_stats_multi` take the plain
 version for a CPU tensor and for nothing else. For a CUDA tensor they
 launch the kernel or raise: past the kernel's bounds
-(:data:`MAX_KERNEL_LEVELS` levels, :data:`MAX_KERNEL_PIXELS` pixels) they
-raise a ``ValueError``, while an offset list longer than the kernel's
+(:data:`MAX_KERNEL_LEVELS` levels, :data:`MAX_KERNEL_PIXELS` pixels: a count
+is carried as f32, exact only below 2^24) they raise a ``ValueError``, while an offset list longer than the kernel's
 :data:`MAX_OFFSETS` runs as several launches whose per-offset outputs are
-joined. At the B1d sizes both refuse ``need_diff=False``: the ``dstats``
+joined. At the B1d and B1e sizes both refuse ``need_diff=False``: the ``dstats``
 sums are not exact in f32 there. :data:`LAUNCHES` counts kernel launches
 over all forms, so a run can show that it went through the kernel.
 """
@@ -59,18 +68,22 @@ import torch
 from tpumcia_torch.features.stats import (
     SuffStats,
     cheap_limbs,
+    MAX_TABLE_LEVELS,
     rescale_lut_device,
+    rescale_rows_for,
 )
 
 # kernel launches by sufficient_stats*, over all forms and per form; reset
 # both with reset_launch_counts() before a run to count its launches
 LAUNCHES = 0
-LAUNCHES_BY_FORM = {"B1a": 0, "B1b": 0, "B1c": 0, "B2": 0, "B1d": 0}
+LAUNCHES_BY_FORM = {"B1a": 0, "B1b": 0, "B1c": 0, "B2": 0, "B1d": 0, "B1e": 0}
 
-# the B1d kernel's bounds: its 7L-1 int tables and one band row of L u32
-# cells must fit in the 227 KB of shared memory a block may hold, and every
-# count must stay exact in f32
-MAX_KERNEL_LEVELS = 4096
+# the kernels' bounds. B1d: its 7L-1 int tables and one band row of L u32
+# cells must fit in the 227 KB of shared memory a block may hold; B1e keeps
+# the tables in device memory up to tpumcia's own level bound (the packed
+# wire's, hybrid._quad_shift); every count must stay exact in f32
+MAX_SHARED_LEVELS = MAX_TABLE_LEVELS  # 4096: B1d below or at it, B1e above
+MAX_KERNEL_LEVELS = 32768
 MAX_KERNEL_PIXELS = (1 << 24) - 1  # H*W
 MAX_OFFSETS = 16  # the kernel's fixed-size offset argument
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory at 700 W (NVIDIA's data sheet)
@@ -97,6 +110,8 @@ def past_kernel_bounds(hw: int, levels: int) -> bool:
 
 def kernel_form(*, hw: int, levels: int, masked: bool, need_diff: bool, num_offsets: int) -> str:
     """The name of the kernel form a call runs (see the module doc)."""
+    if levels > MAX_SHARED_LEVELS:
+        return "B1e"
     if is_large(hw, levels):
         return "B1d"
     if num_offsets > 1:
@@ -138,8 +153,12 @@ def pair_table_slots(H: int, W: int, offsets, levels: int) -> int:
     against L*L/2 words), the bands of u32 cells at them (8 bytes a slot
     against L*L cells). Whether the table fits in shared memory is the
     kernel's to check: at the B1d sizes one that does not fit beside the
-    per-level tables takes the bands (:func:`launch_info` says which)."""
+    per-level tables takes the bands (:func:`launch_info` says which). Form
+    B1e always takes the table (in its workspace where shared memory cannot
+    hold it): below 2^24 pixels it is never larger than G at those levels."""
     slots = 1 << (2 * max(_pairs(H, W, o) for o in offsets) - 1).bit_length()
+    if levels > MAX_SHARED_LEVELS:
+        return slots
     if is_large(H * W, levels):
         smaller = 8 * slots <= 4 * levels * levels
     else:
@@ -154,20 +173,40 @@ def table_bits(slots: int) -> int:
 
 
 def traffic_bytes(shape, levels: int, offsets, *, mask_channels: int = 0,
-                  need_diff: bool = False) -> int:
+                  need_diff: bool = False, table_in_workspace: bool = False) -> int:
     """The bytes one launch must move: each input read once (the int32
     levels, the (B, mask_channels, H, W) uint8 mask, and the rows of the
     L x L int32 rescale table it needs: one per (image, channel), at most
-    L) and each output written once (hist, count, vmax, and per offset both
-    marginals, the difference histogram or dstats, the limbs and the pair
-    count). The kernel's bound is this over the card's memory rate: no form
-    does arithmetic worth counting."""
+    L; form B1e reads no table) and each output written once (hist, count,
+    vmax, and per offset both marginals, the difference histogram or dstats,
+    the limbs and the pair count); for form B1e also its workspace's own
+    traffic (:func:`workspace_traffic_bytes`; ``table_in_workspace`` as
+    :func:`launch_info` reports it). The kernel's bound is this over
+    the card's memory rate: no form does arithmetic worth counting."""
     B, C, H, W = shape
     L, O, n = levels, len(offsets), B * C
-    read = 4 * n * H * W + B * mask_channels * H * W + 4 * L * min(n, L)
+    workspace = L > MAX_SHARED_LEVELS
+    read = 4 * n * H * W + B * mask_channels * H * W + (0 if workspace else 4 * L * min(n, L))
     once = 4 * n * L + 4 * n + 4 * n  # hist, count, vmax
     per_offset = 4 * n * (2 * L + (2 * L - 1 if need_diff else 4) + 4 + 1)
-    return read + once + O * per_offset
+    moved = read + once + O * per_offset
+    if workspace:
+        moved += workspace_traffic_bytes(shape, L, offsets, table_in_workspace=table_in_workspace)
+    return moved
+
+
+def workspace_traffic_bytes(shape, levels: int, offsets, *, table_in_workspace: bool = False) -> int:
+    """What form B1e moves to and from its own workspace, beside its inputs
+    and outputs: per (image, channel) the histogram and the rescale row are
+    written once and read once, and per offset both marginals and the
+    difference histogram are zeroed and read back once (the atomics that
+    fill them between stay in L2 and are not counted); where the pair table
+    lives in the workspace too, its 8 bytes a slot are zeroed once per
+    offset."""
+    B, C, H, W = shape
+    L, O, n = levels, len(offsets), B * C
+    table = 8 * pair_table_slots(H, W, offsets, L) if table_in_workspace else 0
+    return n * (2 * 4 * 2 * L + O * (2 * 4 * (4 * L - 1) + table))
 
 
 def bound_ms(nbytes: int) -> float:
@@ -180,11 +219,15 @@ def launch_info(shape, levels: int, offsets, *, masked: bool, need_diff: bool) -
     kernel plans it: its layout (``"table"`` with its slots, ``"dense"`` or
     ``"bands"``), the block size, the dynamic shared memory per block, the
     resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
-    and whether the block keeps its plane in shared memory. Needs the
-    card."""
+    and whether the block keeps its plane in shared memory; for form B1e
+    also whether the pair table is in shared memory, the persistent grid's
+    blocks and the workspace's bytes. Needs the card."""
     from tpumcia_torch import _build
 
-    _, _, H, W = shape
+    B, C, H, W = shape
+    if levels > MAX_SHARED_LEVELS:
+        return {"layout": "workspace", "table_slots": pair_table_slots(H, W, offsets, levels),
+                **_workspace_info(H, W, levels, masked, offsets, B * C)}
     info = (ctypes.c_int * 5)()
     _build.check(
         _build.load_library().tpumcia_glcm_launch_info(
@@ -196,6 +239,22 @@ def launch_info(shape, levels: int, offsets, *, masked: bool, need_diff: bool) -
     layout = "table" if slots else ("bands" if is_large(H * W, levels) else "dense")
     return {"layout": layout, "table_slots": slots, "threads": info[0],
             "smem_bytes": info[1], "blocks_per_sm": info[2], "plane_in_smem": bool(info[3])}
+
+
+def _workspace_info(H: int, W: int, levels: int, masked: bool, offsets, items: int) -> dict:
+    """How the kernel plans a B1e launch over ``items`` (image, channel)s."""
+    from tpumcia_torch import _build
+
+    info = (ctypes.c_longlong * 8)()
+    _build.check(
+        _build.load_library().tpumcia_glcm_workspace_info(
+            H, W, levels, int(masked), table_bits(pair_table_slots(H, W, offsets, levels)),
+            items, info),
+        "glcm_stats workspace info",
+    )
+    return {"threads": info[0], "smem_bytes": info[1], "blocks_per_sm": info[2],
+            "plane_in_smem": bool(info[3]), "table_in_smem": bool(info[4]),
+            "grid_blocks": info[5], "workspace_bytes": info[6], "slice_bytes": info[7]}
 
 
 def sufficient_stats(
@@ -266,9 +325,9 @@ def _launch(img, mask, levels, offsets, need_diff) -> tuple[SuffStats, ...]:
     if past_kernel_bounds(H * W, levels):
         raise ValueError(
             f"{H}x{W} images at {levels} levels are past the CUDA GLCM kernel: "
-            f"at most {MAX_KERNEL_LEVELS} levels (its per-level tables and one "
-            f"row of G in 227 KB of shared memory) and {MAX_KERNEL_PIXELS} "
-            "pixels (counts exact in f32)"
+            f"at most {MAX_KERNEL_LEVELS} levels (the wire's exact bounds) and "
+            f"{MAX_KERNEL_PIXELS} pixels (counts are carried as f32, exact "
+            "below 2^24)"
         )
     if not 1 <= len(offsets) <= MAX_OFFSETS:
         raise ValueError(f"the CUDA kernel takes 1..{MAX_OFFSETS} offsets; got {len(offsets)}")
@@ -300,20 +359,30 @@ def _launch(img, mask, levels, offsets, need_diff) -> tuple[SuffStats, ...]:
     sumsq = torch.empty((O, B, C, 4), dtype=torch.int32, device=dev)
     pairs = torch.empty((O, B, C), dtype=f32, device=dev)
     flat_offsets = (ctypes.c_int * (2 * O))(*[int(v) for off in offsets for v in off])
-    lut = rescale_lut_device(L, dev)
     lib = _build.load_library()
+    mask_ptr = None if mask is None else mask.data_ptr()
+    mask_channels = 1 if mask is None else mask.shape[1]
+    bits = table_bits(pair_table_slots(H, W, offsets, L))
+    outputs = [t.data_ptr() for t in (hist, count, vmax, marg_l, marg_r, dout, sumsq, pairs)]
     with torch.cuda.device(dev):
-        code = lib.tpumcia_glcm_stats(
-            img.data_ptr(), None if mask is None else mask.data_ptr(),
-            1 if mask is None else mask.shape[1], lut.data_ptr(),
-            B, C, H, W, L, flat_offsets, O, int(need_diff),
-            int(cheap_limbs(H * W, L)),
-            table_bits(pair_table_slots(H, W, offsets, L)),
-            hist.data_ptr(), count.data_ptr(), vmax.data_ptr(),
-            marg_l.data_ptr(), marg_r.data_ptr(), dout.data_ptr(),
-            sumsq.data_ptr(), pairs.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if L > MAX_SHARED_LEVELS:
+            # form B1e: the per-level tables of each resident block (and the
+            # pair table where shared memory cannot hold it) live in this
+            # workspace, which the caching allocator hands back from launch
+            # to launch
+            plan = _workspace_info(H, W, L, mask is not None, offsets, B * C)
+            workspace = torch.empty(max(plan["workspace_bytes"], 16), dtype=torch.uint8, device=dev)
+            code = lib.tpumcia_glcm_stats_workspace(
+                img.data_ptr(), mask_ptr, mask_channels, B, C, H, W, L, flat_offsets, O, bits,
+                workspace.data_ptr(), workspace.numel(), *outputs, stream,
+            )
+        else:
+            code = lib.tpumcia_glcm_stats(
+                img.data_ptr(), mask_ptr, mask_channels, rescale_lut_device(L, dev).data_ptr(),
+                B, C, H, W, L, flat_offsets, O, int(need_diff), int(cheap_limbs(H * W, L)), bits,
+                *outputs, stream,
+            )
     _build.check(code, "glcm_stats kernel launch")
     if B * C:
         LAUNCHES += 1
@@ -367,7 +436,8 @@ def _prologue(img: torch.Tensor, mask: torch.Tensor | None, L: int):
         count = counted.sum(1).to(torch.float32)
         vmax = torch.where(m, x, -1).amax(1)
     hist = _row_bincount(x.clamp(0, L - 1), L, keep=counted)
-    row = rescale_lut_device(L, img.device)[vmax.clamp(0, L - 1)].to(torch.int64)
+    # above 4096 levels the rows alone, never the L x L table
+    row = rescale_rows_for(L, vmax).to(torch.int64)
     resc = torch.where(in_range, torch.gather(row, 1, x.clamp(0, L - 1)), 0)
     shape = (B, C)
     return (

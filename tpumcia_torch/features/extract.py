@@ -12,8 +12,8 @@ masked) -> (N, 23*C) features (the counterpart of
   the notebook) and ``'device'`` (float32 on the device), one offset at a
   time or an offset list in one pass, and intensity-only or GLCM-only
   configs;
-- at H*W >= 65536 or more than 256 levels (kernel form B1d), tpumcia's
-  routing: the statistics carry the difference histogram, ``'hybrid'``
+- at H*W >= 65536 or more than 256 levels (kernel forms B1d and, past 4096
+  levels, B1e), tpumcia's routing: the statistics carry the difference histogram, ``'hybrid'``
   becomes the host backend at H*W >= 65536 and takes the packed f32 wire
   above 256 levels.
 
@@ -27,8 +27,11 @@ otherwise.
 With ``include_morphology`` (a mask is required) each channel's 8 mask
 shape features come last; a shared (B, H, W) mask gives every channel its 8
 values. A device mesh (ROADMAP A14) raises ``NotImplementedError``. On a
-CUDA device the kernel's bounds (4096 levels,
-2^24 pixels) raise a ``ValueError``; a CPU device takes every size.
+CUDA device the kernel's bounds (32768 levels, tpumcia's own; 2^24 pixels)
+raise a ``ValueError``; a CPU device takes every size. Above 256 levels the
+statistics of one batch hold 5 L floats per (image, channel) and offset (4.0
+GB for 2048 x 12 items at 8192 levels): size the batch to the level count.
+The batched entry points hold one batch's statistics at a time.
 
 A collection on the host crosses to a CUDA device one batch at a time
 (``io.staging``: pinned buffers, a side stream), at most ``in_flight``

@@ -69,6 +69,39 @@ def rescale_lut_device(levels: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(rescale_lut(levels)).to(device)
 
 
+# above this many levels no L x L rescale table is built on any device (256
+# MB at 8192 levels, 4 GB at 32768): rescale_rows_for computes the rows asked for
+MAX_TABLE_LEVELS = 4096
+
+
+def rescale_rows(levels: int, vmax: torch.Tensor) -> torch.Tensor:
+    """The rows ``rescale_lut(levels)[clamp(vmax, 0, levels - 1)]`` as a
+    (..., levels) int32 tensor on ``vmax``'s device, without the table: each
+    entry in float64 and in :func:`rescale_lut`'s order of operations,
+    ``trunc(((v/top) / (m/top)) * top)`` clipped to [0, top], so it equals
+    the table's (every step is one IEEE operation on either device; row 0 is
+    all zeros; the table's uint8 cast at <= 256 levels truncates values
+    already clipped to [0, 255], as the int32 cast here does)."""
+    top = float(levels - 1)
+    m = vmax.clamp(0, levels - 1)
+    # divide by a tensor: on a CUDA device PyTorch turns tensor / Python
+    # scalar into a product with the reciprocal, which rounds differently
+    top_t = torch.tensor(top, dtype=torch.float64, device=vmax.device)
+    vals = torch.arange(levels, dtype=torch.float64, device=vmax.device) / top_t
+    scaled = (vals / vals[m.to(torch.int64)][..., None]) * top
+    rows = torch.nan_to_num(scaled, nan=0.0, posinf=top).clamp_(0.0, top).to(torch.int32)
+    return torch.where((m > 0)[..., None], rows, 0)
+
+
+def rescale_rows_for(levels: int, vmax: torch.Tensor) -> torch.Tensor:
+    """``rescale_lut(levels)[clamp(vmax)]`` as int32 rows on ``vmax``'s
+    device: from the cached table up to :data:`MAX_TABLE_LEVELS` levels,
+    computed by :func:`rescale_rows` above."""
+    if levels > MAX_TABLE_LEVELS:
+        return rescale_rows(levels, vmax)
+    return rescale_lut_device(levels, vmax.device)[vmax.clamp(0, levels - 1).to(torch.int64)]
+
+
 def on_device(a, device) -> torch.Tensor:
     """A tensor (moved) or an array-like (copied) on ``device``."""
     return a.to(device) if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a), device=device)
@@ -203,8 +236,8 @@ def glcm_matrix(
         valid = prepare_mask(mask, x.shape, img.device) > 0
     valid = valid.expand(B, C, H, W)
     L = levels
-    vmax = torch.where(valid, img, -1).amax((2, 3)).clamp(0, L - 1)
-    rows = rescale_lut_device(L, img.device).to(torch.int64)[vmax]  # (B, C, L)
+    vmax = torch.where(valid, img, -1).amax((2, 3))
+    rows = rescale_rows_for(L, vmax).to(torch.int64)  # (B, C, L)
     inside = (img >= 0) & (img < L)
     resc = torch.gather(rows, 2, img.clamp(0, L - 1).flatten(2)).view(B, C, H, W)
     resc = torch.where(inside, resc, 0)

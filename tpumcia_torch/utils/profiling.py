@@ -1,15 +1,23 @@
-"""Stage timing for the fused pipeline.
+"""Profiling and throughput instrumentation (counterpart of
+``tpumcia.utils.profiling``).
 
 A :class:`StageTimer` handed to ``run_pipeline(timer=...)`` synchronises the
 device at every stage boundary and adds the wall time since the previous
 boundary to that stage's total. The synchronisations serialise host and
 device, so a timed run is slower than an untimed one: use it for the split
 between stages, and untimed runs for the throughput.
+
+:func:`trace` names a region for ``torch.profiler`` (and for NVTX tools on a
+CUDA build), :func:`capture_trace` records a Chrome trace of what runs
+inside it, and :class:`ThroughputMeter` counts items per second per stage.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
+from dataclasses import dataclass, field
 
 import torch
 
@@ -36,3 +44,61 @@ class StageTimer:
             raise RuntimeError("StageTimer.stamp before start")
         self.totals[stage] = self.totals.get(stage, 0.0) + now - self._last
         self._last = now
+
+
+@contextlib.contextmanager
+def trace(name: str):
+    """A named region: a ``torch.profiler.record_function`` range (it costs
+    next to nothing while no profiler records) and, where CUDA is present,
+    an NVTX range."""
+    nvtx = torch.cuda.is_available()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
+
+
+@contextlib.contextmanager
+def capture_trace(log_dir: str):
+    """Record a ``torch.profiler`` trace (CPU activity, and CUDA activity
+    where a CUDA device is present) of the enclosed code and write it as
+    ``log_dir/trace.json``, a Chrome trace (``chrome://tracing``, Perfetto).
+    Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@dataclass
+class ThroughputMeter:
+    """Accumulates (items, seconds) per stage; reports items/sec (a copy of
+    tpumcia's; the caller synchronises the device inside ``measure`` where
+    the stage ends in device work)."""
+
+    totals: dict = field(default_factory=dict)
+
+    @contextlib.contextmanager
+    def measure(self, stage: str, items: int):
+        t0 = time.perf_counter()
+        yield
+        dt = time.perf_counter() - t0
+        n, t = self.totals.get(stage, (0, 0.0))
+        self.totals[stage] = (n + items, t + dt)
+
+    def rate(self, stage: str) -> float:
+        n, t = self.totals.get(stage, (0, 0.0))
+        return n / t if t > 0 else 0.0
+
+    def report(self) -> dict:
+        return {s: {"items": n, "seconds": t, "per_second": self.rate(s)}
+                for s, (n, t) in self.totals.items()}
