@@ -10,13 +10,15 @@ Phases (any failure exits nonzero, and no result line is printed):
      maskless, B1b masked, B1c difference histogram, B2 several offsets, B1d
      at 65536 pixels or more than 256 levels, B1e past 4096 levels: 8192,
      16384 and 32768 levels, masked and maskless, one and four offsets, a
-     constant channel, an empty and a one-pixel mask, 37x53, and a pair table
-     too large for shared memory) against its plain PyTorch
+     constant channel, an empty and a one-pixel mask, 37x53, levels at the
+     edges of its level bands at 5001, 20011 and 32768 levels, and a pair
+     table too large for shared memory) against its plain PyTorch
      version at the main paths' shapes and at edge cases (integer fields
      bit-equal, dstats[3] to rel 1e-6), both versions' median times, and per
      main-path shape the bytes it must move, its bound at the card's memory
      rate, its layout, dynamic shared memory and resident blocks per SM
-     (gated: >= 3 at the bench and cytometry shapes, >= 2 at 1024 levels);
+     (gated: >= 3 at the bench and cytometry shapes and at 8192 levels, >= 2
+     at 1024 levels; B1e at 48x48 and 64x64 with no workspace);
   4. the slice: ``run_pipeline`` over 12,000 synthetic 64x64 images with 2
      synthesized noise channels, a 300-step logistic head and permutation
      importance, as bench.py drives the JAX package. It checks the launch
@@ -146,8 +148,9 @@ FORMS = {
     "B2": ("glcm_stats multi-offset", "tpumcia/features/pallas_glcm.py:878"),
     "B1d": ("glcm_stats_large (u64 pair table or u32 G in bands; also replaces :878 at these sizes)",
             "tpumcia/features/pallas_glcm.py:400"),
-    "B1e": ("glcm_stats_workspace (past 4096 levels: per-level tables in a device-memory workspace, "
-            "persistent grid; also replaces :878 at these sizes)", "tpumcia/features/pallas_glcm.py:400"),
+    "B1e": ("glcm_stats_level_bands (past 4096 levels: per-level tables in shared-memory level bands, "
+            "each output word written once; also replaces :878 at these sizes)",
+            "tpumcia/features/pallas_glcm.py:400"),
 }
 LIBRARY = "none: no single PyTorch call computes these statistics"
 
@@ -330,8 +333,9 @@ def timed_cases(device):
     huge = dev((raw.astype(np.int32) >> 3).transpose(0, 3, 1, 2))
     del raw
     yield item("B1e", huge[:HUGE_BATCH].contiguous(), mask=cell[:HUGE_BATCH], need_diff=True,
-               levels=HUGE_LEVELS, note="cytometry levels", per_run=HUGE_N // HUGE_BATCH)
-    yield item("B1e", huge, mask=cell, need_diff=True, levels=HUGE_LEVELS, note="cytometry levels")
+               levels=HUGE_LEVELS, note="cytometry levels", per_run=HUGE_N // HUGE_BATCH, min_blocks=3)
+    yield item("B1e", huge, mask=cell, need_diff=True, levels=HUGE_LEVELS, note="cytometry levels",
+               min_blocks=3)
     del huge
     yield item("B1e", rand((8, 1, 64, 64), 32768), need_diff=True, levels=32768)
 
@@ -340,6 +344,45 @@ def timed_label(shape, offsets, mask, levels, note) -> str:
     """How the kernels line and kernel_ab.py name a timed case."""
     return ("x".join(map(str, shape)) + f" L{levels} offsets {list(offsets)}"
             + (" masked" if mask is not None else "") + (f", {note}" if note else ""))
+
+
+def band_edge_planes(levels, band_levels, n, hw=64, seed=0):
+    """(n, 1, hw, hw) int32 levels that put form B1e's level bands
+    (``band_levels`` a pass, as ``launch_info`` reports it) to the test at
+    offset (0, 1): random levels under a first pixel at L - 1, so that each
+    channel's max is L - 1 and a raw level v rescales to int(v / (L - 1) *
+    (L - 1)); then, in horizontal pairs from the second row on, pairs at the
+    first and last level of each band of the marginals and the difference
+    histogram (laid end to end as the kernel's passes take them), the
+    differences +-(L - 1), and raw levels at the edges of the histogram's
+    bands, 0 and L - 1."""
+    import numpy as np
+
+    top = levels - 1
+
+    def raw(t):  # a raw level that rescales to t, if there is one
+        return next((v for v in (t, t + 1, t + 2) if v <= top and int(v / top * top) == t), None)
+
+    pairs = [(top, 0), (0, top)]
+    flat = [0, top]
+    for k in range(1, -(-levels // band_levels)):
+        flat += [k * band_levels - 1, k * band_levels]
+    for k in range(1, -(-(4 * levels - 1) // band_levels)):
+        for e in (k * band_levels - 1, k * band_levels):
+            if e < levels:
+                pairs.append((e, 0))  # the left marginal's level e
+            elif e < 2 * levels:
+                pairs.append((0, e - levels))  # the right marginal's
+            else:
+                d = e - 2 * levels - top  # the difference histogram's difference d
+                pairs.append((d, 0) if d >= 0 else (0, -d))
+    for i, j in pairs:
+        if raw(i) is not None and raw(j) is not None:
+            flat += [raw(i), raw(j)]
+    x = np.random.default_rng(seed).integers(0, levels, size=(n, 1, hw, hw), dtype=np.int32)
+    x[:, 0, 0, 0] = top
+    x.reshape(n, -1)[:, hw:hw + len(flat)] = flat
+    return x
 
 
 def phase_kernel(device):
@@ -441,9 +484,12 @@ def phase_kernel(device):
     # B1e, past 4096 levels: 8x1x64x64 random levels with an all-zero, a
     # constant and a top-level channel at 8192, 16384 and 32768 levels,
     # maskless and with a mask that is empty, one pixel and full in turn,
-    # one and four offsets; 37x53 (scalar loads) at a level count no power
-    # of two divides; more items than the persistent grid has blocks; and
-    # 128x128, whose pair table (32,768 slots, 256 KB) lives in the workspace
+    # one and four offsets (8 items: several blocks share each); 37x53
+    # (scalar loads) at a level count no power of two divides; levels at the
+    # edges of the level bands and differences of +-(L - 1) at 5001, 20011
+    # (rows of 2L - 1 floats that no 16 bytes align) and 32768 levels; more
+    # items than the persistent grid has blocks; and 128x128, whose pair
+    # table (32,768 slots, 256 KB) lives in the workspace
     b1e_mask = rng.random((8, 64, 64)) < 0.8
     b1e_mask[0] = False
     b1e_mask[1] = False
@@ -455,9 +501,16 @@ def phase_kernel(device):
             for mask in (None, b1e_mask):
                 case((8, 1, 64, 64), offsets, fill=fill, mask=mask, need_diff=True, levels=levels)
     case((3, 2, 37, 53), [(1, 2), (-2, 1)], mask=rng.random((3, 37, 53)) < 0.7, need_diff=True, levels=5001)
+    for levels in (5001, 20011, 32768):
+        info = cuda_glcm.launch_info((8, 1, 64, 64), levels, [(0, 1)], masked=False, need_diff=True)
+        if info["workspace_bytes"] or info["parts"] < 2:
+            raise AssertionError(f"8x1x64x64 at {levels} levels: {info}, want no workspace, several parts")
+        edges = band_edge_planes(levels, info["band_levels"], 8)
+        case(edges.shape, [(0, 1)], x=edges, need_diff=True, levels=levels)
+        case(edges.shape, [(0, 1), (1, 0)], x=edges.copy(), mask=b1e_mask, need_diff=True, levels=levels)
     case((700, 2, 16, 16), [(0, 1)], need_diff=True, levels=HUGE_LEVELS)
     if cuda_glcm.launch_info((2, 2, 128, 128), HUGE_LEVELS, [(0, 1)], masked=False,
-                             need_diff=True)["table_in_smem"]:
+                             need_diff=True)["layout"] != "level bands, table in workspace":
         raise AssertionError("128x128 at 8192 levels: the pair table should not fit in shared memory")
     case((2, 2, 128, 128), [(0, 1), (3, -2)], need_diff=True, levels=HUGE_LEVELS)
 
@@ -487,14 +540,9 @@ def phase_kernel(device):
         info = cuda_glcm.launch_info(tuple(t.shape), levels, offsets, masked=m is not None,
                                      need_diff=need_diff)
         # the bound counts each input and output once; what form B1e moves to
-        # and from its own workspace is stated beside it
-        in_ws = not info.get("table_in_smem", True)
-        total = cuda_glcm.traffic_bytes(tuple(t.shape), levels, offsets, need_diff=need_diff,
-                                        mask_channels=0 if m is None else m.shape[1],
-                                        table_in_workspace=in_ws)
-        ws_bytes = (cuda_glcm.workspace_traffic_bytes(tuple(t.shape), levels, offsets, table_in_workspace=in_ws)
-                    if form == "B1e" else 0)
-        nbytes = total - ws_bytes
+        # and from a workspace is stated beside it
+        nbytes = cuda_glcm.traffic_bytes(tuple(t.shape), levels, offsets, need_diff=need_diff,
+                                         mask_channels=0 if m is None else m.shape[1])
         bound = cuda_glcm.bound_ms(nbytes)
         ms = min(k1, k2)
         log(f"    {nbytes} bytes, bound {bound!r} ms at 3.35 TB/s, share {bound / ms!r}; layout "
@@ -502,11 +550,16 @@ def phase_kernel(device):
             f"{info['smem_bytes']} B dynamic shared memory, {info['blocks_per_sm']} blocks per SM, "
             f"plane in shared memory {info['plane_in_smem']}")
         if form == "B1e":
-            log(f"    workspace: {info['grid_blocks']} persistent blocks, {info['workspace_bytes']} bytes "
-                f"allocated, pair table in shared memory {info['table_in_smem']}; its own traffic "
-                f"{ws_bytes} bytes, bound with it {cuda_glcm.bound_ms(total)!r} ms")
+            ws_bytes = cuda_glcm.workspace_traffic_bytes(
+                tuple(t.shape), levels, offsets, table_in_workspace=not info["table_in_smem"],
+                plane_in_workspace=not info["plane_in_smem"])
+            log(f"    {info['grid_blocks']} blocks, {info['parts']} per item, {info['band_levels']} levels "
+                f"a band; workspace {info['workspace_bytes']} bytes allocated, its own traffic {ws_bytes} "
+                f"bytes, bound with it {cuda_glcm.bound_ms(nbytes + ws_bytes)!r} ms")
+            if t.shape[2] * t.shape[3] <= 64 * 64 and info["workspace_bytes"]:
+                raise AssertionError(f"B1e at {tuple(t.shape)} allocates a workspace: {info}")
             info = {**info, "workspace_traffic_bytes": ws_bytes,
-                    "bound_with_workspace_ms": cuda_glcm.bound_ms(total)}
+                    "bound_with_workspace_ms": cuda_glcm.bound_ms(nbytes + ws_bytes)}
         if info["blocks_per_sm"] < min_blocks:
             raise AssertionError(f"{form} at {tuple(t.shape)}: {info['blocks_per_sm']} blocks per SM "
                                  f"< {min_blocks}")

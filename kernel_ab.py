@@ -8,8 +8,10 @@ OTHER is another checkout (its ``tpumcia_torch/csrc/glcm_stats.cu``) or a
 ``.cu`` file: an earlier source, whose C entry ``tpumcia_glcm_stats`` takes
 no ``table_bits`` argument (the layout before the pair table), or a variant
 of this one (told apart by its ``tpumcia_glcm_launch_info`` entry). The
-cases past 4096 levels (form B1e) go through ``tpumcia_glcm_stats_workspace``;
-a source without that entry is not timed there. Both
+cases past 4096 levels (form B1e) go through ``tpumcia_glcm_stats_workspace``,
+each side with the workspace its own ``tpumcia_glcm_workspace_info`` asks
+for (an earlier source's takes no offset count: read from its source text),
+both printed; a source without that entry is not timed there. Both
 sources are built with nvcc (the other one into ``build/kernel_ab/``), fed
 the same inputs and output buffers, and timed with CUDA events in the order
 other, this, this, other: the median of ``--reps`` launches after 3 warm-up
@@ -26,6 +28,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -33,9 +36,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 
-def _build_other(other: Path) -> tuple[ctypes.CDLL, bool]:
-    """The other source's library, bound through ``_build``'s signatures, and
-    whether its entry takes table_bits."""
+def _build_other(other: Path) -> tuple[ctypes.CDLL, bool, bool]:
+    """The other source's library, bound through ``_build``'s signatures;
+    whether its ``tpumcia_glcm_stats`` takes table_bits, and whether its
+    ``tpumcia_glcm_workspace_info`` takes an offset count."""
     from tpumcia_torch import _build
 
     src = other if other.suffix == ".cu" else other / "tpumcia_torch" / "csrc" / "glcm_stats.cu"
@@ -53,7 +57,27 @@ def _build_other(other: Path) -> tuple[ctypes.CDLL, bool]:
         # tpumcia_glcm_stats has no table_bits argument (the 14th)
         argtypes = _build._SIGNATURES["tpumcia_glcm_stats"][1]
         dll.tpumcia_glcm_stats.argtypes = argtypes[:13] + argtypes[14:]
-    return dll, takes_bits
+    decl = re.search(r"tpumcia_glcm_workspace_info\(([^)]*)\)", src.read_text())
+    takes_offsets = decl is not None and "num_offsets" in decl.group(1)
+    if decl is not None and not takes_offsets:
+        # before the level bands: (H, W, L, masked, table_bits, items, info)
+        argtypes = _build._SIGNATURES["tpumcia_glcm_workspace_info"][1]
+        dll.tpumcia_glcm_workspace_info.argtypes = argtypes[:5] + argtypes[6:]
+    return dll, takes_bits, takes_offsets
+
+
+def _workspace_bytes(lib, takes_offsets: bool, H, W, L, masked, bits, num_offsets, items) -> int:
+    """The workspace bytes ``lib``'s B1e planner asks for at this shape."""
+    from tpumcia_torch import _build
+
+    info = (ctypes.c_longlong * 10)()
+    args = [H, W, L, int(masked), bits, *([num_offsets] if takes_offsets else []), items, info]
+    _build.check(lib.tpumcia_glcm_workspace_info(*args), "workspace info")
+    return info[6]
+
+
+def _nbytes(t) -> int:
+    return 0 if t is None else t.numel()
 
 
 def main() -> int:
@@ -83,7 +107,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "?"
     print(card, flush=True)
     this = _build.load_library()
-    other, other_bits = _build_other(args.other.resolve())
+    other, other_bits, other_offsets = _build_other(args.other.resolve())
     results = []
     for c in timed_cases(device):
         x, L, offsets, need_diff = c["x"], c["levels"], c["offsets"], c["need_diff"]
@@ -105,19 +129,29 @@ def main() -> int:
         mask_args = [None if m is None else m.data_ptr(), 1 if m is None else m.shape[1]]
         out_this, out_other = outputs(), outputs()
         if c["form"] == "B1e":
-            # both kernels share one workspace: they run in turns
-            plan = cuda_glcm._workspace_info(H, W, L, m is not None, offsets, B * C)
-            ws = torch.empty(plan["workspace_bytes"], dtype=torch.uint8, device=device)
-            call = [x.data_ptr(), *mask_args, B, C, H, W, L, flat, O, bits, ws.data_ptr(), ws.numel()]
+            # each kernel with the workspace its own planner asks for
             other_runs = hasattr(other, "tpumcia_glcm_stats_workspace")
+            ws = {}
+            for side, lib, takes in (("this", this, True), ("other", other, other_offsets)):
+                if side == "this" or other_runs:
+                    n = _workspace_bytes(lib, takes, H, W, L, m is not None, bits, O, B * C)
+                    ws[side] = torch.empty(n, dtype=torch.uint8, device=device) if n else None
+            print(f"  {name}: workspace bytes this {_nbytes(ws['this'])}, "
+                  f"other {_nbytes(ws['other']) if other_runs else None}", flush=True)
+            head = [x.data_ptr(), *mask_args, B, C, H, W, L, flat, O, bits]
+
+            def ws_args(side):
+                t = ws[side]
+                return [None, 0] if t is None else [t.data_ptr(), t.numel()]
 
             def run_this():
                 _build.check(this.tpumcia_glcm_stats_workspace(
-                    *call, *[t.data_ptr() for t in out_this], stream), "this kernel")
+                    *head, *ws_args("this"), *[t.data_ptr() for t in out_this], stream), "this kernel")
 
             def run_other():
                 _build.check(other.tpumcia_glcm_stats_workspace(
-                    *call, *[t.data_ptr() for t in out_other], stream), "the other kernel")
+                    *head, *ws_args("other"), *[t.data_ptr() for t in out_other], stream),
+                    "the other kernel")
         else:
             lut = rescale_lut_device(L, device)
             head = [x.data_ptr(), *mask_args, lut.data_ptr(), B, C, H, W, L, flat, O, int(need_diff),
@@ -153,7 +187,10 @@ def main() -> int:
         t2 = _cuda_events_ms(run_this, args.reps, 3)
         o2 = _cuda_events_ms(run_other, args.reps, 3)
         print(f"  {name}: other {o1!r} / {o2!r} ms, this {t1!r} / {t2!r} ms (outputs equal)", flush=True)
-        results.append({"shape": name, "other_ms": [o1, o2], "this_ms": [t1, t2]})
+        rec = {"shape": name, "other_ms": [o1, o2], "this_ms": [t1, t2]}
+        if c["form"] == "B1e":
+            rec["workspace_bytes"] = {"this": _nbytes(ws["this"]), "other": _nbytes(ws["other"])}
+        results.append(rec)
         del out_this, out_other, x, m, c
         torch.cuda.empty_cache()
     line = json.dumps({"card": card, "other": str(args.other), "reps": args.reps,

@@ -439,12 +439,13 @@ def test_no_plain_version_on_the_card():
     np.testing.assert_allclose(card.values, cpu.values, rtol=0, atol=1e-5)
 
 
-def _b1e_case(dev, shape, levels, offsets, *, masked, fill=None, seed=30):
+def _b1e_case(dev, shape, levels, offsets, *, masked, fill=None, seed=30, x=None):
     """One B1e call against the plain version, bit-equal; returns the
-    statistics."""
+    statistics. ``x``: the levels, else random ones."""
     rng = np.random.default_rng(seed)
-    x = rng.integers(0, levels, size=shape, dtype=np.int32)
-    x[0, 0, :2, :2] = levels - 1
+    if x is None:
+        x = rng.integers(0, levels, size=shape, dtype=np.int32)
+        x[0, 0, :2, :2] = levels - 1
     for (b, c), v in (fill or {}).items():
         x[b, c] = v
     t = torch.from_numpy(x).to(dev)
@@ -465,7 +466,8 @@ def _b1e_case(dev, shape, levels, offsets, *, masked, fill=None, seed=30):
 @pytest.mark.parametrize("offsets", [[(0, 5)], [(0, 5), (4, 4), (5, 0), (4, -4)]])
 def test_b1e_matches_plain_past_4096_levels(levels, masked, offsets):
     """Form B1e on 8x1x64x64 random levels with a constant and an all-zero
-    channel; the edge mask has an empty and a one-pixel (image, channel)."""
+    channel (8 items: several blocks share each); the edge mask has an
+    empty and a one-pixel (image, channel)."""
     dev = require_cuda()
     got = _b1e_case(dev, (8, 1, 64, 64), levels, offsets, masked=masked,
                     fill={(2, 0): 0, (3, 0): levels - 1, (4, 0): levels // 3})
@@ -474,21 +476,47 @@ def test_b1e_matches_plain_past_4096_levels(levels, masked, offsets):
         assert float(got[0].pair_count[-1, -1]) == 0 and float(got[0].count[-1, -1]) == 1
 
 
-@pytest.mark.parametrize("shape,levels,masked", [
-    ((3, 2, 37, 53), 8192, True),     # the scalar load path, a level count that no power of two divides
-    ((3, 2, 37, 53), 5001, False),
-    ((600, 2, 16, 16), 8192, True),   # more items than resident blocks: every block loops
-    ((2, 2, 128, 128), 8192, False),  # the pair table (32,768 slots, 256 KB) in the workspace
-    ((1, 1, 300, 300), 4097, True),
+@pytest.mark.parametrize("shape,levels,masked,layout", [
+    ((3, 2, 37, 53), 8192, True, "level bands"),  # the scalar load path
+    ((3, 2, 37, 53), 5001, False, "level bands"),  # a level count that no power of two divides
+    ((600, 2, 16, 16), 8192, True, "level bands"),  # more items than resident blocks: every block loops
+    ((8, 1, 64, 64), 32768, False, "level bands"),  # fewer items: several blocks share each
+    ((2, 2, 128, 128), 8192, False, "level bands, table in workspace"),  # 32,768 slots, 256 KB
+    ((1, 1, 300, 300), 4097, True, "level bands, table and plane in workspace"),
 ])
-def test_b1e_shapes_and_layouts(shape, levels, masked):
+def test_b1e_shapes_and_layouts(shape, levels, masked, layout):
     dev = require_cuda()
     offsets = [(1, 2), (-2, 1)]
     info = cuda_glcm.launch_info(shape, levels, offsets, masked=masked, need_diff=True)
-    assert info["layout"] == "workspace" and info["grid_blocks"] <= shape[0] * shape[1], info
-    assert info["table_in_smem"] == (shape[2] * shape[3] < 128 * 128), info
-    assert info["workspace_bytes"] >= info["grid_blocks"] * 4 * (6 * levels - 1)
+    items = shape[0] * shape[1]
+    resident = info["blocks_per_sm"] * torch.cuda.get_device_properties(dev).multi_processor_count
+    assert info["layout"] == layout, info
+    assert info["workspace_bytes"] == info["grid_blocks"] * info["slice_bytes"], info
+    assert (info["workspace_bytes"] == 0) == (layout == "level bands"), info
+    # blocks share an item only where items leave blocks idle and need no workspace
+    assert (info["parts"] > 1) == (layout == "level bands" and items < resident), info
+    assert info["grid_blocks"] == min(items * info["parts"], resident), info
     _b1e_case(dev, shape, levels, offsets, masked=masked, seed=31)
+
+
+@pytest.mark.parametrize("levels", [5001, 8192, 20011, 32768])
+@pytest.mark.parametrize("masked", [False, True])
+def test_b1e_band_edges(levels, masked):
+    """Levels at the first and last entry of every level band (histogram,
+    both marginals, the difference histogram), 0 and L - 1, and the
+    differences +-(L - 1), on 8 items that several blocks share; 5001 and
+    20011 levels leave rows that no 16 bytes align."""
+    dev = require_cuda()
+    from chip_smoke import band_edge_planes
+
+    info = cuda_glcm.launch_info((8, 1, 64, 64), levels, [(0, 1)], masked=masked, need_diff=True)
+    assert info["layout"] == "level bands" and info["parts"] > 1, info
+    x = band_edge_planes(levels, info["band_levels"], 8, seed=32)
+    got = _b1e_case(dev, x.shape, levels, [(0, 1)], masked=masked, seed=32, x=x)
+    if not masked:
+        dh = got[0].diff_hist.cpu().numpy()
+        assert (dh[:, :, 0] > 0).all() and (dh[:, :, -1] > 0).all()  # -(L - 1) and L - 1
+        assert (got[0].hist.cpu().numpy()[:, :, [0, -1]] > 0).all()
 
 
 def test_batched_extraction_from_host_is_bounded_and_bit_equal():

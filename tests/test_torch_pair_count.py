@@ -8,8 +8,10 @@ counts, in the cheap and the generic encoding; so must the same model with
 the equal keys of each 32-lane warp added at once as f(old + n) - f(old)
 (the form a warp-grouped kernel takes), groups landing in any order. Also
 pinned here:
-the layout chooser (pair table, dense G or bands) and the byte count that
-gives each kernel form its bound. Nothing here needs JAX or a card.
+the layout chooser (pair table, dense G or bands), the byte count that
+gives each kernel form its bound, what form B1e moves to and from a
+workspace beside it, and the names of B1e's layouts. Nothing here needs JAX
+or a card.
 """
 
 import numpy as np
@@ -110,9 +112,40 @@ def test_layout_chooser(H, W, offsets, levels, want):
     ((8, 1, 64, 64), 4096, [(0, 5)], 0, True, 917_696),
     ((2, 1, 300, 300), 256, [(0, 1)], 0, True, 732_336),
     ((8, 2, 64, 64), 512, [(0, 5), (3, -2), (-4, 1)], 0, True, 721_792),
+    # B1e reads no rescale table: the 8192-level cytometry batches, 8 items
+    # at 32768 levels, and rows of 2L - 1 floats at 5001 and 20011 levels
+    ((1024, 12, 48, 48), 8192, [(0, 5)], 1, True, 2_129_166_336),
+    ((2048, 12, 48, 48), 8192, [(0, 5)], 1, True, 4_258_332_672),
+    ((8, 1, 64, 64), 32768, [(0, 5)], 0, True, 5_374_144),
+    ((3, 2, 37, 53), 5001, [(1, 2), (-2, 1)], 1, True, 1_133_403),
+    ((8, 1, 64, 64), 20011, [(0, 1), (1, 0)], 1, True, 5_927_328),
 ])
 def test_traffic_bytes(shape, levels, offsets, mask_channels, need_diff, want):
     got = cuda_glcm.traffic_bytes(shape, levels, offsets, mask_channels=mask_channels,
                                   need_diff=need_diff)
     assert got == want
     assert cuda_glcm.bound_ms(got) == pytest.approx(want / 3.35e9)
+
+
+@pytest.mark.parametrize("shape,levels,offsets,table,plane,want", [
+    ((2048, 12, 48, 48), 8192, [(0, 5)], False, False, 0),  # the main path: nothing outside
+    ((8, 1, 64, 64), 32768, [(0, 5)], False, False, 0),
+    # 128x128: 32,768 slots of 8 bytes zeroed per (image, channel) and offset
+    ((2, 2, 128, 128), 8192, [(0, 1), (3, -2)], True, False, 2_097_152),
+    # 300x300: 262,144 slots; the plane's 2 bytes a pixel written twice, read once
+    ((1, 1, 300, 300), 4097, [(1, 2), (-2, 1)], True, True, 4_734_304),
+])
+def test_workspace_traffic_bytes(shape, levels, offsets, table, plane, want):
+    got = cuda_glcm.workspace_traffic_bytes(shape, levels, offsets, table_in_workspace=table,
+                                            plane_in_workspace=plane)
+    assert got == want
+
+
+@pytest.mark.parametrize("table,plane,want", [
+    (True, True, "level bands"),
+    (False, True, "level bands, table in workspace"),
+    (True, False, "level bands, plane in workspace"),
+    (False, False, "level bands, table and plane in workspace"),
+])
+def test_b1e_layout_names(table, plane, want):
+    assert cuda_glcm.b1e_layout(table_in_smem=table, plane_in_smem=plane) == want

@@ -52,8 +52,8 @@ _SIGNATURES = {
         [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I, _I, _P, _Q,
          _P, _P, _P, _P, _P, _P, _P, _P, _P],
     ),
-    # H, W, L, masked, table_bits, items, info (8 host long longs)
-    "tpumcia_glcm_workspace_info": (_I, [_I, _I, _I, _I, _I, _Q, ctypes.POINTER(_Q)]),
+    # H, W, L, masked, table_bits, num_offsets, items, info (10 host long longs)
+    "tpumcia_glcm_workspace_info": (_I, [_I, _I, _I, _I, _I, _I, _Q, ctypes.POINTER(_Q)]),
     "tpumcia_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

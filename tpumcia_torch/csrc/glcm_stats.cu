@@ -111,26 +111,49 @@
 //
 // Past 4096 levels (form B1e: 4096 < L <= kMaxWorkspaceLevels = 32768, the
 // JAX package's own bound; the difference histogram always, generic limbs)
-// the 6L-1 int per-level tables alone outgrow a block's shared memory (196
-// KB at 8192 levels, 786 KB at 32768), so glcm_stats_workspace_kernel keeps
-// them in device memory: a workspace that the caller allocates, one slice
-// per block. One slice per (image, channel) would be 19 GB for a 2048x12
-// batch at 32768 levels, so the grid is persistent: a fixed number of blocks
-// (what fits on the card at once, at most kPersistentPerSM per SM) that loop
-// over the items, each reusing its slice. The tables are filled with global
-// atomics (they stay in L2 while a block works on its item); G is still the
-// u64 pair table sized to the pairs, in shared memory where its 8 bytes a
-// slot fit (64 KB at 48x48 and 64x64) and in the block's workspace slice
-// otherwise, with sum(G^2) from the returned counts as above; the plane of
-// rescaled levels stays in shared memory where it fits beside the table
-// (levels are below 2^15, under the u16 sentinels). The key i*L + j is below
-// 2^30. An L x L rescale table would be 256 MB at 8192 levels and 4 GB at
-// 32768, so this form takes none: each block computes its item's row
-// lut[clamp(vmax)] itself, in double and in the table's order of operations
-// (rescale_level below), so every entry equals the table's. What bounds it:
-// bytes, and here the outputs' (per item and offset 3L + 2L-1 floats: 4.0 GB
-// for 2048x12 items at 8192 levels against 0.23 GB of pixels), then the
-// workspace's own traffic (each table zeroed, filled and read back per item).
+// the 6L-1 int per-level tables outgrow a block's shared memory (196 KB at
+// 8192 levels, 786 KB at 32768), and an L x L rescale table would be 256 MB
+// at 8192 levels and 4 GB at 32768. glcm_stats_level_bands_kernel builds
+// the per-level tables in level bands, B1d's idea applied to them instead of
+// G. The block keeps its plane in shared memory as u16 (raw levels, then
+// rescaled in place once the histogram is out; both stay below 2^15, under
+// the sentinels). Each band of C levels (C = kBandWords = 16,384 up to
+// 64x64: the pair table's own 64 KB, which the bands reuse once G's walk is
+// done) is zeroed in shared memory, filled by one walk of the plane's
+// pixels (the histogram) or pairs (both marginals and the difference
+// histogram, laid end to end: 2 passes an offset at 8192 levels, ml + mr
+// then the difference histogram), and emitted. Every output word is written
+// once, and nothing per level passes through device memory but the outputs.
+// What bounds it: bytes, and the outputs' above all (per item and offset 3L
+// + 2L-1 floats: 4.0 GB for 2048x12 items at 8192 levels against 0.23 GB of
+// pixels; their bound is 1.271 ms, and this kernel takes 1.658 ms, 77 %,
+// where the workspace form before it took 6.309). So:
+//  - each counted pixel is rescaled on its own (rescale_level: in double
+//    and in the table's order of operations, m/top hoisted per item, so
+//    every level equals the table's), not a row of L entries per item;
+//  - a band is emitted with 16-byte streaming stores (__stcs: the kernel
+//    never reads its outputs back; plain stores took 2.7 % longer at
+//    2048x12x48x48), scalar at a row's unaligned head and
+//    tail: each table's part of a band sits at a word index congruent to
+//    its destination mod 16 bytes (rows of 2L-1 floats, and of any L % 4 !=
+//    0, start anywhere). A bulk asynchronous copy (cp.async.bulk) from a
+//    double-buffered band would overlap one band's store with the next
+//    band's walk, but it needs 16-byte aligned addresses and sizes on both
+//    sides, which these rows are not, and a second band would leave 2
+//    resident blocks per SM instead of 3; the 3 blocks overlap one block's
+//    walks with another's stores instead;
+//  - G is still the u64 pair table sized to the pairs, sum(G^2) from the
+//    returned counts, its key i*L + j below 2^30. Where the table or the
+//    plane cannot stay in shared memory (the table from 128x128 on, the
+//    plane past ~160 KB), it lives in a device workspace, one slice per
+//    block of a persistent grid (at most kPersistentPerSM blocks per SM)
+//    that loops over the items: the workspace holds exactly what does not
+//    fit, and nothing at 48x48 or 64x64;
+//  - an item's work is a list of jobs (its histogram passes, then per
+//    offset G's walk and the band passes). Where the items are fewer than
+//    the resident blocks (8 at 32768 levels) and no workspace is needed,
+//    several blocks share an item: each rebuilds the plane and takes every
+//    parts-th job.
 //
 // Exactness: every integer sum is accumulated in 64 bits and stored in the
 // dtype the JAX package returns (f32 fields hold integers < 2^24).
@@ -141,8 +164,9 @@
 // levels) and tpumcia_glcm_stats_workspace (form B1e) launch on the caller's
 // stream, allocate nothing, and return cudaGetLastError();
 // tpumcia_glcm_launch_info and tpumcia_glcm_workspace_info report the block
-// size, dynamic shared memory, resident blocks per SM and (B1e) the grid and
-// the workspace bytes a launch of that shape would use.
+// size, dynamic shared memory, resident blocks per SM and (B1e) the grid,
+// the blocks per item, the band's levels and the workspace bytes a launch
+// of that shape would use.
 
 #include <climits>
 #include <cstdint>
@@ -157,6 +181,8 @@ constexpr int kMaxLevels = 256;  // the small kernel's static tables
 constexpr int kMaxLargeLevels = 4096;
 constexpr int kMaxWorkspaceLevels = 32768;  // form B1e; the rescaled levels must stay below the sentinels
 constexpr int kPersistentPerSM = 4;  // form B1e: at most this many resident blocks per SM
+constexpr int kBandWords = 16384;    // form B1e: the least levels a band holds (64 KB)
+constexpr int kBandSlack = 16;       // form B1e: room to align a pass's three rows (band_pass)
 constexpr int kMaxPixels = 1 << 24;  // H*W bound: f32-exact counts
 constexpr int kMaxOffsets = 16;
 constexpr int kThreads = 256;      // table layouts: several blocks per SM
@@ -187,7 +213,7 @@ struct Outputs {
 struct Layout {
   int cheap;       // the cheap sum(G^2) encoding (small kernel only)
   int table_bits;  // log2 of the pair table's slots; 0: dense G (small) or bands (large)
-  int band_words;  // bands: the u32 cells of one band
+  int band_words;  // bands: the u32 cells of one band (B1e: of one level band, slack included)
   int plane;       // the block's levels live in shared memory
   int vec;         // 16-byte pixel loads (H*W % 4 == 0, aligned planes)
   int table_global;  // form B1e: the pair table lives in the workspace slice
@@ -242,30 +268,61 @@ __device__ __forceinline__ void item_planes(
 }
 
 // Entry v of the rescale row of a channel whose max raw level is m, 0 < m <=
-// top = L - 1: the reference's trunc(((v/top) / (m/top)) * top) clipped to
-// [0, top], in double and in the order tpumcia_torch.features.stats
-// .rescale_lut computes its table, so the entry equals the table's. Every
-// step is one correctly rounded IEEE operation (the intrinsics say so to the
-// reader; there is no add, so nothing could contract into an FMA).
-__device__ __forceinline__ int rescale_level(int v, int m, int top_level) {
-  const double top = static_cast<double>(top_level);
+// top = L - 1, given b = m / top: the reference's trunc(((v/top) / (m/top))
+// * top) clipped to [0, top], in double and in the order
+// tpumcia_torch.features.stats.rescale_lut computes its table, so the entry
+// equals the table's. Every step is one correctly rounded IEEE operation
+// (the intrinsics say so to the reader; there is no add, so nothing could
+// contract into an FMA).
+__device__ __forceinline__ int rescale_level(int v, double b, double top) {
   const double a = __ddiv_rn(static_cast<double>(v), top);
-  const double b = __ddiv_rn(static_cast<double>(m), top);
   const double s = __dmul_rn(__ddiv_rn(a, b), top);
   return static_cast<int>(fmin(fmax(s, 0.0), top));
 }
 
-// Pass 1 of every kernel: the raw histogram, pixel count and channel max
-// over the (masked) pixels; then the rescale row lut[clamp(vmax)] into s_row
-// and hist, count and vmax out. vmax takes -1 for every masked-out pixel, as
-// the JAX package's max(where(mask, x, -1)) does. A level outside [0, L)
-// breaks the caller's contract; it is dropped from the histogram (as a
-// one-hot drops it) and rescales to 0, so that no shared-memory index leaves
-// its table. With s_lv, the pass also leaves the block's rescaled levels
-// there (kMasked for a masked-out pixel). With kComputeRow (form B1e) there
-// is no table: the row is computed entry by entry (row 0 is all zeros), and
-// s_hist and s_row may lie in device memory.
-template <bool kMask, int kBlock, bool kComputeRow = false>
+// visit(p, v, in) for each pixel p of the block's plane: its raw level v and
+// whether it is masked in; 16-byte loads with vec (H*W % 4 == 0, aligned).
+template <bool kMask, int kBlock, typename Visit>
+__device__ __forceinline__ void for_each_pixel(const int* px, const unsigned char* mk, int HW,
+                                               bool vec, Visit visit) {
+  const int tid = threadIdx.x;
+  if (vec) {
+    for (int p4 = tid; p4 < (HW >> 2); p4 += kBlock) {
+      const int4 v = reinterpret_cast<const int4*>(px)[p4];
+      const unsigned m = kMask ? reinterpret_cast<const unsigned*>(mk)[p4] : 0xFFFFFFFFu;
+      visit(4 * p4, v.x, (m & 0xFFu) != 0);
+      visit(4 * p4 + 1, v.y, (m & 0xFF00u) != 0);
+      visit(4 * p4 + 2, v.z, (m & 0xFF0000u) != 0);
+      visit(4 * p4 + 3, v.w, (m & 0xFF000000u) != 0);
+    }
+  } else {
+    for (int p = tid; p < HW; p += kBlock) visit(p, px[p], !kMask || mk[p] != 0);
+  }
+}
+
+// The block's channel max and pixel count into s (followed by a block
+// barrier): vmax takes -1 for every masked-out pixel, as the JAX package's
+// max(where(mask, x, -1)) does.
+__device__ __forceinline__ void reduce_max_count(int local_max, int local_count, BlockScalars* s) {
+  for (int o = 16; o > 0; o >>= 1) {
+    local_max = max(local_max, __shfl_down_sync(0xffffffffu, local_max, o));
+  }
+  local_count = warp_sum(local_count);
+  if ((threadIdx.x & 31) == 0) {
+    atomicMax(&s->vmax, local_max);
+    atomicAdd(&s->count, local_count);
+  }
+  __syncthreads();
+}
+
+// Pass 1 of the kernels up to 4096 levels: the raw histogram, pixel count
+// and channel max over the (masked) pixels; then the rescale row
+// lut[clamp(vmax)] into s_row and hist, count and vmax out. A level outside
+// [0, L) breaks the caller's contract; it is dropped from the histogram (as
+// a one-hot drops it) and rescales to 0, so that no shared-memory index
+// leaves its table. With s_lv, the pass also leaves the block's rescaled
+// levels there (kMasked for a masked-out pixel).
+template <bool kMask, int kBlock>
 __device__ void histogram_pass(const int* px, const unsigned char* mk,
                                int HW, int L, const int* lut, long long item,
                                bool vec, int* s_hist, int* s_row,
@@ -280,7 +337,7 @@ __device__ void histogram_pass(const int* px, const unsigned char* mk,
   __syncthreads();
   int local_max = INT_MIN;
   int local_count = 0;
-  auto visit = [&](int p, int v, bool in) {
+  for_each_pixel<kMask, kBlock>(px, mk, HW, vec, [&](int p, int v, bool in) {
     const bool counted = in && static_cast<unsigned>(v) < static_cast<unsigned>(L);
     local_max = max(local_max, in ? v : -1);
     if (counted) {
@@ -290,35 +347,14 @@ __device__ void histogram_pass(const int* px, const unsigned char* mk,
     if (s_lv != nullptr) {
       s_lv[p] = !in ? kMasked : counted ? static_cast<unsigned short>(v) : kOutOfRange;
     }
-  };
-  if (vec) {
-    for (int p4 = tid; p4 < (HW >> 2); p4 += nt) {
-      const int4 v = reinterpret_cast<const int4*>(px)[p4];
-      const unsigned m = kMask ? reinterpret_cast<const unsigned*>(mk)[p4] : 0xFFFFFFFFu;
-      visit(4 * p4, v.x, (m & 0xFFu) != 0);
-      visit(4 * p4 + 1, v.y, (m & 0xFF00u) != 0);
-      visit(4 * p4 + 2, v.z, (m & 0xFF0000u) != 0);
-      visit(4 * p4 + 3, v.w, (m & 0xFF000000u) != 0);
-    }
-  } else {
-    for (int p = tid; p < HW; p += nt) visit(p, px[p], !kMask || mk[p] != 0);
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    local_max = max(local_max, __shfl_down_sync(0xffffffffu, local_max, o));
-  }
-  local_count = warp_sum(local_count);
-  if ((tid & 31) == 0) {
-    atomicMax(&s->vmax, local_max);
-    atomicAdd(&s->count, local_count);
-  }
-  __syncthreads();
+  });
+  reduce_max_count(local_max, local_count, s);
   const int vmax = s->vmax;
   const int m = min(max(vmax, 0), L - 1);
-  const int* row = kComputeRow ? nullptr : lut + static_cast<long long>(m) * L;
+  const int* row = lut + static_cast<long long>(m) * L;
   for (int k = tid; k < L; k += nt) {
-    s_row[k] = kComputeRow ? (m > 0 ? rescale_level(k, m, L - 1) : 0) : row[k];
-    // a table in device memory was filled by atomics, which work in L2: read it there
-    out.hist[item * L + k] = static_cast<float>(kComputeRow ? __ldcg(&s_hist[k]) : s_hist[k]);
+    s_row[k] = row[k];
+    out.hist[item * L + k] = static_cast<float>(s_hist[k]);
   }
   if (tid == 0) {
     // masked: the pixels the histogram holds (the JAX kernel's sum(hist));
@@ -755,94 +791,246 @@ __global__ void __launch_bounds__(kBlock) glcm_stats_large_kernel(
 }
 
 
-// Form B1e (see the header): past 4096 levels. A persistent grid: block b
-// reduces items b, b + gridDim.x, ... with its 6L-1 int tables (raw
-// histogram, rescale row, both marginals, the difference histogram) in its
-// slice of the workspace, slice_ints ints a block; the u64 pair table in
-// shared memory, or behind the tables in the slice (lay.table_global).
-template <bool kMask>
-__global__ void __launch_bounds__(kThreads) glcm_stats_workspace_kernel(
-    const int* __restrict__ img, const unsigned char* __restrict__ mask,
-    int mask_channels, int channels, int* __restrict__ workspace,
-    long long slice_ints, long long items, int H, int W, int L, Offsets offs,
-    Layout lay, Outputs out) {
-  // the pair table (unless it lives in the workspace), then the plane when it is kept
+// Form B1e's pair walks: op(i, j) for every admitted pair of the window.
+template <bool kMask, int kBlock, typename Op>
+__device__ __forceinline__ void for_each_pair(const PairSource& src, const Window& w, Op op) {
+  for (int q = threadIdx.x; q < w.n_pairs; q += kBlock) {
+    int i, j;
+    if (pair_levels<kMask>(src, w, q, &i, &j)) op(i, j);
+  }
+}
+
+// One pass of form B1e's level bands over kRows output rows laid end to end
+// (row t: len[t] floats at rows[t]); pass p takes the levels [p*capacity,
+// (p + 1)*capacity) of their concatenation. Row t's share, its levels
+// [lo[t], lo[t] + n[t]), is counted in band words start[t] + (level -
+// lo[t]) and emitted to dst[t] = rows[t] + lo[t]. start[t] is congruent to
+// dst[t]'s address mod 16 bytes, so both sides of the emission's body are
+// 16-byte aligned; that costs at most 15 words of the band's kBandSlack.
+template <int kRows>
+struct BandPass {
+  float* dst[kRows];
+  int lo[kRows], n[kRows], start[kRows];
+  int end;  // the band words the pass uses
+};
+
+template <int kRows>
+__device__ __forceinline__ BandPass<kRows> band_pass(float* const (&rows)[kRows],
+                                                     const int (&len)[kRows], int capacity, int p) {
+  BandPass<kRows> b;
+  const int v0 = p * capacity;
+  int base = 0, pos = 0;
+#pragma unroll
+  for (int t = 0; t < kRows; ++t) {
+    b.lo[t] = min(max(v0 - base, 0), len[t]);
+    b.n[t] = min(max(v0 + capacity - base, 0), len[t]) - b.lo[t];
+    b.dst[t] = rows[t] + b.lo[t];
+    const int phase = static_cast<int>((reinterpret_cast<uintptr_t>(b.dst[t]) >> 2) & 3);
+    b.start[t] = ((pos + 3) & ~3) + phase;
+    if (b.n[t] > 0) pos = b.start[t] + b.n[t];
+    base += len[t];
+  }
+  b.end = pos;
+  return b;
+}
+
+// Count one more of each row's key that falls in the pass.
+template <int kRows>
+__device__ __forceinline__ void band_count(int* band, const BandPass<kRows>& b,
+                                           const int (&key)[kRows]) {
+#pragma unroll
+  for (int t = 0; t < kRows; ++t) {
+    const int k = key[t] - b.lo[t];
+    if (static_cast<unsigned>(k) < static_cast<unsigned>(b.n[t])) atomicAdd(&band[b.start[t] + k], 1);
+  }
+}
+
+// n band counts from src to dst as f32, each word written once with a
+// streaming store: scalar up to dst's first 16-byte boundary and after its
+// last, 16 bytes a thread between (src is congruent to dst mod 16 bytes).
+template <int kBlock>
+__device__ __forceinline__ void emit_band(float* dst, const int* src, int n) {
+  const int tid = threadIdx.x;
+  const int phase = static_cast<int>((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+  const int head = min(n, (4 - phase) & 3);
+  const int body = (n - head) >> 2;
+  const int tail = head + 4 * body;
+  if (tid < head) __stcs(dst + tid, static_cast<float>(src[tid]));
+  const int4* s4 = reinterpret_cast<const int4*>(src + head);
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  for (int k = tid; k < body; k += kBlock) {
+    const int4 v = s4[k];
+    __stcs(d4 + k, make_float4(static_cast<float>(v.x), static_cast<float>(v.y),
+                               static_cast<float>(v.z), static_cast<float>(v.w)));
+  }
+  if (tid < n - tail) __stcs(dst + tail + tid, static_cast<float>(src[tail + tid]));
+}
+
+// The block's plane into lv as u16 raw levels (kMasked for a masked-out
+// pixel; kOutOfRange for a level outside [0, L), which breaks the caller's
+// contract: no histogram counts it, and it rescales to 0), and its channel
+// max and pixel count into s.
+template <bool kMask, int kBlock>
+__device__ void load_plane(const int* px, const unsigned char* mk, int HW, int L, bool vec,
+                           unsigned short* lv, BlockScalars* s) {
+  if (threadIdx.x == 0) {
+    s->vmax = INT_MIN;
+    s->count = 0;
+  }
+  __syncthreads();
+  int local_max = INT_MIN;
+  int local_count = 0;
+  for_each_pixel<kMask, kBlock>(px, mk, HW, vec, [&](int p, int v, bool in) {
+    const bool counted = in && static_cast<unsigned>(v) < static_cast<unsigned>(L);
+    local_max = max(local_max, in ? v : -1);
+    local_count += counted;
+    lv[p] = !in ? kMasked : counted ? static_cast<unsigned short>(v) : kOutOfRange;
+  });
+  reduce_max_count(local_max, local_count, s);
+}
+
+// The plane's raw levels rescaled in place: entry lut[clamp(vmax)][v] of the
+// reference's table, computed per pixel (row 0 is all zeros).
+template <int kBlock>
+__device__ void rescale_plane(unsigned short* lv, int HW, int L, int vmax) {
+  const int m = min(max(vmax, 0), L - 1);
+  const double top = static_cast<double>(L - 1);
+  const double b = __ddiv_rn(static_cast<double>(m), top);
+  for (int p = threadIdx.x; p < HW; p += kBlock) {
+    const unsigned short v = lv[p];
+    if (v != kMasked) {
+      lv[p] = v == kOutOfRange || m == 0 ? 0 : static_cast<unsigned short>(rescale_level(v, b, top));
+    }
+  }
+  __syncthreads();
+}
+
+// Form B1e (see the header): past 4096 levels. A unit is one (item, part),
+// item = unit / parts; block b takes units b, b + gridDim.x, ... Each part
+// takes the jobs part, part + parts, ... of its item: the histogram passes,
+// then per offset G's walk and the band passes. Dynamic shared memory: the
+// band (lay.band_words ints; the pair table too, unless that lives in the
+// workspace), then the plane unless that lives there. A block's workspace
+// slice holds the table, then the plane, where they live there. kShared:
+// both in shared memory (the compiler then knows every pointer's space;
+// generic pointers took 1 % longer at 2048x12x48x48, 7 % at 8x1x64x64 and
+// 32768 levels).
+template <bool kMask, bool kShared>
+__global__ void __launch_bounds__(kThreads, 3) glcm_stats_level_bands_kernel(
+    const int* __restrict__ img, const unsigned char* __restrict__ mask, int mask_channels,
+    int channels, unsigned char* __restrict__ workspace, long long slice_bytes, long long items,
+    int parts, int H, int W, int L, Offsets offs, Layout lay, Outputs out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int bits = lay.table_bits;
-  const long long tables_ints = (6LL * L - 1 + 3) & ~3LL;  // the table behind them stays 16-byte aligned
-  int* ws = workspace + blockIdx.x * slice_ints;
-  int* w_hist = ws;
-  int* w_row = w_hist + L;    // L: the rescale row of this item's vmax
-  int* w_ml = w_row + L;      // L
-  int* w_mr = w_ml + L;       // L
-  int* w_dh = w_mr + L;       // 2L-1: signed difference histogram
-  unsigned long long* table = lay.table_global
-      ? reinterpret_cast<unsigned long long*>(ws + tables_ints)
-      : reinterpret_cast<unsigned long long*>(smem);
-  unsigned short* s_lv = lay.plane
-      ? reinterpret_cast<unsigned short*>(smem + (lay.table_global ? 0LL : (8LL << bits)))
-      : nullptr;
+  unsigned char* ws = workspace + blockIdx.x * slice_bytes;
+  int* band = reinterpret_cast<int*>(smem);
+  unsigned long long* table =
+      reinterpret_cast<unsigned long long*>(kShared || !lay.table_global ? smem : ws);
+  unsigned short* lv = reinterpret_cast<unsigned short*>(
+      kShared || lay.plane ? smem + 4LL * lay.band_words
+                           : ws + (lay.table_global ? 8LL << bits : 0LL));
   __shared__ BlockScalars s;
   __shared__ long long s_red[kThreads / 32][4];
 
-  const int tid = threadIdx.x, nt = kThreads;
+  const int tid = threadIdx.x;
   const int HW = H * W;
   const int n_diff = 2 * L - 1;
-  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+  const int capacity = lay.band_words - kBandSlack;
+  const int hist_passes = (L + capacity - 1) / capacity;
+  const int per_offset = 1 + (4 * L - 1 + capacity - 1) / capacity;  // G's walk, then the bands
+  const int jobs = hist_passes + offs.n * per_offset;
+  const PairSource src{lv, nullptr, nullptr, nullptr, L, W};
+  for (long long unit = blockIdx.x; unit < items * parts; unit += gridDim.x) {
+    const long long item = unit / parts;
+    const int part = static_cast<int>(unit % parts);
     const int* px;
     const unsigned char* mk;
     item_planes<kMask>(img, mask, mask_channels, channels, item, HW, &px, &mk);
-    histogram_pass<kMask, kThreads, true>(px, mk, HW, L, nullptr, item, lay.vec, w_hist, w_row,
-                                          s_lv, &s, out);
-    const PairSource src{s_lv, px, mk, w_row, L, W};
-
-    for (int o = 0; o < offs.n; ++o) {
+    load_plane<kMask, kThreads>(px, mk, HW, L, lay.vec, lv, &s);
+    const int vmax = s.vmax;
+    if (part == 0 && tid == 0) {
+      // masked: the pixels the histogram holds; maskless: every pixel
+      out.count[item] = static_cast<float>(kMask ? s.count : HW);
+      out.vmax[item] = vmax;
+    }
+    bool rescaled = false;
+    for (int job = part; job < jobs; job += parts) {
+      if (job < hist_passes) {
+        // a band of the raw-level histogram (the sentinels lie past every band)
+        float* const rows[1] = {out.hist + item * L};
+        const int len[1] = {L};
+        const BandPass<1> b = band_pass(rows, len, capacity, job);
+        zero_words<kThreads>(reinterpret_cast<unsigned*>(band), b.end);
+        __syncthreads();
+        for (int p = tid; p < HW; p += kThreads) {
+          const int key[1] = {lv[p]};
+          band_count(band, b, key);
+        }
+        __syncthreads();
+        emit_band<kThreads>(b.dst[0], band + b.start[0], b.n[0]);
+        __syncthreads();  // the next job resets the band
+        continue;
+      }
+      if (!rescaled) {
+        rescale_plane<kThreads>(lv, HW, L, vmax);
+        rescaled = true;
+      }
+      const int o = (job - hist_passes) / per_offset;
+      const int pass = (job - hist_passes) % per_offset - 1;  // -1: G's walk
       const Window win(H, W, offs.dr[o], offs.dc[o]);
       const long long oi = o * items + item;  // row of this offset's outputs
-
-      zero_words<kThreads>(reinterpret_cast<unsigned*>(table), 2 << bits);
-      for (int k = tid; k < 4 * L - 1; k += nt) w_ml[k] = 0;  // both marginals and w_dh
-      if (tid == 0) s.pairs = 0;
-      __syncthreads();
-
-      long long acc[4] = {0, 0, 0, 0};
-      int local_pairs = walk_pairs<kMask, kThreads>(src, win, w_ml, w_mr, w_dh, [&](int i, int j) {
-        const unsigned k = static_cast<unsigned>(i * L + j);  // < 2^30
-        add_delta(table_add<unsigned long long, 32>(table, bits, k), false, acc);
-      });
-      local_pairs = warp_sum(local_pairs);
-      if ((tid & 31) == 0) atomicAdd(&s.pairs, local_pairs);
-      __syncthreads();
-      for (int k = tid; k < L; k += nt) {
-        // filled by atomics, which work in L2: read them there (__ldcg)
-        out.marg_l[oi * L + k] = static_cast<float>(__ldcg(&w_ml[k]));
-        out.marg_r[oi * L + k] = static_cast<float>(__ldcg(&w_mr[k]));
-      }
-      for (int k = tid; k < n_diff; k += nt) {
-        out.dout[oi * n_diff + k] = static_cast<float>(__ldcg(&w_dh[k]));
-      }
-      reduce_limbs(acc, s_red);
-      if (tid == 0) {
-        long long sq4[4];
-        sum_warps<kThreads>(s_red, sq4);
+      if (pass < 0) {
+        // sum(G^2) from the counts the pair table's atomics return; the pair count
+        zero_words<kThreads>(reinterpret_cast<unsigned*>(table), 2 << bits);
+        if (tid == 0) s.pairs = 0;
+        __syncthreads();
+        long long acc[4] = {0, 0, 0, 0};
+        int local_pairs = 0;
+        for_each_pair<kMask, kThreads>(src, win, [&](int i, int j) {
+          ++local_pairs;
+          const unsigned k = static_cast<unsigned>(i * L + j);  // < 2^30
+          add_delta(table_add<unsigned long long, 32>(table, bits, k), false, acc);
+        });
+        local_pairs = warp_sum(local_pairs);
+        if ((tid & 31) == 0) atomicAdd(&s.pairs, local_pairs);
+        reduce_limbs(acc, s_red);
+        if (tid == 0) {
+          long long sq4[4];
+          sum_warps<kThreads>(s_red, sq4);
 #pragma unroll
-        for (int m = 0; m < 4; ++m) out.sumsq[oi * 4 + m] = static_cast<int>(sq4[m]);
-        out.pairs[oi] = static_cast<float>(kMask ? s.pairs : win.n_pairs);
+          for (int m = 0; m < 4; ++m) out.sumsq[oi * 4 + m] = static_cast<int>(sq4[m]);
+          out.pairs[oi] = static_cast<float>(kMask ? s.pairs : win.n_pairs);
+        }
+      } else {
+        // a band of both marginals and the difference histogram, end to end
+        float* const rows[3] = {out.marg_l + oi * L, out.marg_r + oi * L, out.dout + oi * n_diff};
+        const int len[3] = {L, L, n_diff};
+        const BandPass<3> b = band_pass(rows, len, capacity, pass);
+        zero_words<kThreads>(reinterpret_cast<unsigned*>(band), b.end);
+        __syncthreads();
+        for_each_pair<kMask, kThreads>(src, win, [&](int i, int j) {
+          const int key[3] = {i, j, i - j + L - 1};
+          band_count(band, b, key);
+        });
+        __syncthreads();
+#pragma unroll
+        for (int t = 0; t < 3; ++t) emit_band<kThreads>(b.dst[t], band + b.start[t], b.n[t]);
       }
-      __syncthreads();  // the next offset, or the next item, resets these tables
+      __syncthreads();  // the next job resets the band, the table and s.pairs
     }
   }
 }
 
 using KernelFn = void (*)(const int*, const unsigned char*, int, int, const int*,
                           int, int, int, Offsets, Layout, Outputs);
-using WorkspaceKernelFn = void (*)(const int*, const unsigned char*, int, int, int*, long long,
-                                   long long, int, int, int, Offsets, Layout, Outputs);
+using BandsKernelFn = void (*)(const int*, const unsigned char*, int, int, unsigned char*,
+                               long long, long long, int, int, int, int, Offsets, Layout, Outputs);
 
-// The ten instances: small <mask, need_diff>, then large <mask> with the
-// table's block size and with the bands', then the workspace form <mask>.
-constexpr int kInstances = 10;
-constexpr int kWorkspaceInstance = 8;
+// The twelve instances: small <mask, need_diff>, then large <mask> with the
+// table's block size and with the bands', then the level bands <mask,
+// shared> of form B1e.
+constexpr int kInstances = 12;
+constexpr int kBandsInstance = 8;
 
 KernelFn kernel_at(int index) {
   switch (index) {
@@ -857,14 +1045,19 @@ KernelFn kernel_at(int index) {
   }
 }
 
-WorkspaceKernelFn workspace_kernel_at(bool masked) {
-  return masked ? glcm_stats_workspace_kernel<true> : glcm_stats_workspace_kernel<false>;
+// index kBandsInstance + 2 * masked + shared
+BandsKernelFn bands_kernel_at(int index) {
+  switch (index - kBandsInstance) {
+    case 0: return glcm_stats_level_bands_kernel<false, false>;
+    case 1: return glcm_stats_level_bands_kernel<false, true>;
+    case 2: return glcm_stats_level_bands_kernel<true, false>;
+    default: return glcm_stats_level_bands_kernel<true, true>;
+  }
 }
 
 const void* instance_at(int index) {
-  return index < kWorkspaceInstance
-      ? reinterpret_cast<const void*>(kernel_at(index))
-      : reinterpret_cast<const void*>(workspace_kernel_at(index > kWorkspaceInstance));
+  return index < kBandsInstance ? reinterpret_cast<const void*>(kernel_at(index))
+                                : reinterpret_cast<const void*>(bands_kernel_at(index));
 }
 
 // Per instance, once: the dynamic shared memory a block of it may ask for
@@ -954,30 +1147,41 @@ cudaError_t plan(bool large, bool masked, bool need_diff, int HW, int L,
 
 bool is_large(long long hw, int L) { return hw >= 65536 || L > kMaxLevels; }
 
-struct WorkspacePlan {
-  WorkspaceKernelFn kernel;
+struct BandsPlan {
+  BandsKernelFn kernel;
   int smem;
   Layout lay;
-  int blocks_per_sm;     // resident blocks per SM the grid counts on
-  int grid;              // blocks: every one resident at once
-  long long slice_ints;  // workspace ints per block
+  int blocks_per_sm;      // resident blocks per SM the grid counts on
+  int parts;              // blocks that share one (image, channel)
+  int grid;               // blocks: every one resident at once
+  long long slice_bytes;  // workspace bytes per block
 };
 
-// The layout of a B1e launch over `items` (image, channel)s: the pair table
-// in shared memory where it fits, else in the workspace slice; the plane in
-// shared memory where it fits beside it; the persistent grid.
-cudaError_t plan_workspace(bool masked, int HW, int L, int table_bits, long long items,
-                           WorkspacePlan* p) {
-  const KernelLimits& lim = limits(kWorkspaceInstance + masked);
+// The layout of a B1e launch over `items` (image, channel)s and num_offsets
+// offsets: the band of at least kBandWords levels in shared memory, sized
+// to hold the pair table where that fits; the table in the workspace slice
+// where it does not; the plane in shared memory where it fits beside the
+// band, else in the slice; the persistent grid, and the parts an item is
+// split into where the items are fewer than the resident blocks and no
+// slice is needed (at most one part per job).
+cudaError_t plan_bands(bool masked, int HW, int L, int table_bits, int num_offsets, long long items,
+                       BandsPlan* p) {
+  const KernelLimits& lim = limits(kBandsInstance + 2 * masked);
   if (lim.err != cudaSuccess) return lim.err;
-  const long long table = 8LL << table_bits, plane = 2LL * HW;
-  p->kernel = workspace_kernel_at(masked);
-  p->lay = Layout{0, table_bits, 0, 0, 0, table > lim.smem_max};
-  long long smem = p->lay.table_global ? 0 : table;
-  p->lay.plane = smem + plane <= lim.smem_max;
-  if (p->lay.plane) smem += plane;
-  p->smem = static_cast<int>(smem);
-  p->slice_ints = ((6LL * L - 1 + 3) & ~3LL) + (p->lay.table_global ? 2LL << table_bits : 0);
+  const long long table = 8LL << table_bits, plane = (2LL * HW + 15) & ~15LL;
+  const long long least = 4LL * (kBandWords + kBandSlack);
+  p->lay = Layout{0, table_bits, 0, 0, 0, 0};
+  p->lay.table_global = table + 4LL * kBandSlack > lim.smem_max;
+  const long long band = p->lay.table_global || table + 4LL * kBandSlack < least
+      ? least : table + 4LL * kBandSlack;
+  p->lay.band_words = static_cast<int>(band / 4);
+  p->lay.plane = band + plane <= lim.smem_max;
+  p->smem = static_cast<int>(band + (p->lay.plane ? plane : 0));
+  p->slice_bytes = (p->lay.table_global ? table : 0) + (p->lay.plane ? 0 : plane);
+  const int index = kBandsInstance + 2 * masked + (p->slice_bytes == 0);
+  p->kernel = bands_kernel_at(index);
+  const KernelLimits& run = limits(index);  // raises the instance's own cap
+  if (run.err != cudaSuccess) return run.err;
   int dev = 0, sms = 0, blocks = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -989,7 +1193,15 @@ cudaError_t plan_workspace(bool masked, int HW, int L, int table_bits, long long
   if (blocks < 1) return cudaErrorInvalidValue;
   p->blocks_per_sm = blocks < kPersistentPerSM ? blocks : kPersistentPerSM;
   const long long resident = static_cast<long long>(p->blocks_per_sm) * sms;
-  p->grid = static_cast<int>(items < resident ? (items > 0 ? items : 1) : resident);
+  const int capacity = p->lay.band_words - kBandSlack;
+  const long long jobs = (L + capacity - 1) / capacity +
+                         num_offsets * (1LL + (4LL * L - 1 + capacity - 1) / capacity);
+  p->parts = 1;
+  if (p->slice_bytes == 0 && items > 0 && items < resident) {
+    p->parts = static_cast<int>(resident / items < jobs ? resident / items : jobs);
+  }
+  const long long units = items * p->parts;
+  p->grid = static_cast<int>(units < resident ? (units > 0 ? units : 1) : resident);
   return cudaSuccess;
 }
 
@@ -1076,9 +1288,11 @@ extern "C" int tpumcia_glcm_launch_info(int H, int W, int L, int masked, int nee
 // Form B1e: 4096 < L <= 32768, always the difference histogram in dout and
 // the generic limbs; no rescale table. workspace: workspace_bytes of device
 // memory, 16-byte aligned, at least what tpumcia_glcm_workspace_info reports
-// for this shape and item count; its contents before and after are
-// meaningless. table_bits: log2 of the pair table's slots, at least 2x the
-// largest offset's pair window. The other arguments as tpumcia_glcm_stats.
+// for this shape, offset count and item count (nullptr where that is 0: the
+// pair table and the plane fit in shared memory); its contents before and
+// after are meaningless. table_bits: log2 of the pair table's slots, at
+// least 2x the largest offset's pair window. The other arguments as
+// tpumcia_glcm_stats.
 extern "C" int tpumcia_glcm_stats_workspace(
     const int* img, const unsigned char* mask, int mask_channels, int batch,
     int channels, int H, int W, int L, const int* offsets, int num_offsets,
@@ -1101,11 +1315,12 @@ extern "C" int tpumcia_glcm_stats_workspace(
     const long long n_pairs = static_cast<long long>(H - abs(offs.dr[o])) * (W - abs(offs.dc[o]));
     if ((1LL << table_bits) < 2 * n_pairs) return cudaErrorInvalidValue;
   }
-  WorkspacePlan p;
-  cudaError_t err = plan_workspace(mask != nullptr, static_cast<int>(hw), L, table_bits, items, &p);
+  BandsPlan p;
+  cudaError_t err = plan_bands(mask != nullptr, static_cast<int>(hw), L, table_bits, num_offsets,
+                               items, &p);
   if (err != cudaSuccess) return err;
-  if (workspace == nullptr || reinterpret_cast<uintptr_t>(workspace) % 16 != 0 ||
-      workspace_bytes < 4LL * p.slice_ints * p.grid) {
+  if (p.slice_bytes > 0 && (workspace == nullptr || reinterpret_cast<uintptr_t>(workspace) % 16 != 0 ||
+                            workspace_bytes < p.slice_bytes * p.grid)) {
     return cudaErrorInvalidValue;
   }
   p.lay.vec = hw % 4 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0 &&
@@ -1113,22 +1328,28 @@ extern "C" int tpumcia_glcm_stats_workspace(
   if (items == 0) return cudaSuccess;
   const Outputs out{hist, count, vmax, marg_l, marg_r, dout, sumsq, pairs};
   p.kernel<<<p.grid, kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
-      img, mask, mask == nullptr ? 1 : mask_channels, channels, static_cast<int*>(workspace),
-      p.slice_ints, items, H, W, L, offs, p.lay, out);
+      img, mask, mask == nullptr ? 1 : mask_channels, channels,
+      p.slice_bytes > 0 ? static_cast<unsigned char*>(workspace) : nullptr, p.slice_bytes, items,
+      p.parts, H, W, L, offs, p.lay, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// info[0..7] <- threads per block, dynamic shared memory bytes, resident
+// info[0..9] <- threads per block, dynamic shared memory bytes, resident
 // blocks per SM the grid counts on, whether the plane is kept in shared
 // memory, whether the pair table is, the grid's blocks, the workspace bytes
-// the launch needs, and the bytes of one block's slice, for a B1e launch of
-// that shape over `items` (image, channel)s.
+// the launch needs, the bytes of one block's slice, the blocks that share
+// one item, and the levels one band pass holds, for a B1e launch of that
+// shape over num_offsets offsets and `items` (image, channel)s.
 extern "C" int tpumcia_glcm_workspace_info(int H, int W, int L, int masked, int table_bits,
-                                           long long items, long long* info) {
+                                           int num_offsets, long long items, long long* info) {
   const long long hw = static_cast<long long>(H) * W;
-  if (!workspace_shape_ok(hw, H, W, L, table_bits) || items < 0) return cudaErrorInvalidValue;
-  WorkspacePlan p;
-  const cudaError_t err = plan_workspace(masked != 0, static_cast<int>(hw), L, table_bits, items, &p);
+  if (!workspace_shape_ok(hw, H, W, L, table_bits) || items < 0 || num_offsets < 1 ||
+      num_offsets > kMaxOffsets) {
+    return cudaErrorInvalidValue;
+  }
+  BandsPlan p;
+  const cudaError_t err = plan_bands(masked != 0, static_cast<int>(hw), L, table_bits, num_offsets,
+                                     items, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = kThreads;
   info[1] = p.smem;
@@ -1136,8 +1357,10 @@ extern "C" int tpumcia_glcm_workspace_info(int H, int W, int L, int masked, int 
   info[3] = p.lay.plane;
   info[4] = !p.lay.table_global;
   info[5] = p.grid;
-  info[6] = 4LL * p.slice_ints * p.grid;
-  info[7] = 4LL * p.slice_ints;
+  info[6] = p.slice_bytes * p.grid;
+  info[7] = p.slice_bytes;
+  info[8] = p.parts;
+  info[9] = p.lay.band_words - kBandSlack;
   return 0;
 }
 

@@ -15,15 +15,21 @@ extraction runs, each counted on its own in :data:`LAUNCHES_BY_FORM`:
   4096), whatever the mask or offset count; always with the difference
   histogram;
 - ``B1e``: either of them at more than 4096 levels, up to tpumcia's own bound
-  of 32768: the per-level tables no longer fit in a block's shared memory,
-  so they live in a device-memory workspace that this wrapper allocates, one
-  slice per block of a persistent grid that loops over the (image,
-  channel)s; the pair table stays in shared memory where it fits; no L x L
-  rescale table exists at these sizes (256 MB at 8192 levels, 4 GB at 32768),
-  each block computes its row from its own ``vmax``. Always with the
-  difference histogram.
+  of 32768: the per-level tables no longer fit in a block's shared memory
+  whole, so the block builds them in level bands there (16,384 levels a
+  band up to 64x64, in the pair table's shared memory once G's walk is
+  done), each band filled by a walk of the block's plane and written out
+  once with 16-byte streaming stores; no L x L rescale table exists at these
+  sizes (256 MB at 8192 levels, 4 GB at 32768): each counted pixel is
+  rescaled on its own. Only what cannot stay in shared memory (the pair
+  table from 128x128 on, very large planes) lives in a device-memory
+  workspace that this wrapper allocates, one slice per block of a
+  persistent grid; at 48x48 and 64x64 there is none. Where the (image,
+  channel)s are fewer than the resident blocks, several blocks share one.
+  Always with the difference histogram.
 
-One thread block reduces one (image, channel): shared-memory atomic
+One thread block reduces one (image, channel) (form B1e: one or, for few
+items, several, each taking a share of its bands): shared-memory atomic
 histograms for the raw levels, the two marginals and the difference
 histogram, and the exact ``sum(G^2)`` limbs of the co-occurrence matrix G;
 several offsets reuse the one histogram pass. Every form is bound by the
@@ -79,8 +85,8 @@ LAUNCHES = 0
 LAUNCHES_BY_FORM = {"B1a": 0, "B1b": 0, "B1c": 0, "B2": 0, "B1d": 0, "B1e": 0}
 
 # the kernels' bounds. B1d: its 7L-1 int tables and one band row of L u32
-# cells must fit in the 227 KB of shared memory a block may hold; B1e keeps
-# the tables in device memory up to tpumcia's own level bound (the packed
+# cells must fit in the 227 KB of shared memory a block may hold; B1e builds
+# the tables in level bands up to tpumcia's own level bound (the packed
 # wire's, hybrid._quad_shift); every count must stay exact in f32
 MAX_SHARED_LEVELS = MAX_TABLE_LEVELS  # 4096: B1d below or at it, B1e above
 MAX_KERNEL_LEVELS = 32768
@@ -173,40 +179,40 @@ def table_bits(slots: int) -> int:
 
 
 def traffic_bytes(shape, levels: int, offsets, *, mask_channels: int = 0,
-                  need_diff: bool = False, table_in_workspace: bool = False) -> int:
+                  need_diff: bool = False) -> int:
     """The bytes one launch must move: each input read once (the int32
     levels, the (B, mask_channels, H, W) uint8 mask, and the rows of the
     L x L int32 rescale table it needs: one per (image, channel), at most
     L; form B1e reads no table) and each output written once (hist, count,
     vmax, and per offset both marginals, the difference histogram or dstats,
-    the limbs and the pair count); for form B1e also its workspace's own
-    traffic (:func:`workspace_traffic_bytes`; ``table_in_workspace`` as
-    :func:`launch_info` reports it). The kernel's bound is this over
-    the card's memory rate: no form does arithmetic worth counting."""
+    the limbs and the pair count). The kernel's bound is this over the
+    card's memory rate: no form does arithmetic worth counting. What form
+    B1e moves to and from a workspace is not in it
+    (:func:`workspace_traffic_bytes`)."""
     B, C, H, W = shape
     L, O, n = levels, len(offsets), B * C
-    workspace = L > MAX_SHARED_LEVELS
-    read = 4 * n * H * W + B * mask_channels * H * W + (0 if workspace else 4 * L * min(n, L))
+    table_rows = 0 if L > MAX_SHARED_LEVELS else 4 * L * min(n, L)
+    read = 4 * n * H * W + B * mask_channels * H * W + table_rows
     once = 4 * n * L + 4 * n + 4 * n  # hist, count, vmax
     per_offset = 4 * n * (2 * L + (2 * L - 1 if need_diff else 4) + 4 + 1)
-    moved = read + once + O * per_offset
-    if workspace:
-        moved += workspace_traffic_bytes(shape, L, offsets, table_in_workspace=table_in_workspace)
-    return moved
+    return read + once + O * per_offset
 
 
-def workspace_traffic_bytes(shape, levels: int, offsets, *, table_in_workspace: bool = False) -> int:
-    """What form B1e moves to and from its own workspace, beside its inputs
-    and outputs: per (image, channel) the histogram and the rescale row are
-    written once and read once, and per offset both marginals and the
-    difference histogram are zeroed and read back once (the atomics that
-    fill them between stay in L2 and are not counted); where the pair table
-    lives in the workspace too, its 8 bytes a slot are zeroed once per
-    offset."""
+def workspace_traffic_bytes(shape, levels: int, offsets, *, table_in_workspace: bool = False,
+                            plane_in_workspace: bool = False) -> int:
+    """What form B1e moves to and from its workspace, beside its inputs and
+    outputs (``table_in_workspace`` and ``plane_in_workspace`` as
+    :func:`launch_info` reports them; 0 where both stay in shared memory, as
+    at 48x48 and 64x64): per (image, channel) and offset, the pair table's
+    8 bytes a slot zeroed once (the atomics that fill it stay in L2 and are
+    not counted); per (image, channel), the plane's 2 bytes a pixel written
+    raw, rewritten rescaled and read once (the walks' further reads are not
+    counted)."""
     B, C, H, W = shape
-    L, O, n = levels, len(offsets), B * C
-    table = 8 * pair_table_slots(H, W, offsets, L) if table_in_workspace else 0
-    return n * (2 * 4 * 2 * L + O * (2 * 4 * (4 * L - 1) + table))
+    n, O = B * C, len(offsets)
+    table = 8 * pair_table_slots(H, W, offsets, levels) * O if table_in_workspace else 0
+    plane = 3 * 2 * H * W if plane_in_workspace else 0
+    return n * (table + plane)
 
 
 def bound_ms(nbytes: int) -> float:
@@ -214,20 +220,32 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def b1e_layout(*, table_in_smem: bool, plane_in_smem: bool) -> str:
+    """The name of a B1e launch's layout: its level bands in shared memory,
+    and what lives in the workspace beside them."""
+    outside = [name for name, inside in (("table", table_in_smem), ("plane", plane_in_smem))
+               if not inside]
+    return "level bands" + (f", {' and '.join(outside)} in workspace" if outside else "")
+
+
 def launch_info(shape, levels: int, offsets, *, masked: bool, need_diff: bool) -> dict:
     """What a kernel launch on a CUDA tensor of ``shape`` would use, as the
     kernel plans it: its layout (``"table"`` with its slots, ``"dense"`` or
-    ``"bands"``), the block size, the dynamic shared memory per block, the
-    resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
-    and whether the block keeps its plane in shared memory; for form B1e
-    also whether the pair table is in shared memory, the persistent grid's
-    blocks and the workspace's bytes. Needs the card."""
+    ``"bands"``; form B1e :func:`b1e_layout`), the block size, the dynamic
+    shared memory per block, the resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and whether the
+    block keeps its plane in shared memory; for form B1e also whether the
+    pair table is in shared memory, the persistent grid's blocks, the blocks
+    that share one (image, channel), the levels of one band pass and the
+    workspace's bytes. Needs the card."""
     from tpumcia_torch import _build
 
     B, C, H, W = shape
     if levels > MAX_SHARED_LEVELS:
-        return {"layout": "workspace", "table_slots": pair_table_slots(H, W, offsets, levels),
-                **_workspace_info(H, W, levels, masked, offsets, B * C)}
+        info = _workspace_info(H, W, levels, masked, offsets, B * C)
+        return {"layout": b1e_layout(table_in_smem=info["table_in_smem"],
+                                     plane_in_smem=info["plane_in_smem"]),
+                "table_slots": pair_table_slots(H, W, offsets, levels), **info}
     info = (ctypes.c_int * 5)()
     _build.check(
         _build.load_library().tpumcia_glcm_launch_info(
@@ -245,16 +263,17 @@ def _workspace_info(H: int, W: int, levels: int, masked: bool, offsets, items: i
     """How the kernel plans a B1e launch over ``items`` (image, channel)s."""
     from tpumcia_torch import _build
 
-    info = (ctypes.c_longlong * 8)()
+    info = (ctypes.c_longlong * 10)()
     _build.check(
         _build.load_library().tpumcia_glcm_workspace_info(
             H, W, levels, int(masked), table_bits(pair_table_slots(H, W, offsets, levels)),
-            items, info),
+            len(offsets), items, info),
         "glcm_stats workspace info",
     )
     return {"threads": info[0], "smem_bytes": info[1], "blocks_per_sm": info[2],
             "plane_in_smem": bool(info[3]), "table_in_smem": bool(info[4]),
-            "grid_blocks": info[5], "workspace_bytes": info[6], "slice_bytes": info[7]}
+            "grid_blocks": info[5], "workspace_bytes": info[6], "slice_bytes": info[7],
+            "parts": info[8], "band_levels": info[9]}
 
 
 def sufficient_stats(
@@ -367,15 +386,14 @@ def _launch(img, mask, levels, offsets, need_diff) -> tuple[SuffStats, ...]:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if L > MAX_SHARED_LEVELS:
-            # form B1e: the per-level tables of each resident block (and the
-            # pair table where shared memory cannot hold it) live in this
-            # workspace, which the caching allocator hands back from launch
-            # to launch
-            plan = _workspace_info(H, W, L, mask is not None, offsets, B * C)
-            workspace = torch.empty(max(plan["workspace_bytes"], 16), dtype=torch.uint8, device=dev)
+            # form B1e: what shared memory cannot hold (the pair table from
+            # 128x128 on, very large planes) lives in this workspace, one
+            # slice per resident block; none at 48x48 and 64x64
+            ws_bytes = _workspace_info(H, W, L, mask is not None, offsets, B * C)["workspace_bytes"]
+            workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=dev) if ws_bytes else None
             code = lib.tpumcia_glcm_stats_workspace(
                 img.data_ptr(), mask_ptr, mask_channels, B, C, H, W, L, flat_offsets, O, bits,
-                workspace.data_ptr(), workspace.numel(), *outputs, stream,
+                None if workspace is None else workspace.data_ptr(), ws_bytes, *outputs, stream,
             )
         else:
             code = lib.tpumcia_glcm_stats(
