@@ -97,7 +97,19 @@ Phases (any failure exits nonzero, and no result line is printed):
  14. the ``eval`` CLI in process (``tpumcia_torch.eval.main``, the synthetic
      source, 200 images a class): returns 0, both metrics events, channel 0
      first, the kernel launched;
- 15. prints the kernels' JSON line and, last, the device JSON line.
+ 15. mesh (ROADMAP A14's feature half): (a) ``run_pipeline`` on phase 5's
+     objects with ``mesh.data=2`` over two slots on the card in one process
+     (2 B1b launches a run; then 4 offsets, 2 B2, and 'exact' on 4,096 of
+     them, 2 B1c), the
+     sharded statistics bit-equal to one unsharded call, features against
+     the CPU's sharded run, donors, accuracy, the signal channel, objects/s
+     beside the one-slot classic run's; (b) two processes on the card over
+     gloo and (c) one NCCL rank with two slots (NCCL takes one rank per
+     card), each running ``python -m tpumcia_torch.parallel.dryrun`` on
+     4,096 objects, started together, and held against the same calls made
+     here on one slot (statistics, scaler, both sweeps, ``run_pipeline``,
+     both stream directories), each rank's own B1b launch, within 180 s;
+ 16. prints the kernels' JSON line and, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -134,6 +146,11 @@ CNN_BATCHES = (64, 128, 256, 512, 1024)  # phase 13's batch-size sweep
 STREAM_N, STREAM_SHARD = 131_072, 2048  # phase 12: 64 shards
 STREAM_PEAK_BYTES = 4e9  # the most the peak device memory may rise over a streaming run
 STREAM_MASKLESS_N = 32_768  # 16 maskless shards
+MESH_RANK_N = 4096  # phase 15 (b), (c): each dryrun rank's objects
+MESH_EXACT_N = 4096  # phase 15 (a): the 'exact' run's objects
+MESH_RANK_TIMEOUT_S = 180  # a rank that runs longer fails the phase
+# phase 15's process runs: name, ranks, backend, slots a rank (NCCL takes one rank per card)
+MESH_RUNS = (("gloo_2_ranks", 2, "gloo", 1), ("nccl_1_rank", 1, "nccl", 2))
 PACK_N = 2048  # phase 11: variable-size crops through the native packer
 # feature columns that read an f32 wire word (sums in another order on the card and on the CPU)
 FLOAT_DERIVED = ("std_intensity", "kurtosis_intensity", "skew_intensity", "shannon_entropy", "homogeneity")
@@ -1762,6 +1779,190 @@ def phase_eval(device):
                       "launches": launches}
 
 
+def _mesh_run(device, x, mask, labels, donors, timed_runs, form, per_run, cfg, pool):
+    """``run_pipeline`` over ``pool`` (``cfg.mesh``) after a warm-up run,
+    ``timed_runs`` times; raises unless ``form`` alone launched ``per_run``
+    times a run, the donors are disjoint, the accuracy is >= 0.95 and the
+    signal channel is first. Returns (launches, seconds per run, result)."""
+    import numpy as np
+
+    import tpumcia_torch as tt
+
+    def run():
+        out = tt.run_pipeline(x, labels, mask=mask, groups=donors, config=cfg, device=pool)
+        _sync(device)
+        return out
+
+    launches, times, result = _timed_runs(run, timed_runs, form, per_run)
+    train_donors = {str(d) for d in donors[result.train_idx]}
+    test_donors = {str(d) for d in donors[result.test_idx]}
+    if train_donors & test_donors or not test_donors:
+        raise AssertionError(f"donor split leaks: train {train_donors}, test {test_donors}")
+    total = np.asarray(result.channel_result.total)
+    if int(np.argmax(total)) != CYTO_SIGNAL or not total[CYTO_SIGNAL] > 0:
+        raise AssertionError(f"signal channel {CYTO_SIGNAL} not first: {total.tolist()}")
+    if result.test_accuracy < 0.95:
+        raise AssertionError(f"test accuracy {result.test_accuracy} < 0.95")
+    return launches, times, result
+
+
+def _dryrun_ranks(tmp, device, world, backend, slots, n):
+    """``world`` ranks of ``python -m tpumcia_torch.parallel.dryrun`` on the
+    card, started together over a file store in ``tmp``; returns
+    (processes, the rank-0 record's path, the start time). Each process is
+    waited for by :func:`_wait_ranks`."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    out = Path(tmp) / "rank0.json"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tpumcia_torch.parallel.dryrun", "--world", str(world), "--rank", str(r),
+         "--store", str(Path(tmp) / "store"), "--backend", backend, "--device", device.type,
+         "--slots", str(slots), "--objects", str(n), "--out", str(out)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    ) for r in range(world)]
+    return procs, out, time.perf_counter()
+
+
+def _wait_ranks(procs, out, t0, what):
+    """Wait for every rank within MESH_RANK_TIMEOUT_S of ``t0``, kill every
+    rank left, raise unless each exited 0; returns (rank 0's record, exit
+    codes, seconds)."""
+    codes = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                text, _ = p.communicate(timeout=max(1.0, MESH_RANK_TIMEOUT_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{what}: rank {r} did not finish in {MESH_RANK_TIMEOUT_S} s") from None
+            codes.append(p.returncode)
+            if p.returncode != 0:
+                raise AssertionError(f"{what}: rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    finally:
+        _kill(procs)
+    return json.loads(out.read_text()), codes, time.perf_counter() - t0
+
+
+def _kill(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def phase_mesh(device, data, timed_runs=3, n_cpu=64):
+    """The feature path over a mesh (ROADMAP A14's feature half). (a) two
+    data slots on one card in one process: ``run_pipeline`` on phase 5's
+    objects with ``mesh.data=2`` over ``device=[card, card]`` (the classic
+    path; 2 B1b launches a run), the sharded statistics bit-equal to one
+    unsharded call, the features against the CPU's sharded run, then 4
+    offsets (2 B2 launches) and 'exact' (2 B1c launches), and the objects/s
+    beside the one-slot classic run's; (b) two processes on the card over
+    gloo and (c) one NCCL rank with two slots, each through
+    ``python -m tpumcia_torch.parallel.dryrun`` and held against the same
+    calls made here on one slot. Returns ({form: launches}, record)."""
+    import numpy as np
+    import torch
+
+    import tpumcia_torch as tt
+    from tpumcia_torch.config import MeshConfig
+    from tpumcia_torch.features import cuda_glcm
+    from tpumcia_torch.features.extract import _chw_levels
+    from tpumcia_torch.features.stats import prepare_mask
+    from tpumcia_torch.parallel import dryrun, make_mesh, sufficient_stats_sharded
+
+    (raw, mask, labels, donors), _ = data
+    n = len(raw)
+    x = tt.quantize_to_levels(torch.from_numpy(raw).to(device), levels=LEVELS, src_levels=65536)
+    pool = [device, device]
+
+    def config(features=None, fast_path="auto", data=2):
+        return tt.PipelineConfig(
+            features=features or tt.FeatureConfig(),
+            head=tt.HeadConfig(kind="logistic", num_steps=300),
+            split=tt.SplitConfig(test_size=0.25, seed=0, group_by="donor"),
+            mesh=MeshConfig(data=data), fast_path=fast_path, batch_size=BATCH,
+        )
+
+    # (a) the sharded statistics against one unsharded call on the card
+    mesh = make_mesh(devices=pool)
+    sharded = sufficient_stats_sharded(x, mask, mesh=mesh, need_diff_hist=False)
+    whole = cuda_glcm.sufficient_stats(_chw_levels(x), prepare_mask(mask, x.shape, device),
+                                       levels=LEVELS, offset=OFFSET)
+    stats_err = _stats_error(sharded, whole)
+    del sharded, whole
+
+    launches = {}
+    b1b, times, result = _mesh_run(device, x, mask, labels, donors, timed_runs, "B1b", 2, config(), pool)
+    launches["B1b"] = b1b
+    cpu = tt.extract_features(x[:n_cpu].cpu(), mask[:n_cpu], device="cpu",
+                              mesh=make_mesh(devices=["cpu", "cpu"]))
+    feat_err = float(np.nanmax(np.abs(result.features.values[:n_cpu] - cpu.values)))
+    if not (np.array_equal(np.isnan(result.features.values[:n_cpu]), np.isnan(cpu.values))
+            and feat_err <= FEATURE_ATOL):
+        raise AssertionError(f"mesh features on the card differ from the CPU's by {feat_err}")
+    # one slot: the classic path's batched extraction, BATCH objects a launch
+    _, one_times, one = _mesh_run(device, x, mask, labels, donors, timed_runs, "B1b", -(-n // BATCH),
+                                  config(fast_path="never", data=1), device)
+    if one.channel_result.ranking.tolist() != result.channel_result.ranking.tolist():
+        raise AssertionError(f"two slots rank {result.channel_result.ranking.tolist()}, "
+                             f"one slot {one.channel_result.ranking.tolist()}")
+    multi = tt.FeatureConfig(glcm=tt.GLCMConfig(distance=5, angle=(0.0, np.pi / 4, np.pi / 2, 3 * np.pi / 4)))
+    launches["B2"], multi_times, _ = _mesh_run(device, x, mask, labels, donors, 1, "B2", 2, config(multi), pool)
+    # 'exact' on the first MESH_EXACT_N objects: its float64 host finalize
+    # takes 13 s on all of them, for nothing the kernel check needs
+    e = MESH_EXACT_N
+    launches["B1c"], exact_times, _ = _mesh_run(
+        device, x[:e], mask[:e], labels[:e], donors[:e], 1, "B1c", 2,
+        config(tt.FeatureConfig(precision="exact")), pool)
+    del x
+    med, one_med = statistics.median(times), statistics.median(one_times)
+    log(f"  (a) {n} objects over 2 slots on {device}: stats bit-equal to one call (dstats[3] {stats_err!r}); "
+        f"features vs the CPU's sharded run on {n_cpu}: {feat_err!r}")
+    log(f"  (a) runs (s) {times!r}: median {med!r} s = {n / med!r} objects/s; one slot, fast_path='never': "
+        f"{one_times!r}, {n / one_med!r} objects/s; 4 offsets {multi_times!r} s, exact on {MESH_EXACT_N} "
+        f"{exact_times!r} s; "
+        f"launches {launches}; accuracy {result.test_accuracy!r}, ranking {result.channel_result.ranking.tolist()}")
+
+    # (b) two gloo ranks on the card and (c) one NCCL rank with two slots,
+    # started together; the one-slot reference is computed here meanwhile
+    runs, started = {}, []
+    with tempfile.TemporaryDirectory(prefix="tpumcia_mesh_") as tmp:
+        try:
+            for name, world, backend, slots in MESH_RUNS:
+                (Path(tmp) / name).mkdir()
+                started.append(_dryrun_ranks(Path(tmp) / name, device, world, backend, slots, MESH_RANK_N))
+            t_ref = time.perf_counter()
+            ref = dryrun.reference(MESH_RANK_N, device, Path(tmp) / "reference_stream")
+            ref_s = time.perf_counter() - t_ref
+            for (name, world, backend, slots), (procs, out, t0) in zip(MESH_RUNS, started):
+                rec, codes, secs = _wait_ranks(procs, out, t0, name)
+                bad = dryrun.mismatches(rec, ref, MESH_RANK_N)
+                if bad:
+                    raise AssertionError(f"{name}: rank 0 differs from one process in {bad}")
+                per_rank = [r["launches"]["stats"]["B1b"] for r in rec["ranks"]]
+                if per_rank != [slots] * world or rec["mesh"]["backend"] != backend:
+                    raise AssertionError(f"{name}: B1b launches by rank {per_rank}, backend {rec['mesh']['backend']}")
+                runs[name] = {"world": world, "backend": backend, "slots": len(rec["mesh"]["slots"]),
+                              "exit_codes": codes, "seconds": secs, "rank_seconds": [r["seconds"] for r in rec["ranks"]],
+                              "launches_by_rank": [r["launches"] for r in rec["ranks"]],
+                              "test_accuracy": rec["pipeline"]["test_accuracy"], "ranking": rec["pipeline"]["ranking"]}
+                log(f"  {name}: {world} rank(s) x {slots} slot(s) over {backend}, "
+                    f"exit codes {codes}, {secs!r} s; equal to one process; B1b launches by rank {per_rank}; "
+                    f"rank seconds {json.dumps(rec['seconds'])}")
+        finally:
+            for procs, _, _ in started:  # every rank left, whatever failed
+                _kill(procs)
+    log(f"  one-slot reference for (b) and (c): {ref_s!r} s")
+    return launches, {
+        "objects": n, "slots": 2, "launches": launches, "objects_per_s": n / med, "median_s": med,
+        "runs_s": times, "one_slot_objects_per_s": n / one_med, "one_slot_runs_s": one_times,
+        "multi_offset_s": multi_times, "exact_s": exact_times, "stats_dstats3_err": stats_err,
+        "card_vs_cpu": feat_err, "test_accuracy": result.test_accuracy,
+        "ranking": result.channel_result.ranking.tolist(), "processes": runs,
+        "process_objects": MESH_RANK_N, "reference_s": ref_s,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -1860,7 +2061,6 @@ def main() -> int:
     launches, streaming_rec = phase_streaming(device, cyto)
     kernels["B1b"]["launches"] += launches["B1b"]
     kernels["B1a"]["launches"] += launches["B1a"]
-    del cyto
 
     log("== the CNN path (ResNet-18, width 64; occlusion and image-permutation importance)")
     cnn_rec = phase_cnn(device)
@@ -1869,6 +2069,12 @@ def main() -> int:
     launches, eval_rec = phase_eval(device)
     kernels["B1a"]["launches"] += launches["B1a"]
 
+    log("== mesh (two slots on the card; two gloo ranks; one NCCL rank)")
+    launches, mesh_rec = phase_mesh(device, cyto)
+    for form, count in launches.items():
+        kernels[form]["launches"] += count
+    del cyto
+
     print(gpu_line, flush=True)
     print(json.dumps({
         "kernels": [{"form": form, **kernels[form]} for form in FORMS],
@@ -1876,7 +2082,7 @@ def main() -> int:
         "classic_1024": classic_1024, "classic_8192": classic_8192, "classic_256px": classic_256px,
         "forest": forest_rec, "cytometry_morphology": cyto_morph_rec,
         "faults": faults_rec, "analyze_objects": analyze_rec, "streaming": streaming_rec,
-        "cnn": cnn_rec, "eval": eval_rec,
+        "cnn": cnn_rec, "eval": eval_rec, "mesh": mesh_rec,
     }), flush=True)
     print(json.dumps({
         "ok": True,

@@ -164,7 +164,9 @@ def test_exports_and_import_guard():
         "tpumcia_torch.io.native, tpumcia_torch.io.loader, tpumcia_torch.io.staging, "
         "tpumcia_torch.pipeline.streaming, tpumcia_torch.utils.logging, tpumcia_torch.models.cnn, "
         "tpumcia_torch.models.train, tpumcia_torch.importance.occlusion, tpumcia_torch.pipeline.run_cnn, "
-        "tpumcia_torch.eval, tpumcia_torch.reports.plots, tpumcia_torch.utils.profiling\n"
+        "tpumcia_torch.eval, tpumcia_torch.reports.plots, tpumcia_torch.utils.profiling, "
+        "tpumcia_torch.parallel, tpumcia_torch.parallel.mesh, tpumcia_torch.parallel.distributed, "
+        "tpumcia_torch.parallel.sharding, tpumcia_torch.parallel.dryrun\n"
         "bad = {'jax', 'flax', 'optax', 'orbax', 'tpumcia', 'sklearn', 'h5py', 'imageio', 'matplotlib'} "
         "& set(sys.modules)\n"
         "assert not bad, bad\n"

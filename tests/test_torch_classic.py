@@ -184,12 +184,13 @@ def test_channel_importance_matches_jax(method, monkeypatch):
 
 
 def test_channel_importance_refuses_mdi_and_a_mesh():
-    """MDI needs a forest (tpumcia's TypeError); a mesh is not ported."""
+    """MDI needs a forest (tpumcia's TypeError); a mesh must be a
+    ``parallel.Mesh``."""
     X, y = _problem()
     head = fit_head(X, y, device="cpu", config=HeadConfig(num_steps=5))
     with pytest.raises(TypeError, match="mdi requires a RandomForestHead"):
         channel_importance(head, _fm(X), y, method="mdi")
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(TypeError, match="Mesh"):
         channel_importance(head, _fm(X), y, mesh=object())
     with pytest.raises(ValueError, match="needs labels"):
         channel_importance(head, _fm(X), method="permutation")
@@ -336,13 +337,14 @@ def test_classic_slice_with_noise_channels_runs_on_the_port_stream():
 
 
 @pytest.mark.parametrize("change,exc,match", [
-    ({"head": {"kind": "random_forest"}, "mesh": {"data": 2}}, NotImplementedError, "A14"),
+    ({"head": {"kind": "random_forest"}, "mesh": {"data": 2}}, ValueError, "needs 2 devices, have 1"),
     ({"importance": {"channel_method": "mdi"}}, TypeError, "mdi requires a RandomForestHead"),
     ({"features": {"include_morphology": True}}, ValueError, "requires a mask"),
 ])
 def test_classic_path_raises_named_errors(change, exc, match):
-    """What the classic path still refuses, with tpumcia's errors: MDI on a
-    logistic head, morphology without a mask; and a mesh (not ported)."""
+    """What the classic path refuses, with tpumcia's errors: a mesh larger
+    than the device pool, MDI on a logistic head, morphology without a
+    mask."""
     x, labels = _images_512(n_per_class=2)
     with pytest.raises(exc, match=match):
         run_pipeline((x >> 1).astype(np.uint8), labels, config=change, device="cpu")

@@ -83,10 +83,17 @@ def test_cli_argument_errors_match_tpumcia(argv, message, tmp_path, capsys):
         assert errors[0] == errors[1]
 
 
-def test_cli_refuses_distributed_and_a_missing_gpu(capsys):
-    with pytest.raises(SystemExit) as exc:
-        torch_eval.main(["--distributed", "--device", "cpu"])
-    assert exc.value.code == 2 and "ROADMAP A14" in capsys.readouterr().err
+def test_cli_refuses_distributed_and_a_missing_gpu(capsys, monkeypatch):
+    """``--distributed`` with no coordinator runs as one process and says so
+    (tpumcia's line); without a card the default device fails."""
+    for k in ("TPUMCIA_COORDINATOR", "TPUMCIA_NUM_PROCESSES", "TPUMCIA_PROCESS_ID",
+              "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    assert torch_eval.main(["--distributed", "--device", "cpu", "--source", "synthetic",
+                            "--n-per-class", "8"]) == 0
+    out = capsys.readouterr().out
+    assert "distributed: {'process_index': 0, 'process_count': 1" in out
+    assert "(single process: no coordinator configured)" in out and "channel importance" in out
     if not torch.cuda.is_available():
         # the default device is the card: without one the CLI fails, it does not move to the CPU
         with pytest.raises(SystemExit) as exc:

@@ -195,5 +195,5 @@ def test_entry_raises_named_errors(kw, shape, exc, match):
 
 
 def test_mesh_raises_named_error():
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(TypeError, match="Mesh"):
         extract_features(np.zeros((1, 8, 8, 1), np.uint8), device="cpu", mesh=object())

@@ -139,11 +139,12 @@ def test_classic_configs_match_jax_pipeline(images, change, monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"mesh": {"data": 2}}, "A14"),
+    ({"mesh": {"data": 2}}, "needs 2 devices, have 1"),
 ])
 def test_unported_configs_raise_named_errors(images, change, match):
+    """A mesh larger than the device pool: tpumcia's ValueError."""
     x, labels = images
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         run_pipeline(x, labels, config={**_kw(), **change}, device="cpu")
 
 

@@ -318,7 +318,7 @@ def test_stream_extract_entry_errors(tmp_path):
     with pytest.raises(TypeError, match="outside"):
         tstream.stream_extract(lambda idx: (raw[idx], None, labels[idx]), len(raw),
                                tmp_path / "raw", device="cpu", shard_size=6)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(TypeError, match="Mesh"):
         tstream.stream_extract(never, 4, tmp_path / "m", device="cpu", mesh=object())
 
 

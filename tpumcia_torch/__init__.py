@@ -1,8 +1,11 @@
 """tpumcia_torch — the PyTorch/CUDA port of tpumcia for NVIDIA Hopper.
 
-It runs tpumcia's ``run_pipeline`` on one device, on both of its paths: the
-fused fast path and the classic path that tpumcia takes for every other
-configuration. Seeded noise-channel synthesis or masked multichannel input,
+It runs tpumcia's ``run_pipeline`` on both of its paths: the fused fast
+path on one device and the classic path that tpumcia takes for every other
+configuration, which also runs over a device mesh (``parallel``: the
+statistics, the scaler's min/max and the permutation sweeps over the mesh's
+data slots, within a process or across the ranks of a ``torch.distributed``
+group). Seeded noise-channel synthesis or masked multichannel input,
 the 23-per-channel intensity + GLCM feature matrix (GLCM statistics from a
 hand-written CUDA kernel, ``csrc/glcm_stats.cu``, below 2^24 pixels and up
 to 32768 levels) with per-channel mask morphology as an option, a logistic,
@@ -21,8 +24,8 @@ the device. The CNN path is ``models.cnn`` (a ResNet with a C-channel stem),
 ``models.train.fit_cnn``, ``importance.occlusion`` and
 ``pipeline.run_cnn.run_cnn_pipeline``; ``python -m tpumcia_torch.eval`` is the
 config-driven command line, with ``reports.plots`` and ``utils.profiling``
-behind it. Not ported yet: multi-GPU and multi-process runs and the examples
-(ROADMAP A14, A15).
+behind it (``--distributed`` across processes). Not ported yet: the CNN
+path over a mesh and the examples (ROADMAP A14b, A15).
 Module paths and function names mirror ``tpumcia`` so each counterpart is
 easy to find. It imports neither ``jax`` (nor ``flax``, ``optax``, ``orbax``)
 nor ``tpumcia`` nor ``sklearn``.

@@ -49,10 +49,13 @@ def analyze_objects(objects, *, device, config=None, labels=None):
     """Full analysis straight from an h5 :class:`ObjectBatch` on ``device``:
     quantise (16-bit aware, on the device) -> features (masked) ->
     split/fit/report -> channel importance. Labels default to the batch's
-    ``label`` metadata."""
+    ``label`` metadata. ``device`` may be a pool of devices, which
+    ``run_pipeline`` resolves ``config.mesh`` against (16-bit data is then
+    quantised on the pool's first device)."""
     import torch
 
     from tpumcia_torch.config import coerce_config
+    from tpumcia_torch.parallel.mesh import device_pool
     from tpumcia_torch.pipeline.run import run_pipeline
     from tpumcia_torch.preprocess.normalize import quantize_to_levels
 
@@ -62,8 +65,9 @@ def analyze_objects(objects, *, device, config=None, labels=None):
         raise ValueError("objects carry no labels; pass labels= explicitly")
     images = np.asarray(objects.images)
     if images.dtype == np.uint16:
+        first = device_pool(device)[0] if isinstance(device, (list, tuple)) else device
         levels = quantize_to_levels(
-            torch.from_numpy(images).to(device),
+            torch.from_numpy(images).to(first),
             levels=cfg.features.glcm.levels, src_levels=65536,
         )
     elif images.dtype == np.uint8:

@@ -6,9 +6,15 @@ MedNIST-style image folder, or the synthetic demo set, on one device.
     python -m tpumcia_torch.eval --data /path/to/objects --source h5
     python -m tpumcia_torch.eval --source synthetic --n-per-class 200 --plots out/
 
-It runs on a CUDA device (``--device cuda``, the default) and fails where
-there is none; ``--device cpu`` asks for the CPU, where the GLCM kernel's
-plain version runs. ``--distributed`` is not ported yet (ROADMAP A14).
+It runs on a CUDA device (``--device cuda``, the default: every visible
+card, which ``mesh.data=-1`` spreads the run over) and fails where there is
+none; ``--device cpu`` asks for the CPU, where the GLCM kernel's plain
+version runs. ``--distributed`` joins a ``torch.distributed`` process group
+first (``parallel.distributed.init_distributed``: torchrun's variables, or
+``TPUMCIA_COORDINATOR`` / ``TPUMCIA_NUM_PROCESSES`` / ``TPUMCIA_PROCESS_ID``
+as ``launch_eval.sh`` sets them), so the mesh spans every rank's card:
+
+    torchrun --nproc-per-node 4 -m tpumcia_torch.eval --distributed --source h5 --data objects/
 """
 
 from __future__ import annotations
@@ -101,13 +107,13 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--distributed", action="store_true",
-        help="multi-process / multi-GPU runs are not ported yet (ROADMAP A14)",
+        help=(
+            "join a torch.distributed process group before building the mesh "
+            "(topology from torchrun's variables or TPUMCIA_COORDINATOR / "
+            "TPUMCIA_NUM_PROCESSES / TPUMCIA_PROCESS_ID — see launch_eval.sh)"
+        ),
     )
     args = p.parse_args(argv)
-
-    if args.distributed:
-        p.error("--distributed is not ported yet: multi-GPU and multi-process runs are "
-                "ROADMAP A14; tpumcia_torch runs on the one device it is given")
 
     import torch
 
@@ -117,6 +123,12 @@ def main(argv=None) -> int:
         p.error(f"invalid --device {args.device!r}: {e}")
     if device.type == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda, but no CUDA device is present; pass --device cpu to run on the CPU")
+    if args.distributed:
+        from tpumcia_torch.parallel.distributed import init_distributed, process_summary
+
+        multi = init_distributed(backend=None if device.type == "cuda" else "gloo")
+        print(f"distributed: {process_summary()}"
+              + ("" if multi else " (single process: no coordinator configured)"))
 
     if args.config and not Path(args.config).exists():
         p.error(f"config file not found: {args.config}")

@@ -498,14 +498,15 @@ def _offset_stats(resc, m, offset, *, shape, levels, need_diff, hist, count, vma
     r0, r1, c0, c1 = _window(H, W, offset)
     dr, dc = offset
     dev = resc.device
-    left = resc[:, r0:r1, c0:c1].reshape(n, -1)
-    right = resc[:, r0 + dr:r1 + dr, c0 + dc:c1 + dc].reshape(n, -1)
+    P = (r1 - r0) * (c1 - c0)  # explicit: a slot of a mesh may hold no rows (n = 0)
+    left = resc[:, r0:r1, c0:c1].reshape(n, P)
+    right = resc[:, r0 + dr:r1 + dr, c0 + dc:c1 + dc].reshape(n, P)
     if m is None:
         keep = None
         pair_count = torch.full(shape, float((r1 - r0) * (c1 - c0)), device=dev)
     else:
         mm = m.reshape(n, H, W)
-        keep = (mm[:, r0:r1, c0:c1] & mm[:, r0 + dr:r1 + dr, c0 + dc:c1 + dc]).reshape(n, -1)
+        keep = (mm[:, r0:r1, c0:c1] & mm[:, r0 + dr:r1 + dr, c0 + dc:c1 + dc]).reshape(n, P)
         pair_count = keep.sum(1).to(torch.float32).reshape(shape)
     marg_l = _row_bincount(left, L, keep)
     marg_r = _row_bincount(right, L, keep)
@@ -516,7 +517,7 @@ def _offset_stats(resc, m, offset, *, shape, levels, need_diff, hist, count, vma
 
     f32 = torch.float32
     if need_diff:
-        diff_hist, dstats = dh.to(f32).reshape(*shape, -1), None
+        diff_hist, dstats = dh.to(f32).reshape(*shape, 2 * L - 1), None
     else:
         diff_hist, dstats = None, dstats_from_diff_hist(dh, cheap).reshape(*shape, 4)
     return SuffStats(

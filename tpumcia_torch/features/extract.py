@@ -26,7 +26,9 @@ otherwise.
 
 With ``include_morphology`` (a mask is required) each channel's 8 mask
 shape features come last; a shared (B, H, W) mask gives every channel its 8
-values. A device mesh (ROADMAP A14) raises ``NotImplementedError``. On a
+values. With a device ``mesh`` (``parallel.mesh``) the statistics run
+over its data slots, one launch a slot (``parallel.sharding``), and the
+features are finalised from the whole batch's statistics. On a
 CUDA device the kernel's bounds (32768 levels, tpumcia's own; 2^24 pixels)
 raise a ``ValueError``; a CPU device takes every size. Above 256 levels the
 statistics of one batch hold 5 L floats per (image, channel) and offset (4.0
@@ -283,7 +285,10 @@ def extract_features(
     ``'exact'`` (difference histograms, float64 on the host) or
     ``'device'`` (float32 values as a tensor on ``device``). As in tpumcia,
     ``'hybrid'`` runs as ``'exact'`` at H*W >= 65536 and through the
-    packed f32 wire above 256 levels.
+    packed f32 wire above 256 levels. ``mesh``: a ``parallel.Mesh``; its
+    slots' devices run the statistics (no u32 wire: the statistics are
+    finalised as tpumcia's mesh branch finalises them) and ``device`` is
+    not used.
     """
     return _extract_features(
         images, mask, device=device, config=config, channel_names=channel_names, mesh=mesh,
@@ -297,10 +302,9 @@ def _extract_features(images, mask=None, *, device, config, channel_names, mesh=
     u32-wire branch) and finalize stages (the classic pipeline's split)."""
     cfg = config or FeatureConfig()
     if mesh is not None:
-        raise NotImplementedError(
-            "extraction over a device mesh is not ported yet (ROADMAP A14); "
-            "tpumcia_torch runs on the one device it is given"
-        )
+        from tpumcia_torch.parallel.mesh import check_mesh
+
+        check_mesh(mesh)
     if cfg.include_morphology and mask is None:
         raise ValueError("include_morphology requires a mask")
     if not (cfg.include_intensity or cfg.include_glcm):
@@ -309,8 +313,15 @@ def _extract_features(images, mask=None, *, device, config, channel_names, mesh=
     if cfg.precision not in backends:
         raise ValueError(f"unknown precision {cfg.precision!r}; one of {sorted(backends)}")
     backend = backends[cfg.precision]
-    device = torch.device(device)
-    images, imgs, m = _prepare(images, mask, cfg, device)
+    if mesh is None:
+        device = torch.device(device)
+        images, imgs, m = _prepare(images, mask, cfg, device)
+    else:
+        # the sharded statistics check and place each slot's rows
+        device = mesh.first_device
+        images, imgs, m = _as_level_array(images, cfg.glcm.levels), None, None
+        if images.ndim != 4:
+            raise ValueError(f"expected (B, H, W, C) images; got shape {tuple(images.shape)}")
 
     def stamp(stage):
         if timer is not None:
@@ -331,6 +342,19 @@ def _extract_features(images, mask=None, *, device, config, channel_names, mesh=
     from tpumcia_torch.features.finalize import finalize_features
     from tpumcia_torch.features.hybrid import assemble_reduced
 
+    def stats_multi(offsets):
+        """One :class:`SuffStats` per offset, over the mesh when there is one."""
+        if mesh is not None:
+            from tpumcia_torch.parallel.sharding import sufficient_stats_sharded_multi
+
+            return sufficient_stats_sharded_multi(
+                images, mask, mesh=mesh, levels=levels, offsets=offsets,
+                use_pallas=cfg.use_pallas, need_diff_hist=need_dh,
+            )
+        return cuda_glcm.sufficient_stats_multi(
+            _chw_levels(imgs), m, levels=levels, offsets=offsets, need_diff=need_dh,
+        )
+
     value_blocks, degenerate = [], None
 
     def add_block(values, flags):
@@ -339,7 +363,7 @@ def _extract_features(images, mask=None, *, device, config, channel_names, mesh=
         flags = _to_host(flags)
         degenerate = flags if degenerate is None else degenerate | flags
 
-    if backend == "hybrid" and hybrid_wire_ok(cfg):
+    if mesh is None and backend == "hybrid" and hybrid_wire_ok(cfg):
         from tpumcia_torch.features.hybrid import unpack_wire
 
         wire, _ = _batch_fused_dispatch(
@@ -349,11 +373,9 @@ def _extract_features(images, mask=None, *, device, config, channel_names, mesh=
         done = assemble_reduced(unpack_wire(_to_host(wire).view(np.uint32)), levels=levels)
         add_block(done.values, done.degenerate)
     elif len(offsets) > 1:
-        all_stats = cuda_glcm.sufficient_stats_multi(
-            _chw_levels(imgs), m, levels=levels, offsets=offsets, need_diff=need_dh,
-        )
+        all_stats = stats_multi(offsets)
         stamp("stats_kernel")
-        if backend == "hybrid" and hybrid_wire_ok(cfg, images.shape, multi_offset=True):
+        if mesh is None and backend == "hybrid" and hybrid_wire_ok(cfg, images.shape, multi_offset=True):
             # the whole offset list in one wire and one copy to the host
             from tpumcia_torch.features.hybrid import (
                 _device_reduce_wire_multi,
@@ -376,9 +398,12 @@ def _extract_features(images, mask=None, *, device, config, channel_names, mesh=
                 add_block(done.values, done.degenerate)
     else:
         # one offset (or intensity only): one statistics pass
-        stats = cuda_glcm.sufficient_stats(
-            _chw_levels(imgs), m, levels=levels, offset=offsets[0], need_diff=need_dh,
-        )
+        if mesh is None:
+            stats = cuda_glcm.sufficient_stats(
+                _chw_levels(imgs), m, levels=levels, offset=offsets[0], need_diff=need_dh,
+            )
+        else:
+            (stats,) = stats_multi(offsets[:1])
         stamp("stats_kernel")
         done = finalize_features(
             stats, include_intensity=cfg.include_intensity,
@@ -389,6 +414,10 @@ def _extract_features(images, mask=None, *, device, config, channel_names, mesh=
     num_channels = images.shape[-1]
     if cfg.include_morphology:
         from tpumcia_torch.features.morphology import morphology_features
+        from tpumcia_torch.features.stats import prepare_mask
+
+        if m is None:  # over a mesh: the mask plane on the first slot's device
+            m = prepare_mask(mask, images.shape, device)
 
         # the mask plane's (B, 1 or C, 8) shape features, a shared mask's
         # for every channel

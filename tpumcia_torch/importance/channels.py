@@ -126,6 +126,20 @@ def aggregate_channel_importance(
     )
 
 
+def _sweep(head, X, y, *, n_repeats, seed, groups, mesh):
+    """The permutation sweep, with its groups over the mesh's data axis when
+    one is given."""
+    if mesh is not None:
+        from tpumcia_torch.parallel.sharding import permutation_importance_sharded
+
+        return permutation_importance_sharded(
+            head, X, y, mesh=mesh, n_repeats=n_repeats, seed=seed, groups=groups,
+        )
+    from tpumcia_torch.importance.permutation import permutation_importance
+
+    return permutation_importance(head, X, y, n_repeats=n_repeats, seed=seed, groups=groups)
+
+
 def channel_importance(
     head,
     features,
@@ -150,17 +164,19 @@ def channel_importance(
     - ``'ablation'``: the score drop with a channel's columns set to their
       mean;
     - ``'auto'``: ``'mdi'`` for a forest, ``'permutation'`` otherwise.
+
+    ``mesh``: a ``parallel.Mesh``; both permutation methods then run the
+    sharded sweep (``parallel.sharding.permutation_importance_sharded``).
     """
     from tpumcia_torch.config import ImportanceConfig
     from tpumcia_torch.features.extract import FeatureMatrix
-    from tpumcia_torch.importance.permutation import permutation_importance
     from tpumcia_torch.models.heads import LogisticHead, RandomForestHead
 
     cfg = config or ImportanceConfig()
     if mesh is not None:
-        raise NotImplementedError(
-            "channel importance over a device mesh is not ported yet (ROADMAP A14)"
-        )
+        from tpumcia_torch.parallel.mesh import check_mesh
+
+        check_mesh(mesh)
     if not isinstance(features, FeatureMatrix):
         raise TypeError("features must be a FeatureMatrix (need column names)")
     names = features.names
@@ -204,7 +220,7 @@ def channel_importance(
 
     if method == "permutation":
         groups = features.channel_columns()
-        res = permutation_importance(head, X, y, n_repeats=cfg.n_repeats, seed=cfg.seed, groups=groups)
+        res = _sweep(head, X, y, n_repeats=cfg.n_repeats, seed=cfg.seed, groups=groups, mesh=mesh)
         total = res.importances_mean.copy()
         # a grouped sweep has no per-feature resolution: each channel's mean
         # drop is broadcast onto its columns
@@ -225,7 +241,7 @@ def channel_importance(
         return out
 
     if method == "permutation_features":
-        res = permutation_importance(head, X, y, n_repeats=cfg.n_repeats, seed=cfg.seed)
+        res = _sweep(head, X, y, n_repeats=cfg.n_repeats, seed=cfg.seed, groups=None, mesh=mesh)
         out = aggregate_channel_importance(
             res.importances_mean, names, C, threshold=None, match=cfg.channel_match,
             method="permutation_features", groups=pos_groups,

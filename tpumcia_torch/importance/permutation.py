@@ -132,7 +132,7 @@ def _perm_sweep(X, y_idx, masks, perms, apply_fn):
     group_of = torch.arange(G, device=X.device).repeat_interleave(R)
     permuted = masks[group_of].to(torch.bool)[:, None, :]  # (G*R, 1, F)
     step = max(1, _SWEEP_CHUNK_ELEMS // max(1, N * F))
-    scores = torch.cat([
+    scores = torch.cat([X.new_zeros(0)] + [
         accuracy(apply_fn(torch.where(permuted[s:s + step], X[flat[s:s + step]], X)))
         for s in range(0, G * R, step)
     ])

@@ -14,7 +14,8 @@ cross-entropy. What is kept from tpumcia so that the two can be compared:
 
 The initial weights have tpumcia's distributions but not its draws
 (``cnn.init_parameters``); a test hands one set of weights to both packages.
-A device mesh is not a parameter yet (ROADMAP A14). Checkpoints are one
+Training over a device mesh is not ported yet (ROADMAP A14b): ``mesh``
+raises ``NotImplementedError``. Checkpoints are one
 ``torch.save`` file of tensors and plain values, read with
 ``weights_only=True``; tpumcia's Orbax directories are not read.
 """
@@ -165,18 +166,29 @@ def make_optimizer(model: ResNet, cfg: CNNConfig) -> torch.optim.Optimizer:
     )
 
 
+def refuse_mesh(mesh, entry: str) -> None:
+    """The CNN path runs on one device: a mesh raises, naming its item."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{entry} over a device mesh is not ported yet (ROADMAP A14b: data-parallel "
+            "CNN training); the CNN path runs on the one device it is given"
+        )
+
+
 def fit_cnn(
     images,
     labels,
     *,
     device,
     config: CNNConfig | None = None,
+    mesh=None,
     images_eval=None,
     labels_eval=None,
     verbose: bool = False,
 ) -> CNNHead:
     """Train the ResNet on (B, H, W, C) images in [0, 1] (float) or [0, 255]
     (integer, normalised on the device), numpy or a tensor, on ``device``."""
+    refuse_mesh(mesh, "fit_cnn")
     if getattr(images, "ndim", np.ndim(images)) != 4:
         raise ValueError(
             f"fit_cnn expects (B, H, W, C) images; got shape "

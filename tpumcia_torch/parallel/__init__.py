@@ -1,0 +1,36 @@
+"""Device meshes and multi-process runs for the feature path (counterpart
+of ``tpumcia.parallel``): ``mesh`` (``Mesh``, ``make_mesh``,
+``mesh_from_config``, ``row_ranges``), ``distributed``
+(``init_distributed``, ``shard_across_processes``, ``process_summary`` and
+the collectives) and ``sharding`` (the sharded statistics, features, scaler
+and permutation sweep). ``python -m tpumcia_torch.parallel.dryrun`` is one
+rank of a multi-process check run."""
+
+from tpumcia_torch.parallel.mesh import Mesh, make_mesh, mesh_from_config, row_ranges
+from tpumcia_torch.parallel.distributed import (
+    ShardedRows,
+    init_distributed,
+    process_summary,
+    shard_across_processes,
+)
+from tpumcia_torch.parallel.sharding import (
+    extract_features_sharded,
+    fit_scaler_sharded,
+    permutation_importance_sharded,
+    sufficient_stats_sharded,
+)
+
+__all__ = [
+    "make_mesh",
+    "init_distributed",
+    "shard_across_processes",
+    "process_summary",
+    "row_ranges",
+    "extract_features_sharded",
+    "sufficient_stats_sharded",
+    "fit_scaler_sharded",
+    "permutation_importance_sharded",
+    "Mesh",
+    "ShardedRows",
+    "mesh_from_config",
+]

@@ -1,5 +1,4 @@
-"""End-to-end pipeline on one device (counterpart of
-``tpumcia.pipeline.run``):
+"""End-to-end pipeline (counterpart of ``tpumcia.pipeline.run``):
 
     (synthesize noise channels) -> extract features -> split -> scale ->
     fit head -> classification report -> feature + channel importance
@@ -15,9 +14,13 @@ Two paths, picked as tpumcia picks them (:func:`_fast_path_ok`):
   and the per-feature view, with the feature matrix copied to the device
   once for the head and both sweeps.
 
-A device mesh is not ported and raises ``NotImplementedError`` naming
-ROADMAP A14. Nothing falls back to the CPU: the random-forest head is fitted
-on ``device`` too.
+``config.mesh`` is resolved against the device pool (``device``: one
+device or a sequence, ``parallel.mesh.device_pool``), as tpumcia resolves it
+against ``jax.devices()``: on one device it is None and nothing changes;
+over several slots the classic path runs with the extraction, the scaler's
+min/max and both permutation sweeps over the mesh (``parallel.sharding``)
+and the head fitted on the first slot's device. Nothing falls back to the
+CPU: the random-forest head is fitted on the device too.
 """
 
 from __future__ import annotations
@@ -64,11 +67,21 @@ class PipelineResult:
         return "\n".join(lines)
 
 
-def _fast_path_ok(cfg: PipelineConfig, images, mask) -> bool:
-    """tpumcia's ``_fast_path_ok`` on one device: the fused path takes a
-    logistic head on MinMax features with grouped permutation importance,
-    on the hybrid u32-wire feature config, for more than 4096 images (or
-    ``fast_path='always'``)."""
+def _fast_path_ok(cfg: PipelineConfig, images, mask, mesh=None) -> bool:
+    """tpumcia's ``_fast_path_ok``: the fused path takes a logistic head on
+    MinMax features with grouped permutation importance, on the hybrid
+    u32-wire feature config, for more than 4096 images (or
+    ``fast_path='always'``), on one device."""
+    if mesh is not None:
+        if cfg.fast_path == "always":
+            # never silently downgrade an explicit request: the fused path
+            # is single-device by design; a mesh runs the sharded classic path
+            raise ValueError(
+                "fast_path='always' is single-device but the mesh config "
+                f"resolved {mesh.shape}; set mesh data=1/model=1 (or "
+                "fast_path='auto')"
+            )
+        return False
     if cfg.fast_path == "never":
         return False
     if cfg.head.kind != "logistic" or cfg.normalize != "minmax":
@@ -158,7 +171,8 @@ def run_pipeline(
 ) -> PipelineResult:
     """Run the full analysis on a batch of level-quantised images on
     ``device`` (a CUDA device for the kernel; a CPU device runs the kernel's
-    plain version).
+    plain version), or on a pool of devices (a sequence; a bare ``"cuda"`` is
+    every visible card) that ``config.mesh`` is resolved against.
 
     With ``config.synth.noise_channels > 0``, ``images`` is a (B, H, W)
     grayscale batch and the noise channels are synthesized on the device;
@@ -176,15 +190,17 @@ def run_pipeline(
     The configurations tpumcia's fast path takes run fused (see
     :func:`_fast_path_ok`); every other one runs tpumcia's classic path.
     """
+    from tpumcia_torch.parallel.mesh import device_pool, mesh_from_config
+
     cfg = coerce_config(config)
-    device = torch.device(device)
+    pool = device_pool(device)
+    mesh = mesh_from_config(cfg.mesh, pool)
+    if mesh is not None:
+        device = mesh.first_device
+    else:
+        device = pool[0] if isinstance(device, (list, tuple)) else torch.device(device)
     labels = np.asarray(labels)
 
-    if cfg.mesh.data > 1 or cfg.mesh.model > 1:
-        raise NotImplementedError(
-            f"multi-device mesh {cfg.mesh} is not ported yet (ROADMAP A14); "
-            "tpumcia_torch runs on the one device it is given"
-        )
     if cfg.split.group_by and groups is None:
         # an ungrouped split would leak groups (donors) across train/test
         raise ValueError(
@@ -226,21 +242,24 @@ def run_pipeline(
             f"groups length {len(np.asarray(groups))} does not match the "
             f"{n_objects} images"
         )
-    if _fast_path_ok(cfg, images_arr, mask):
+    if _fast_path_ok(cfg, images_arr, mask, mesh):
         return _run_pipeline_fast(
             images_arr, labels, mask=mask, cfg=cfg, channel_names=channel_names,
             groups=groups, device=device, timer=timer,
         )
     return _run_pipeline_classic(
         images_arr, labels, mask=mask, cfg=cfg, channel_names=channel_names,
-        groups=groups, device=device, timer=timer,
+        groups=groups, device=device, timer=timer, mesh=mesh,
     )
 
 
 def _run_pipeline_classic(
-    images, labels, *, mask, cfg, channel_names, groups, device, timer
+    images, labels, *, mask, cfg, channel_names, groups, device, timer, mesh=None
 ) -> PipelineResult:
-    """tpumcia's classic branch (``pipeline/run.py:229-346``)."""
+    """tpumcia's classic branch (``pipeline/run.py:229-346``); with a
+    ``mesh``, the whole collection's statistics in one launch a slot, the
+    scaler's min/max and both sweeps over it, and the head on ``device``,
+    the first slot's."""
     from tpumcia_torch.features.extract import _extract_features, _extract_features_batched
     from tpumcia_torch.models.heads import RandomForestHead, fit_head
 
@@ -260,12 +279,14 @@ def _run_pipeline_classic(
 
     t0 = time.perf_counter()
     kw = dict(device=device, config=cfg.features, channel_names=channel_names, timer=timer)
-    if len(images) > 4096:
+    if mesh is None and len(images) > 4096:
         fm = _extract_features_batched(images, mask, batch_size=cfg.batch_size, **kw)
     else:
-        fm = _extract_features(images, mask, **kw)
+        fm = _extract_features(images, mask, mesh=mesh, **kw)
     timings["features_s"] = time.perf_counter() - t0
 
+    # over a mesh the statistics were gathered over the ranks before the
+    # finalize: every rank holds the whole matrix (tpumcia's fetch_to_host)
     X_host = np.nan_to_num(np.asarray(fm.to_numpy(), dtype=np.float32))
     split = train_test_split_indices(
         len(X_host),
@@ -281,9 +302,14 @@ def _run_pipeline_classic(
         timer.stamp("host_matrix_upload")
 
     t0 = time.perf_counter()
+    scaler = None
+    if mesh is not None and cfg.normalize == "minmax":
+        from tpumcia_torch.parallel.sharding import fit_scaler_sharded
+
+        scaler = fit_scaler_sharded(X_host[split.train_idx], mesh=mesh)
     head = fit_head(
         X[tr], labels[split.train_idx], device=device, config=cfg.head,
-        scale=cfg.normalize == "minmax",
+        scale=cfg.normalize == "minmax", scaler=scaler,
     )
     timings["fit_s"] = time.perf_counter() - t0
     y_te = labels[split.test_idx]
@@ -304,12 +330,13 @@ def _run_pipeline_classic(
     t0 = time.perf_counter()
     channel_res = channel_importance(
         head, fm_test, y_te, method=cfg.importance.channel_method, config=cfg.importance,
+        mesh=mesh,
     )
     # the per-feature view (notebook cell 28, ipynb:493-505): MDI for a
     # forest, the per-feature permutation sweep otherwise
     feature_method = "mdi" if isinstance(head, RandomForestHead) else "permutation_features"
     feature_res = channel_importance(
-        head, fm_test, y_te, method=feature_method, config=cfg.importance,
+        head, fm_test, y_te, method=feature_method, config=cfg.importance, mesh=mesh,
     )
     timings["importance_s"] = time.perf_counter() - t0
     if timer is not None:

@@ -2,8 +2,8 @@
 ``tpumcia.pipeline.run_cnn``): train the ResNet-style classifier on
 multichannel images and derive channel importance by occlusion and by
 pixel-space permutation: the learned-feature counterpart of
-``pipeline/run.py``. It runs on the one device it is given; a device mesh is
-not a parameter yet (ROADMAP A14)."""
+``pipeline/run.py``. It runs on the one device it is given; a device
+``mesh`` raises ``NotImplementedError`` (ROADMAP A14b)."""
 
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from tpumcia_torch.importance.occlusion import (
     channel_occlusion_importance,
     channel_permutation_importance_images,
 )
-from tpumcia_torch.models.train import CNNConfig, CNNHead, fit_cnn, images_on_device
+from tpumcia_torch.models.train import CNNConfig, CNNHead, fit_cnn, images_on_device, refuse_mesh
 from tpumcia_torch.utils.metrics import accuracy, classification_report
 from tpumcia_torch.utils.split import train_test_split_indices
 
@@ -70,6 +70,7 @@ def run_cnn_pipeline(
     *,
     device,
     config: CNNConfig | None = None,
+    mesh=None,
     test_size: float = 0.25,
     split_seed: int = 0,
     n_repeats: int = 5,
@@ -80,6 +81,7 @@ def run_cnn_pipeline(
     """images: (B, H, W, C) integer levels (uint8: scaled by 255) or float
     in [0, 1], numpy or a tensor; they cross to ``device`` once and stay
     there. ``timings`` are wall seconds with the device synchronised."""
+    refuse_mesh(mesh, "run_cnn_pipeline")
     device = torch.device(device)
     if getattr(images, "ndim", np.ndim(images)) != 4:
         raise ValueError(

@@ -221,8 +221,11 @@ def stream_extract(
     thread with ``prefetch_depth`` shards prepared ahead
     (``io.loader.PrefetchLoader``), so host decode of shard i+1 overlaps the
     device reduction of shard i; ``prefetch_depth=0`` fetches synchronously.
-    A device ``mesh`` is not ported (ROADMAP A14) and raises
-    ``NotImplementedError``.
+    With ``mesh`` (a ``parallel.Mesh``) each shard is computed over the
+    mesh's slots by ``extract_features(mesh=)``, ``device`` is not used, and
+    ``stage_on_device`` and the wire do not apply, as in tpumcia; over a
+    mesh that spans processes every rank computes every shard's rows on its
+    slots and rank 0 alone writes the shard files and manifests.
 
     ``stage_on_device``: a second prefetch worker also uploads each shard's
     images/mask (pinned buffers, a side stream), so the H2D copy overlaps
@@ -247,7 +250,6 @@ def stream_extract(
     know only the last call sees the full collection.
     """
     cfg = config or FeatureConfig()
-    device = torch.device(device)
     if n < 1:
         raise ValueError(f"stream_extract needs n >= 1 objects; got {n}")
     if shard_size < 1:
@@ -288,11 +290,14 @@ def stream_extract(
             f"process_index {process_index} out of range for "
             f"process_count {process_count}"
         )
-    if mesh is not None:
-        raise NotImplementedError(
-            "stream_extract over a device mesh is not ported yet (ROADMAP A14); "
-            "tpumcia_torch runs on the one device it is given"
-        )
+    if mesh is None:
+        device = torch.device(device)
+    else:
+        from tpumcia_torch.parallel.mesh import check_mesh
+
+        device = check_mesh(mesh).first_device
+    # over a mesh that spans processes, rank 0 writes for all of them
+    writer = mesh is None or mesh.rank == 0
     merged = _load_merged_manifest(out_dir)
     manifest = _load_manifest(out_dir, process_index, process_count)
     tag = config_tag or "default"
@@ -310,7 +315,7 @@ def stream_extract(
         if process_count == 1
         else f"progress_p{process_index:04d}.jsonl"
     )
-    log = MetricsLogger(out_dir / log_name, echo=False)
+    log = MetricsLogger(out_dir / log_name, echo=False) if writer else None
     # resolve pending shards up front so prefetch only decodes what runs;
     # skip decisions use the MERGED manifest view (shards any process — or a
     # prior run at any process count — completed are not recomputed)
@@ -337,6 +342,13 @@ def stream_extract(
             for (s, e) in pending
             if (s // shard_size) % process_count == process_index
         ]
+    spans = mesh is not None and mesh.spans_processes
+    if spans:
+        # every rank runs the collectives of every pending shard: none may
+        # read the manifests after rank 0 has begun to write
+        from tpumcia_torch.parallel.distributed import barrier
+
+        barrier(mesh.group)
 
     from tpumcia_torch.features.extract import (
         _as_level_array,
@@ -353,7 +365,7 @@ def stream_extract(
     # the prefetch queue, the batch being staged and the one being computed
     # each hold a buffer: prefetch_depth + 1 of them, whatever the shard count
     stager = None
-    if on_card and stage_on_device:
+    if on_card and stage_on_device and mesh is None:
         stager = HostStager(device, slots=prefetch_depth + 1)
     checked = 0  # shards whose levels were checked (on the thread that uploads)
 
@@ -373,6 +385,8 @@ def stream_extract(
         checked += 1
         if mask is not None:
             check_mask_shape(mask, images.shape)
+        if mesh is not None:
+            return images, mask, labels  # the sharded statistics place each slot's rows
         if isinstance(images, np.ndarray):
             images = rows_to_device([images], device, _level_dtype(images), stager)
         if isinstance(mask, np.ndarray):
@@ -381,7 +395,7 @@ def stream_extract(
             mask = (mask != 0).to(torch.uint8)
         return images, mask, labels
 
-    stage = upload if stage_on_device else None
+    stage = upload if stage_on_device and mesh is None else None
     if prefetch_depth > 0 and len(pending) > 1:
         from tpumcia_torch.io.loader import PrefetchLoader
 
@@ -399,7 +413,7 @@ def stream_extract(
 
     def next_batch():
         batch = next(batches)
-        return batch if stage_on_device else upload(batch)
+        return batch if stage is not None else upload(batch)
 
     # the hybrid single-offset config additionally pipelines the OUTPUT
     # side: shard i's fused stats->wire dispatch is enqueued, then shard
@@ -408,7 +422,7 @@ def stream_extract(
     # shared predicate with extract_features_batched (the pixel-count bound
     # is applied per shard below, once the first batch's shape is known)
     offsets = cfg.glcm.offsets if cfg.include_glcm else [cfg.glcm.offset]
-    wire_mode = batched_fast_path_ok(None, cfg)
+    wire_mode = mesh is None and batched_fast_path_ok(None, cfg)
 
     computed = 0
     computed_imgs = 0  # actual image count (final shard may be partial)
@@ -419,6 +433,10 @@ def stream_extract(
 
     def save_shard(start, stop, values, degenerate, labels):
         nonlocal computed, computed_imgs
+        computed += 1
+        computed_imgs += int(stop - start)
+        if not writer:
+            return
         sid = f"shard_{start:09d}"
         shard_file = out_dir / f"{sid}.npz"
         payload = {
@@ -449,8 +467,6 @@ def stream_extract(
         )
         with open(jsonl, "a") as f:
             f.write(header + json.dumps({"sid": sid, **entry}) + "\n")
-        computed += 1
-        computed_imgs += int(stop - start)
         elapsed_so_far = time.perf_counter() - t0
         log.log(
             "shard_done",
@@ -531,7 +547,7 @@ def stream_extract(
                 profile["ingest_wait_s"] += t_dev - t_wait
             fm = extract_features(
                 take(images), None if mask is None else take(mask),
-                device=device, config=cfg, channel_names=channel_names,
+                device=device, config=cfg, channel_names=channel_names, mesh=mesh,
             )
             names = fm.names
             values = fm.to_numpy()
@@ -540,17 +556,18 @@ def stream_extract(
             save_shard(start, stop, values, fm.degenerate, labels)
             profile["save_s"] += time.perf_counter() - t_save
     elapsed = time.perf_counter() - t0
-    log.close()
-    # successful completion of this process's pending shards: compact the
-    # append log into the .json (merged readers accept either/both)
-    _compact_manifest(out_dir, manifest, process_index, process_count)
+    if writer:
+        log.close()
+        # successful completion of this process's pending shards: compact
+        # the append log into the .json (merged readers accept either/both)
+        _compact_manifest(out_dir, manifest, process_index, process_count)
 
-    if process_count > 1:
-        if _distributed_topology()[1] > 1:
+    if spans or process_count > 1:
+        if spans or _distributed_topology()[1] > 1:
             # all shards must be on disk before any process assembles
-            import torch.distributed as dist
+            from tpumcia_torch.parallel.distributed import barrier
 
-            dist.barrier()
+            barrier(mesh.group if spans else None)
         else:
             # launcher-managed split without a torch.distributed group:
             # there is no collective to barrier on, but every process
