@@ -109,7 +109,21 @@ Phases (any failure exits nonzero, and no result line is printed):
      4,096 objects, started together, and held against the same calls made
      here on one slot (statistics, scaler, both sweeps, ``run_pipeline``,
      both stream directories), each rank's own B1b launch, within 180 s;
- 16. prints the kernels' JSON line and, last, the device JSON line.
+ 16. the CNN path over a mesh (ROADMAP A14b): (a) ``run_cnn_pipeline`` on
+     phase 13's workload over two slots on the card in one process, phase
+     13's gates, trained and occluded images/s beside phase 13's; (a')
+     float32 parity at full width, 3 steps of one slot against two on the
+     same weights (TF32 off, cuDNN deterministic): the two-slot gradient
+     within twice the one-slot gradient's distance from a float64 copy's,
+     losses rel 1e-4; (b) two gloo ranks and (c) one NCCL
+     rank with two slots of ``python -m tpumcia_torch.parallel.dryrun --mode
+     cnn --size full``, each rank's loss history, weights, logits and probe
+     drops equal to each other and to the same run here, bit for bit;
+ 17. the examples: ``python -m tpumcia_torch.examples.<name>`` for
+     cnn_workflow, notebook_workflow (no figures: no matplotlib here),
+     streaming_scale and multihost_pipeline at their default sizes, each
+     exiting 0 (cytometry_h5 needs h5py, which is not installed here);
+ 18. prints the kernels' JSON line and, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -143,6 +157,15 @@ TWENTY_OFFSETS = tuple(  # 5 distances x 4 angles: past the kernel's 16-offset a
 HUGE_LEVELS = 8192  # past 4096 levels: form B1e (16-bit data kept at 13 bits)
 HUGE_N, HUGE_BATCH = 8192, 1024  # the 8192-level classic run: 2.0 GB of statistics a batch
 CNN_BATCHES = (64, 128, 256, 512, 1024)  # phase 13's batch-size sweep
+CNN_REPEATS = 5  # image-permutation repeats of phases 13 and 16
+CNN_GRAD_F64_RATIO = 2.0  # phase 16 (a'): two slots' distance from float64 over one slot's
+CNN_LOSS_RTOL = 1e-4  # phase 16 (a'): the batch's loss
+CNN_PARITY_STEPS = 3
+CNN_MESH_SIZE = "full"  # phase 16 (b), (c): dryrun's CNN size (2,048 64x64 images, ResNet-18, width 64)
+EXAMPLES = ("cnn_workflow", "notebook_workflow", "streaming_scale", "multihost_pipeline")
+EXAMPLES_LEFT_OUT = {"cytometry_h5": "writes h5 objects and needs h5py, which is not installed beside the card "
+                                     "(the CPU tests run it)"}
+EXAMPLE_TIMEOUT_S = 300
 STREAM_N, STREAM_SHARD = 131_072, 2048  # phase 12: 64 shards
 STREAM_PEAK_BYTES = 4e9  # the most the peak device memory may rise over a streaming run
 STREAM_MASKLESS_N = 32_768  # 16 maskless shards
@@ -1623,6 +1646,31 @@ def phase_streaming(device, data, timed_dirs=3):
     }
 
 
+def _cnn_settings() -> dict:
+    import torch
+
+    return {
+        "cudnn.benchmark": torch.backends.cudnn.benchmark,
+        "cudnn.deterministic": torch.backends.cudnn.deterministic,
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+        "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "compute": "bf16 autocast, float32 parameters, channels_last",
+    }
+
+
+def cnn_workload(device, n_images, width, depth):
+    """Phase 13's workload: the bench workload's grayscale images with 2
+    noise channels synthesized on the card (uint8), their labels, and the
+    config (ResNet-``depth`` at ``width``, batch 256, 8 epochs)."""
+    from tpumcia_torch.io.synthetic import synthetic_mednist
+    from tpumcia_torch.models.train import CNNConfig
+    from tpumcia_torch.preprocess.synth import add_noise_channels_batched
+
+    gray, labels, _ = synthetic_mednist(n_images // 6, num_classes=6, seed=0)
+    images = add_noise_channels_batched(gray, seed=0, batch_size=BATCH, device=device)  # uint8 on the card
+    return images, labels, CNNConfig(num_classes=6, depth=depth, width=width, batch_size=256, epochs=8)
+
+
 def phase_cnn(device, n_images=N_IMAGES, n_cpu=32, width=64, depth="18"):
     """BASELINE config 3 at full width through ``run_cnn_pipeline``: the
     bench workload's images with 2 noise channels synthesized on the card,
@@ -1634,23 +1682,14 @@ def phase_cnn(device, n_images=N_IMAGES, n_cpu=32, width=64, depth="18"):
 
     from tpumcia_torch.features import cuda_glcm
     from tpumcia_torch.importance.occlusion import occlusion_map
-    from tpumcia_torch.io.synthetic import synthetic_mednist
     from tpumcia_torch.models.cnn import make_resnet
-    from tpumcia_torch.models.train import CNNConfig, CNNHead, fit_cnn
+    from tpumcia_torch.models.train import CNNHead, fit_cnn
     from tpumcia_torch.pipeline.run_cnn import run_cnn_pipeline
-    from tpumcia_torch.preprocess.synth import add_noise_channels_batched
 
     torch.backends.cudnn.benchmark = True  # cuDNN picks each convolution's algorithm by timing it once
-    settings = {
-        "cudnn.benchmark": torch.backends.cudnn.benchmark,
-        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
-        "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-        "compute": "bf16 autocast, float32 parameters, channels_last",
-    }
-    gray, labels, _ = synthetic_mednist(n_images // 6, num_classes=6, seed=0)
-    images = add_noise_channels_batched(gray, seed=0, batch_size=BATCH, device=device)  # uint8 on the card
-    cfg = CNNConfig(num_classes=6, depth=depth, width=width, batch_size=256, epochs=8)
-    n_repeats = 5
+    settings = _cnn_settings()
+    images, labels, cfg = cnn_workload(device, n_images, width, depth)
+    n_repeats = CNN_REPEATS
 
     cuda_glcm.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(device)
@@ -1806,17 +1845,17 @@ def _mesh_run(device, x, mask, labels, donors, timed_runs, form, per_run, cfg, p
     return launches, times, result
 
 
-def _dryrun_ranks(tmp, device, world, backend, slots, n):
-    """``world`` ranks of ``python -m tpumcia_torch.parallel.dryrun`` on the
-    card, started together over a file store in ``tmp``; returns
-    (processes, the rank-0 record's path, the start time). Each process is
-    waited for by :func:`_wait_ranks`."""
+def _dryrun_ranks(tmp, device, world, backend, slots, mode_args):
+    """``world`` ranks of ``python -m tpumcia_torch.parallel.dryrun`` with
+    ``mode_args`` on the card, started together over a file store in
+    ``tmp``; returns (processes, the rank-0 record's path, the start time).
+    Each process is waited for by :func:`_wait_ranks`."""
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     out = Path(tmp) / "rank0.json"
     procs = [subprocess.Popen(
         [sys.executable, "-m", "tpumcia_torch.parallel.dryrun", "--world", str(world), "--rank", str(r),
          "--store", str(Path(tmp) / "store"), "--backend", backend, "--device", device.type,
-         "--slots", str(slots), "--objects", str(n), "--out", str(out)],
+         "--slots", str(slots), "--out", str(out), *mode_args],
         cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     ) for r in range(world)]
@@ -1930,7 +1969,8 @@ def phase_mesh(device, data, timed_runs=3, n_cpu=64):
         try:
             for name, world, backend, slots in MESH_RUNS:
                 (Path(tmp) / name).mkdir()
-                started.append(_dryrun_ranks(Path(tmp) / name, device, world, backend, slots, MESH_RANK_N))
+                started.append(_dryrun_ranks(Path(tmp) / name, device, world, backend, slots,
+                                             ["--objects", str(MESH_RANK_N)]))
             t_ref = time.perf_counter()
             ref = dryrun.reference(MESH_RANK_N, device, Path(tmp) / "reference_stream")
             ref_s = time.perf_counter() - t_ref
@@ -1961,6 +2001,211 @@ def phase_mesh(device, data, timed_runs=3, n_cpu=64):
         "ranking": result.channel_result.ranking.tolist(), "processes": runs,
         "process_objects": MESH_RANK_N, "reference_s": ref_s,
     }
+
+
+def _grad_parity(device, x, y, cfg, steps=CNN_PARITY_STEPS):
+    """Phase 16 (a'): float32 at full width, TF32 off, cuDNN deterministic.
+    One slot (one backward over the batch) and two slots on the card
+    (``reduce_gradients``) take the same batches from the same weights (the
+    one-slot model steps; the two-slot model and a float64 copy are loaded
+    with its weights before each step). Per step: the losses agree to
+    CNN_LOSS_RTOL, and the two-slot gradient lies within CNN_GRAD_F64_RATIO
+    times the one-slot gradient's own distance from the float64 gradient
+    (both in units of max |g64|): the split adds no more than one float32
+    pass's own rounding. ``max |g2 - g1| / max |g1|`` is reported beside.
+    Returns the per-step records."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpumcia_torch.models.cnn import init_parameters, make_resnet
+    from tpumcia_torch.models.train import make_optimizer
+    from tpumcia_torch.parallel import make_mesh, reduce_gradients, replicate
+
+    def model():
+        m = make_resnet(cfg.num_classes, in_channels=x.shape[-1], width=cfg.width, depth=cfg.depth,
+                        dtype=torch.float32)
+        init_parameters(m, torch.Generator().manual_seed(cfg.seed))
+        return m.to(device, memory_format=torch.channels_last)
+
+    def grads(m):
+        return torch.cat([p.grad.reshape(-1).double() for p in m.parameters()])
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        one, two, ref = model(), model(), model().double()
+        mesh = make_mesh(devices=[device, device])
+        replicas = replicate(two, mesh)
+        optimizer = make_optimizer(one, cfg)
+        records = []
+        bs = cfg.batch_size
+        for step in range(steps):
+            xb, yb = x[step * bs:(step + 1) * bs], y[step * bs:(step + 1) * bs]
+            two.load_state_dict(one.state_dict())
+            ref.load_state_dict(one.state_dict())
+            ref.zero_grad(set_to_none=True)
+            F.cross_entropy(ref(xb.double()), yb).backward()
+            optimizer.zero_grad(set_to_none=True)
+            loss = F.cross_entropy(one(xb), yb)
+            loss.backward()
+            loss = loss.detach()
+            got = reduce_gradients(replicas, mesh, xb, yb)
+            g64, g1, g2 = grads(ref), grads(one), grads(two)
+            scale = float(g64.abs().max())
+            rec = {"one_vs_f64": float((g1 - g64).abs().max()) / scale,
+                   "two_vs_f64": float((g2 - g64).abs().max()) / scale,
+                   "two_vs_one": float((g2 - g1).abs().max()) / float(g1.abs().max()),
+                   "loss_rel": abs(float(got) - float(loss)) / abs(float(loss))}
+            records.append(rec)
+            log(f"  (a') step {step}: loss one slot {float(loss)!r}, two slots {float(got)!r}; gradients over "
+                f"max |g64|: one slot {rec['one_vs_f64']!r}, two slots {rec['two_vs_f64']!r} from float64; "
+                f"max |g2 - g1| / max |g1| = {rec['two_vs_one']!r}")
+            if not (rec["two_vs_f64"] <= CNN_GRAD_F64_RATIO * rec["one_vs_f64"] and rec["loss_rel"] <= CNN_LOSS_RTOL):
+                raise AssertionError(f"(a') step {step}: {rec} (two slots within {CNN_GRAD_F64_RATIO} x the one "
+                                     f"slot's distance from float64; losses within rel {CNN_LOSS_RTOL})")
+            optimizer.step()
+        return records
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
+
+
+def phase_cnn_mesh(device, cnn_rec, n_images=N_IMAGES, width=64, depth="18"):
+    """The CNN path over a mesh (ROADMAP A14b). (a) ``run_cnn_pipeline`` on
+    phase 13's workload over two slots on the card in one process
+    (``make_mesh(data=2, devices=[card, card])``): phase 13's gates (test
+    accuracy >= 0.90, the signal channel first by occlusion and by image
+    permutation, no GLCM launch) and the trained and occluded images/s beside
+    phase 13's one-slot numbers of this call. (a') float32 parity at full
+    width: 3 steps of one slot against two slots on the same weights, TF32
+    off, cuDNN deterministic, with a float64 copy as the truth: the two-slot
+    gradient within CNN_GRAD_F64_RATIO (2) times the one-slot gradient's own
+    distance from the float64 gradient, the losses within CNN_LOSS_RTOL (rel
+    1e-4). A fixed 1e-5 x max |g| between the two float32 gradients does not
+    hold at full width: the batch's float32 reductions round apart by ~1e-4
+    of max |g| in cuDNN's algorithms. Adam's first steps are sign-like, so
+    gradients and losses are compared, not parameters. (b) two gloo ranks on the card and (c) one NCCL rank with two
+    slots, each through ``python -m tpumcia_torch.parallel.dryrun --mode cnn
+    --size full`` (2,048 64x64 images, ResNet-18 at width 64, three epochs
+    at batch 256, the probes on 512 of them), started together: every rank's
+    loss history, final ``state_dict``, logits and probe drops equal to each
+    other and to the parent's own two-slot run with cuDNN deterministic, bit
+    for bit. Returns the record."""
+    import numpy as np
+    import torch
+
+    from tpumcia_torch.features import cuda_glcm
+    from tpumcia_torch.parallel import dryrun, make_mesh
+    from tpumcia_torch.pipeline.run_cnn import run_cnn_pipeline
+
+    torch.backends.cudnn.benchmark = True  # as phase 13
+    settings = _cnn_settings()
+    images, labels, cfg = cnn_workload(device, n_images, width, depth)
+    mesh = make_mesh(data=2, devices=[device, device])
+    cuda_glcm.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    res = run_cnn_pipeline(images, labels, device=device, config=cfg, mesh=mesh, n_repeats=CNN_REPEATS)
+    _sync(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    torch.backends.cudnn.benchmark = False
+    if cuda_glcm.LAUNCHES != 0:
+        raise AssertionError(f"the CNN path over a mesh launched GLCM kernels: {cuda_glcm.LAUNCHES_BY_FORM}")
+    occ, perm = res.occlusion, res.permutation
+    if res.test_accuracy < 0.90:
+        raise AssertionError(f"(a) test accuracy {res.test_accuracy} < 0.90; history {res.head.history}")
+    if occ.top_channel() != 0 or perm.top_channel() != 0:
+        raise AssertionError(f"(a) signal channel not first: occlusion {occ.mean}, permutation {perm.mean}")
+    losses = [h["loss"] for h in res.head.history]
+    if len(losses) != cfg.epochs or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"(a) training history {res.head.history}")
+    n_train, n_test, C = len(res.train_idx), len(res.test_idx), images.shape[-1]
+    sweeps = 2 + C + C * CNN_REPEATS
+    fit_s, imp_s = res.timings["fit_s"], res.timings["importance_s"]
+    trained, occluded = n_train * cfg.epochs / fit_s, sweeps * n_test / imp_s
+    log(f"  (a) 2 slots on {device}, settings {json.dumps(settings)}: fit {fit_s!r} s = {trained!r} trained "
+        f"images/s (phase 13, one slot: {cnn_rec['trained_images_per_s']!r}); importance {imp_s!r} s = "
+        f"{occluded!r} occluded images/s (phase 13: {cnn_rec['occluded_images_per_s']!r}); test accuracy "
+        f"{res.test_accuracy!r}; losses {losses!r}; occlusion {occ.mean.tolist()!r}, permutation "
+        f"{perm.mean.tolist()!r}; peak {peak / 1e9!r} GB")
+
+    x = images.to(torch.float32) / 255.0
+    train = torch.from_numpy(res.train_idx[:CNN_PARITY_STEPS * cfg.batch_size]).to(device)
+    y_idx = torch.from_numpy(np.unique(labels, return_inverse=True)[1]).to(device)
+    test_accuracy = res.test_accuracy
+    del res, images
+    t0 = time.perf_counter()
+    parity = _grad_parity(device, x[train], y_idx[train], cfg)
+    parity_s = time.perf_counter() - t0
+    del x
+
+    runs, started = {}, []
+    with tempfile.TemporaryDirectory(prefix="tpumcia_cnn_mesh_") as tmp:
+        try:
+            for name, world, backend, slots in MESH_RUNS:
+                (Path(tmp) / name).mkdir()
+                started.append(_dryrun_ranks(Path(tmp) / name, device, world, backend, slots,
+                                             ["--mode", "cnn", "--size", CNN_MESH_SIZE]))
+            t_ref = time.perf_counter()
+            ref = dryrun.reference_cnn(CNN_MESH_SIZE, device, slots=2)
+            ref_s = time.perf_counter() - t_ref
+            for (name, world, backend, slots), (procs, out, t0) in zip(MESH_RUNS, started):
+                rec, codes, secs = _wait_ranks(procs, out, t0, name)
+                bad = dryrun.cnn_mismatches(rec, ref)
+                if bad:
+                    raise AssertionError(f"{name}: the ranks differ from each other or from one process in {bad}")
+                if rec["mesh"]["backend"] != backend or len(rec["mesh"]["slots"]) != 2 or len(rec["ranks"]) != world:
+                    raise AssertionError(f"{name}: mesh {rec['mesh']}, {len(rec['ranks'])} rank records")
+                runs[name] = {"world": world, "backend": backend, "slots": 2, "exit_codes": codes,
+                              "seconds": secs, "rank_seconds": [r["seconds"] for r in rec["ranks"]]}
+                log(f"  ({'b' if backend == 'gloo' else 'c'}) {name}: {world} rank(s) x {slots} slot(s) over "
+                    f"{backend}, exit codes {codes}, {secs!r} s; ranks equal to each other and to one process "
+                    f"bit for bit; rank seconds {json.dumps([r['seconds'] for r in rec['ranks']])}")
+        finally:
+            for procs, _, _ in started:
+                _kill(procs)
+    log(f"  (a') float32, {CNN_PARITY_STEPS} steps at batch {cfg.batch_size}: {parity_s!r} s; the one-process "
+        f"two-slot reference for (b) and (c): {ref_s!r} s, losses {ref['history']!r}, occlusion {ref['occlusion']!r}")
+    return {
+        "settings": settings, "slots": 2, "train_images": n_train, "test_images": n_test, "epochs": cfg.epochs,
+        "batch_size": cfg.batch_size, "fit_s": fit_s, "trained_images_per_s": trained,
+        "one_slot_trained_images_per_s": cnn_rec["trained_images_per_s"], "importance_s": imp_s,
+        "occluded_images_per_s": occluded, "one_slot_occluded_images_per_s": cnn_rec["occluded_images_per_s"],
+        "peak_bytes": peak, "test_accuracy": test_accuracy, "losses": losses,
+        "occlusion_drops": occ.mean.tolist(), "permutation_drops": perm.mean.tolist(),
+        "f32_parity": parity, "f32_parity_s": parity_s,
+        "processes": runs, "process_size": dryrun.CNN_SIZES[CNN_MESH_SIZE], "reference_s": ref_s,
+    }
+
+
+def phase_examples(device):
+    """``python -m tpumcia_torch.examples.<name>`` for each of EXAMPLES at its
+    default size on the card, started together; each must exit 0 within
+    EXAMPLE_TIMEOUT_S. Returns the record."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    for name, why in EXAMPLES_LEFT_OUT.items():
+        log(f"  {name}: not run here: {why}")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"tpumcia_torch.examples.{name}", "--device", str(device)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in EXAMPLES}
+    t0, rec = time.perf_counter(), {}
+    try:
+        for name, p in procs.items():
+            try:
+                text, _ = p.communicate(timeout=max(1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"example {name} did not finish in {EXAMPLE_TIMEOUT_S} s") from None
+            if p.returncode != 0:
+                raise AssertionError(f"example {name} exited {p.returncode}:\n{text[-4000:]}")
+            rec[name] = {"exit_code": p.returncode, "seconds_since_start": time.perf_counter() - t0}
+            tail = [line for line in text.strip().splitlines() if line.strip()][-3:]
+            log(f"  {name}: exit 0 ({rec[name]['seconds_since_start']!r} s since the start); last lines: "
+                + " | ".join(line.strip() for line in tail))
+    finally:
+        _kill(list(procs.values()))
+    return {"run": rec, "left_out": EXAMPLES_LEFT_OUT}
 
 
 def main() -> int:
@@ -2075,6 +2320,12 @@ def main() -> int:
         kernels[form]["launches"] += count
     del cyto
 
+    log("== the CNN path over a mesh (two slots on the card; float32 parity; two gloo ranks; one NCCL rank)")
+    cnn_mesh_rec = phase_cnn_mesh(device, cnn_rec)
+
+    log("== the examples (python -m tpumcia_torch.examples.<name>)")
+    examples_rec = phase_examples(device)
+
     print(gpu_line, flush=True)
     print(json.dumps({
         "kernels": [{"form": form, **kernels[form]} for form in FORMS],
@@ -2082,7 +2333,8 @@ def main() -> int:
         "classic_1024": classic_1024, "classic_8192": classic_8192, "classic_256px": classic_256px,
         "forest": forest_rec, "cytometry_morphology": cyto_morph_rec,
         "faults": faults_rec, "analyze_objects": analyze_rec, "streaming": streaming_rec,
-        "cnn": cnn_rec, "eval": eval_rec, "mesh": mesh_rec,
+        "cnn": cnn_rec, "eval": eval_rec, "mesh": mesh_rec, "cnn_mesh": cnn_mesh_rec,
+        "examples": examples_rec,
     }), flush=True)
     print(json.dumps({
         "ok": True,

@@ -653,3 +653,49 @@ def test_eval_cli_on_card(tmp_path):
     events = [json.loads(line) for line in metrics.read_text().splitlines()]
     assert [e["event"] for e in events] == ["data_loaded", "pipeline_done"]
     assert events[1]["channel_ranking"][0] == 0 and cuda_glcm.LAUNCHES_BY_FORM["B1a"] == 1
+
+
+def test_two_slots_on_the_card_match_one_slot_float32():
+    """The CNN's data-parallel step over two slots on ``cuda:0`` against one
+    backward over the whole batch, float32 with TF32 off and cuDNN
+    deterministic, three steps from the same weights each time: reduced
+    gradients within 1e-5 x max |g|, losses rel 1e-4. At full width
+    (``chip_smoke.py`` phase 16 (a')) the two float32 gradients round ~1e-4
+    of max |g| apart, so that phase holds them against a float64 copy."""
+    dev = require_cuda()
+    import torch.nn.functional as F
+
+    from tpumcia_torch.models.cnn import init_parameters, make_resnet
+    from tpumcia_torch.models.train import CNNConfig, make_optimizer
+    from tpumcia_torch.parallel import make_mesh, reduce_gradients, replicate
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.random((3, 16, 16, 16, 3), dtype=np.float32)).to(dev)
+        y = torch.from_numpy(rng.integers(0, 3, (3, 16))).to(dev)
+        one = make_resnet(3, in_channels=3, width=8, depth="10", dtype=torch.float32)
+        init_parameters(one, torch.Generator().manual_seed(0))
+        one = one.to(dev, memory_format=torch.channels_last)
+        two = make_resnet(3, in_channels=3, width=8, depth="10", dtype=torch.float32).to(
+            dev, memory_format=torch.channels_last)
+        mesh = make_mesh(devices=[dev, dev])
+        replicas = replicate(two, mesh)
+        optimizer = make_optimizer(one, CNNConfig(num_classes=3))
+        for step in range(3):
+            two.load_state_dict(one.state_dict())
+            optimizer.zero_grad(set_to_none=True)
+            loss = F.cross_entropy(one(x[step]), y[step])
+            loss.backward()
+            got = reduce_gradients(replicas, mesh, x[step], y[step])
+            g1 = torch.cat([p.grad.reshape(-1) for p in one.parameters()])
+            g2 = torch.cat([p.grad.reshape(-1) for p in two.parameters()])
+            assert float((g2 - g1).abs().max()) <= 1e-5 * float(g1.abs().max()), step
+            torch.testing.assert_close(got, loss.detach(), rtol=1e-4, atol=0)
+            optimizer.step()
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags

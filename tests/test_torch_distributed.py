@@ -1,8 +1,10 @@
 """The port across processes (``tpumcia_torch.parallel.distributed``) on
 the CPU: ``init_distributed``'s topology rules (the counterpart of
-``tests/test_distributed.py``'s single-process tests), and two gloo ranks
-of ``python -m tpumcia_torch.parallel.dryrun`` held against the same calls
-in this process on one device.
+``tests/test_distributed.py``'s single-process tests), two gloo ranks of
+``python -m tpumcia_torch.parallel.dryrun`` held against the same calls in
+this process on one device, two gloo ranks of its CNN mode
+(``fit_cnn(mesh=)`` and the probes) held against each other and against
+this process's two-slot run, and ``CNNHead.save`` over a two-rank mesh.
 
 The children import torch and the port only (no jax). Each rendezvous goes
 through a ``file://`` store under the test's own directory (no port to
@@ -11,7 +13,13 @@ child runs under a subprocess timeout that kills every rank and fails the
 test, so a hung rank cannot hold up the suite. Tolerances: none; rank 0's
 digests (statistics, features, scaler, sweeps, the pipeline's features and
 split) equal the one-process run's bit for bit, its accuracy and rankings
-are equal, and the stream directory holds every shard once.
+are equal, and the stream directory holds every shard once. The CNN ranks'
+loss histories, final weights, logits and probe drops equal each other and
+this process's two-slot run bit for bit: every process runs torch on one
+thread (the children ``torch.set_num_threads(1)``, this one through
+``torch_parity``), so each 8-row block runs the same oneDNN kernels in every
+process, and the all-reduce of two ranks adds the same two numbers as one
+replica's accumulation of its two slots.
 """
 
 import json
@@ -178,3 +186,62 @@ def test_two_gloo_ranks_match_one_process(tmp_path):
     assert dryrun.mismatches(got, ref, N_OBJECTS) == []
     assert got["pipeline"]["ranking"][0] == dryrun.SIGNAL
     assert got["pipeline"]["test_accuracy"] >= 0.95
+
+
+def test_two_gloo_ranks_of_the_cnn_match_one_process_two_slots(tmp_path):
+    """``--mode cnn --size tiny``: both ranks' records equal each other and
+    :func:`dryrun.reference_cnn` over two slots in this process."""
+    cmds = [[sys.executable, "-m", "tpumcia_torch.parallel.dryrun", "--mode", "cnn", "--size", "tiny",
+             "--world", "2", "--rank", str(r), "--store", str(tmp_path / "store"), "--backend", "gloo",
+             "--device", "cpu", "--out", str(tmp_path / "rank0.json")] for r in (0, 1)]
+    results = _run_children(cmds)
+    for r, (rc, text) in enumerate(results):
+        assert rc == 0, f"rank {r}:\n{text}"
+    got = json.loads((tmp_path / "rank0.json").read_text())
+    assert got["mesh"]["data"] == 2 and got["mesh"]["backend"] == "gloo" and len(got["ranks"]) == 2
+    assert got["summary"]["process_count"] == 2
+    ref = dryrun.reference_cnn("tiny", "cpu", slots=2)
+    assert dryrun.cnn_mismatches(got, ref) == []
+    assert len(ref["history"]) == dryrun.CNN_SIZES["tiny"]["epochs"] and ref["occlusion"][0] > 0
+    assert set(got["ranks"][1]["seconds"]) == {"rendezvous", "fit", "logits", "occlusion", "permutation", "map"}
+    # the check would see a difference: one slot trains other weights
+    assert dryrun.cnn_mismatches(got, dryrun.reference_cnn("tiny", "cpu", slots=1)) != []
+
+
+_SAVE_CHILD = """
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+from tpumcia_torch.models import cnn, train
+from tpumcia_torch.parallel import init_distributed, make_mesh
+store, rank, path = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+init_distributed(f"file://{store}", 2, rank, backend="gloo", timeout_s=60)
+writes = []
+real_save = torch.save
+torch.save = lambda *a, **k: (writes.append(1), real_save(*a, **k))
+model = cnn.make_resnet(3, in_channels=2, width=8, depth="10")
+cnn.init_parameters(model, torch.Generator().manual_seed(4))
+cfg = train.CNNConfig(num_classes=3, width=8, depth="10")
+head = train.CNNHead(model=model, classes=np.array([0, 1, 2]), config=cfg, mesh=make_mesh(devices="cpu"))
+head.save(path)
+back = train.CNNHead.load(path, device="cpu")  # every rank reads it after the barrier
+same = all(torch.equal(a, b) for a, b in zip(back.model.state_dict().values(), model.state_dict().values()))
+print(json.dumps({"rank": rank, "writes": len(writes), "same": same}))
+dist.destroy_process_group()
+"""
+
+
+def test_cnn_head_save_over_two_ranks_writes_once(tmp_path):
+    """Over a mesh spanning two ranks, rank 0 writes the one file and both
+    read it back after the barrier; ``CNNHead.load`` in this process reads
+    it as it reads a one-device save."""
+    path = tmp_path / "head.pt"
+    results = _run_children([[sys.executable, "-c", _SAVE_CHILD, str(tmp_path / "store"), str(r), str(path)]
+                             for r in (0, 1)])
+    for r, (rc, text) in enumerate(results):
+        assert rc == 0, f"rank {r}:\n{text}"
+    records = [json.loads(text.strip().splitlines()[-1]) for _, text in results]
+    assert [(d["rank"], d["writes"], d["same"]) for d in records] == [(0, 1, True), (1, 0, True)]
+    from tpumcia_torch.models.train import CNNHead
+
+    head = CNNHead.load(path, device="cpu")
+    assert head.config.width == 8 and head.mesh is None and head.model.in_channels == 2

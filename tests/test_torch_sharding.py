@@ -386,19 +386,6 @@ def test_stream_extract_with_mesh_crosses_with_jax(tmp_path):
     np.testing.assert_array_equal(tload.values, np.asarray(jload.values))
 
 
-@pytest.mark.parametrize("entry", ["fit_cnn", "run_cnn_pipeline"])
-def test_cnn_entry_points_still_refuse_a_mesh(entry):
-    """The CNN half of the mesh work is still to port: a mesh raises, naming
-    its ROADMAP item, before any work."""
-    from tpumcia_torch.models.train import fit_cnn
-    from tpumcia_torch.pipeline.run_cnn import run_cnn_pipeline
-
-    fn = {"fit_cnn": fit_cnn, "run_cnn_pipeline": run_cnn_pipeline}[entry]
-    x = np.zeros((4, 8, 8, 2), np.uint8)
-    with pytest.raises(NotImplementedError, match="A14b"):
-        fn(x, np.array([0, 1, 0, 1]), device="cpu", mesh=tmesh.make_mesh(devices=["cpu", "cpu"]))
-
-
 def test_mesh_rejects_other_objects():
     with pytest.raises(TypeError, match="Mesh"):
         tmesh.check_mesh(object())

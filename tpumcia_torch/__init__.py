@@ -22,10 +22,11 @@ properties. ``load_objects`` reads per-object HDF5 files into an
 a collection of any size in resumable shards, with a bounded share of it on
 the device. The CNN path is ``models.cnn`` (a ResNet with a C-channel stem),
 ``models.train.fit_cnn``, ``importance.occlusion`` and
-``pipeline.run_cnn.run_cnn_pipeline``; ``python -m tpumcia_torch.eval`` is the
+``pipeline.run_cnn.run_cnn_pipeline``, on one device or data-parallel over a
+mesh (``parallel.data_parallel``); ``python -m tpumcia_torch.eval`` is the
 config-driven command line, with ``reports.plots`` and ``utils.profiling``
-behind it (``--distributed`` across processes). Not ported yet: the CNN
-path over a mesh and the examples (ROADMAP A14b, A15).
+behind it (``--distributed`` across processes), and
+``python -m tpumcia_torch.examples.<name>`` runs tpumcia's five examples.
 Module paths and function names mirror ``tpumcia`` so each counterpart is
 easy to find. It imports neither ``jax`` (nor ``flax``, ``optax``, ``orbax``)
 nor ``tpumcia`` nor ``sklearn``.

@@ -15,9 +15,14 @@ Three probes over a trained image classifier (``models.train.CNNHead``):
 
 All run without gradients on the head's device, a chunk of the batch at a
 time: an altered copy exists for one chunk only, so a sweep over C channels
-x R repeats never holds C*R copies of the images. Accuracies are float32
-and rounded as tpumcia's (the count times the float32 reciprocal of B), so
-equal predictions give equal drops. A
+x R repeats never holds C*R copies of the images. Over a head's mesh
+(``CNNHead.mesh``) each data slot takes its rows of every altered batch on
+its device's replica (the alteration, a permutation of the whole batch
+included, is applied before the split); the integer counts of correct
+predictions are summed over the slots and ranks, and ``occlusion_map``'s
+per-image drops are gathered in row order, so every rank gets the result.
+Accuracies are float32 and rounded as tpumcia's (the count times the
+float32 reciprocal of B), so equal predictions give equal drops. A
 label that training never saw maps to -1 (``labels_to_class_idx``): in the
 accuracy probes it counts as a misprediction; in :func:`occlusion_map` it
 reads the last class in both the base and the occluded probabilities.
@@ -52,10 +57,11 @@ def _accuracy(head, x, y_idx, alter=None) -> torch.Tensor:
     """float32 accuracy of ``head`` on ``x``, or on ``alter(x[s:e], s, e)``
     chunk by chunk (``alter`` gets a copy it may write into)."""
     correct = torch.zeros((), dtype=torch.int64, device=x.device)
-    for s in range(0, len(x), PREDICT_CHUNK):
-        e = min(s + PREDICT_CHUNK, len(x))
+    for model, dev, s, e in head.chunks(len(x), PREDICT_CHUNK):
         xc = x[s:e] if alter is None else alter(x[s:e].clone(), s, e)
-        correct += (torch.argmax(head.forward(xc), dim=-1) == y_idx[s:e]).sum()
+        pred = torch.argmax(head.forward(xc.to(dev), model), dim=-1).to(x.device)
+        correct += (pred == y_idx[s:e]).sum()
+    correct = head.sum_over_ranks(correct)
     # jnp.mean's rounding: the count times the float32 reciprocal of B
     return correct.to(torch.float32) * float(np.float32(1.0) / np.float32(len(x)))
 
@@ -121,11 +127,12 @@ def occlusion_map(
     cols = list(range(0, W - window + 1, stride)) or [0]
 
     def true_class_prob(alter):
-        out = []
-        for s in range(0, B, PREDICT_CHUNK):
-            xc = x[s:s + PREDICT_CHUNK]
-            p = torch.softmax(head.forward(xc if alter is None else alter(xc.clone())), dim=-1)
-            out.append(torch.take_along_dim(p, y_idx[s:s + PREDICT_CHUNK, None] % p.shape[1], dim=1)[:, 0])
+        """(this process's rows,) true-class probabilities."""
+        out = [torch.zeros((0,), device=x.device)]
+        for model, dev, s, e in head.chunks(B, PREDICT_CHUNK):
+            xc = x[s:e]
+            p = torch.softmax(head.forward((xc if alter is None else alter(xc.clone())).to(dev), model), dim=-1)
+            out.append(torch.take_along_dim(p.to(x.device), y_idx[s:e, None] % p.shape[1], dim=1)[:, 0])
         return torch.cat(out)
 
     base = true_class_prob(None)
@@ -136,4 +143,5 @@ def occlusion_map(
                 xc[:, r:r + window, c:c + window, :] = fill
                 return xc
             drops.append(base - true_class_prob(alter))
-    return torch.stack(drops, dim=1).reshape(B, len(rows), len(cols)).cpu().numpy()
+    drops = head.gather_rows([torch.stack(drops, dim=1)])  # every rank's rows, in order
+    return drops.reshape(B, len(rows), len(cols)).cpu().numpy()

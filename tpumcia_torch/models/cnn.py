@@ -14,7 +14,8 @@ of weights runs in both packages (:func:`state_dict_from_flax`,
 * flax's ``padding="SAME"``: computed from the input size as XLA computes it,
   so a stride-2 3x3 convolution on an even size pads (0, 1), not (1, 1);
 * float32 parameters; compute in bfloat16 under ``torch.autocast`` (tpumcia's
-  ``dtype=bfloat16``), or in float32 with ``dtype=torch.float32``.
+  ``dtype=bfloat16``), or in float32 with ``dtype=torch.float32`` (whose
+  ``.double()`` copy computes in float64: a reference for checks).
 
 Input is (B, H, W, C) float in [0, 1], tpumcia's layout; inside it becomes
 an NCHW view of the same memory, which is PyTorch's ``channels_last``, so
@@ -131,15 +132,16 @@ class ResNet(nn.Module):
         if x.dim() != 4 or x.shape[-1] != self.in_channels:
             raise ValueError(
                 f"expected (B, H, W, {self.in_channels}) images; got shape {tuple(x.shape)}")
-        # NHWC memory seen as NCHW: channels_last, no copy
-        x = x.to(torch.float32).permute(0, 3, 1, 2)
+        # NHWC memory seen as NCHW: channels_last, no copy; cast to the
+        # parameters' type (float32, or float64 in a ``.double()`` reference)
+        x = x.to(self.classifier.weight.dtype).permute(0, 3, 1, 2)
         with self._compute(x.device.type):
             x = F.relu(self.GroupNorm_0(self.stem(x)))
             for name in self.block_names:
                 x = getattr(self, name)(x)
             x = x.mean(dim=(2, 3))  # global average pool
         with torch.autocast(x.device.type, enabled=False):
-            return self.classifier(x.to(torch.float32))  # the classifier stays float32
+            return self.classifier(x.to(self.classifier.weight.dtype))  # the classifier is never bf16
 
 
 def make_resnet(num_classes: int, *, in_channels: int, width: int = 64, depth: str = "18",

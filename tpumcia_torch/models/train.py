@@ -1,4 +1,5 @@
-"""CNN training on one device (counterpart of ``tpumcia.models.train``).
+"""CNN training on one device or over a device mesh (counterpart of
+``tpumcia.models.train``).
 
 :func:`fit_cnn` trains the ResNet of ``models/cnn.py`` with AdamW on softmax
 cross-entropy. What is kept from tpumcia so that the two can be compared:
@@ -14,10 +15,15 @@ cross-entropy. What is kept from tpumcia so that the two can be compared:
 
 The initial weights have tpumcia's distributions but not its draws
 (``cnn.init_parameters``); a test hands one set of weights to both packages.
-Training over a device mesh is not ported yet (ROADMAP A14b): ``mesh``
-raises ``NotImplementedError``. Checkpoints are one
-``torch.save`` file of tensors and plain values, read with
-``weights_only=True``; tpumcia's Orbax directories are not read.
+Over a ``parallel.Mesh`` each step splits the batch over the data slots and
+sums the gradients by hand (``parallel.data_parallel``); with several
+processes, tpumcia's contract holds: every rank passes the same full
+``(images, labels)``, and the seeded CPU generator gives every rank the same
+initial weights, so no broadcast is needed. :class:`CNNHead` over a mesh
+splits the rows of its inference entry points over the slots and gathers
+them over the ranks. Checkpoints are one ``torch.save`` file of tensors and
+plain values, read with ``weights_only=True``; tpumcia's Orbax directories
+are not read.
 """
 
 from __future__ import annotations
@@ -31,10 +37,14 @@ import torch.nn.functional as F
 
 from tpumcia_torch.features.stats import on_device
 from tpumcia_torch.models.cnn import ResNet, init_parameters, make_resnet
+from tpumcia_torch.parallel.data_parallel import data_parallel_step, local_blocks, replicate
+from tpumcia_torch.parallel.distributed import all_gather_rows, all_reduce_sum, barrier
+from tpumcia_torch.parallel.mesh import Mesh, check_mesh
 
 # images per forward pass of the inference entry points: logits do not depend
-# on the batch they were computed in (GroupNorm has no batch statistics), and
-# a chunk bounds the activations' memory
+# on the batch they were computed in (GroupNorm has no batch statistics; the
+# library's kernel choice by row count moves them by float32 ulps at most),
+# and a chunk bounds the activations' memory
 PREDICT_CHUNK = 1024
 
 
@@ -66,6 +76,8 @@ class CNNHead:
     classes: np.ndarray
     config: CNNConfig | None = None
     history: list = field(default_factory=list)
+    mesh: Mesh | None = None
+    replicas: dict | None = field(default=None, repr=False)
 
     is_device: bool = True
 
@@ -73,25 +85,49 @@ class CNNHead:
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits of float32 (B, H, W, C) images already on the head's
-        device, in one pass, without gradients."""
+    def forward(self, x: torch.Tensor, model: ResNet | None = None) -> torch.Tensor:
+        """Logits of float32 (B, H, W, C) images already on the device of
+        ``model`` (default: the head's), in one pass, without gradients."""
         with torch.no_grad():
-            return self.model(x)
+            return (model or self.model)(x)
+
+    def chunks(self, n: int, size: int = PREDICT_CHUNK):
+        """(model, device, start, stop) of each chunk of at most ``size``
+        rows that this process computes in a batch of ``n``: all of them on
+        the head's model without a mesh, each local slot's block on its
+        device's replica with one."""
+        if self.mesh is None:
+            blocks = [(self.model, self.device, 0, n)]
+        else:
+            if self.replicas is None:
+                self.replicas = replicate(self.model, self.mesh)
+            blocks = local_blocks(n, self.mesh, self.replicas)
+        for model, dev, a, b in blocks:
+            for s in range(a, b, size):
+                yield model, dev, s, min(s + size, b)
+
+    def gather_rows(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """This process's per-block results joined in row order on the
+        head's device, then every rank's (so every rank holds every row)."""
+        out = torch.cat([p.to(self.device) for p in parts])
+        return out if self.mesh is None else all_gather_rows(out, self.mesh.group)
+
+    def sum_over_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks of the head's mesh (counts)."""
+        return t if self.mesh is None else all_reduce_sum(t, self.mesh.group)
 
     def predict_logits(self, images) -> torch.Tensor:
         """(B, num_classes) float32 logits on the head's device, computed
-        :data:`PREDICT_CHUNK` images at a time."""
+        :data:`PREDICT_CHUNK` images at a time (over a mesh, each slot its
+        rows; every rank gets every row)."""
         x = images if isinstance(images, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(images))
         if x.dim() != 4:
             raise ValueError(f"expected (B, H, W, C) images; got shape {tuple(x.shape)}")
-        out = [  # a chunk crosses to the device at a time
-            self.forward(x[i:i + PREDICT_CHUNK].to(self.device).to(torch.float32))
-            for i in range(0, len(x), PREDICT_CHUNK)
+        out = [torch.zeros((0, self.model.num_classes), device=self.device)]
+        out += [  # a chunk crosses to its slot's device at a time
+            self.forward(x[s:e].to(dev).to(torch.float32), model) for model, dev, s, e in self.chunks(len(x))
         ]
-        if not out:
-            return torch.zeros((0, self.model.num_classes), device=self.device)
-        return torch.cat(out)
+        return self.gather_rows(out)
 
     def predict_proba(self, images) -> torch.Tensor:
         return torch.softmax(self.predict_logits(images), dim=-1)
@@ -105,7 +141,17 @@ class CNNHead:
 
     def save(self, path) -> None:
         """One ``torch.save`` file of tensors and plain values: the state
-        dict (on the CPU), the classes as a list and the config's fields."""
+        dict (on the CPU), the classes as a list and the config's fields.
+        Over a mesh that spans processes rank 0 writes, then every rank
+        waits for it."""
+        if self.mesh is not None and self.mesh.spans_processes:
+            if self.mesh.rank == 0:
+                self._write(path)
+            barrier(self.mesh.group)
+        else:
+            self._write(path)
+
+    def _write(self, path) -> None:
         torch.save(
             {
                 "state_dict": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
@@ -166,15 +212,6 @@ def make_optimizer(model: ResNet, cfg: CNNConfig) -> torch.optim.Optimizer:
     )
 
 
-def refuse_mesh(mesh, entry: str) -> None:
-    """The CNN path runs on one device: a mesh raises, naming its item."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{entry} over a device mesh is not ported yet (ROADMAP A14b: data-parallel "
-            "CNN training); the CNN path runs on the one device it is given"
-        )
-
-
 def fit_cnn(
     images,
     labels,
@@ -187,8 +224,10 @@ def fit_cnn(
     verbose: bool = False,
 ) -> CNNHead:
     """Train the ResNet on (B, H, W, C) images in [0, 1] (float) or [0, 255]
-    (integer, normalised on the device), numpy or a tensor, on ``device``."""
-    refuse_mesh(mesh, "fit_cnn")
+    (integer, normalised on the device), numpy or a tensor, on ``device``,
+    or over ``mesh`` (a ``parallel.Mesh``; ``device`` then gives way to its
+    first local slot's device, and every rank passes the same full
+    ``(images, labels)``)."""
     if getattr(images, "ndim", np.ndim(images)) != 4:
         raise ValueError(
             f"fit_cnn expects (B, H, W, C) images; got shape "
@@ -200,7 +239,7 @@ def fit_cnn(
             f"labels shape {labels.shape} does not match the "
             f"{images.shape[0]} images"
         )
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else check_mesh(mesh).first_device
     classes, y_idx = np.unique(labels, return_inverse=True)
     cfg = config or CNNConfig(num_classes=len(classes))
     images_all = images_on_device(images, device)
@@ -211,6 +250,20 @@ def fit_cnn(
     init_parameters(model, torch.Generator().manual_seed(cfg.seed))
     model = model.to(device, memory_format=torch.channels_last)
     optimizer = make_optimizer(model, cfg)
+    if mesh is None:
+        replicas = None
+
+        def step(xb, yb):
+            return train_step(model, optimizer, xb, yb)
+    else:
+        replicas = replicate(model, mesh)
+
+        def step(xb, yb):
+            return data_parallel_step(replicas, optimizer, mesh, xb, yb)
+
+    def head(history=()):
+        return CNNHead(model=model, classes=classes, config=cfg, history=list(history), mesh=mesh,
+                       replicas=replicas)
 
     history: list = []
     # nothing reads the loss mid-training: every fetch waits for the device,
@@ -220,15 +273,12 @@ def fit_cnn(
     n = images_all.shape[0]
     for epoch, idx_all in enumerate(epoch_batches(n, cfg.batch_size, cfg.epochs, cfg.seed)):
         idx_dev = torch.from_numpy(idx_all).to(device)
-        losses = [
-            train_step(model, optimizer, images_all[idx], y_all[idx]) for idx in idx_dev
-        ]
+        losses = [step(images_all[idx], y_all[idx]) for idx in idx_dev]
         mean_loss = torch.stack(losses).mean()
         if eager_history:
             entry = {"epoch": epoch, "loss": float(mean_loss)}
             if images_eval is not None:
-                head = CNNHead(model=model, classes=classes, config=cfg)
-                entry["eval_acc"] = head.score(images_eval, labels_eval)
+                entry["eval_acc"] = head().score(images_eval, labels_eval)
             history.append(entry)
             if verbose:
                 print(entry)
@@ -237,4 +287,4 @@ def fit_cnn(
     if not eager_history and epoch_losses:
         means = torch.stack(epoch_losses).cpu().numpy()  # one fetch for all epochs
         history = [{"epoch": e, "loss": float(m)} for e, m in enumerate(means)]
-    return CNNHead(model=model, classes=classes, config=cfg, history=history)
+    return head(history)

@@ -1,10 +1,11 @@
-"""Device meshes and multi-process runs for the feature path (counterpart
-of ``tpumcia.parallel``): ``mesh`` (``Mesh``, ``make_mesh``,
+"""Device meshes and multi-process runs for the feature and CNN paths
+(counterpart of ``tpumcia.parallel``): ``mesh`` (``Mesh``, ``make_mesh``,
 ``mesh_from_config``, ``row_ranges``), ``distributed``
 (``init_distributed``, ``shard_across_processes``, ``process_summary`` and
-the collectives) and ``sharding`` (the sharded statistics, features, scaler
-and permutation sweep). ``python -m tpumcia_torch.parallel.dryrun`` is one
-rank of a multi-process check run."""
+the collectives), ``sharding`` (the sharded statistics, features, scaler
+and permutation sweep) and ``data_parallel`` (the CNN's data-parallel step:
+per-device replicas, the gradient all-reduce). ``python -m
+tpumcia_torch.parallel.dryrun`` is one rank of a multi-process check run."""
 
 from tpumcia_torch.parallel.mesh import Mesh, make_mesh, mesh_from_config, row_ranges
 from tpumcia_torch.parallel.distributed import (
@@ -13,6 +14,7 @@ from tpumcia_torch.parallel.distributed import (
     process_summary,
     shard_across_processes,
 )
+from tpumcia_torch.parallel.data_parallel import data_parallel_step, reduce_gradients, replicate
 from tpumcia_torch.parallel.sharding import (
     extract_features_sharded,
     fit_scaler_sharded,
@@ -33,4 +35,7 @@ __all__ = [
     "Mesh",
     "ShardedRows",
     "mesh_from_config",
+    "replicate",
+    "reduce_gradients",
+    "data_parallel_step",
 ]

@@ -159,6 +159,11 @@ def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
     return _all_reduce(t, group, "MAX")
 
 
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise sum of ``t`` over the group's ranks (gradients, counts)."""
+    return _all_reduce(t, group, "SUM")
+
+
 def barrier(group=None) -> None:
     """Wait for every rank of ``group`` (None: the default group). NCCL
     needs the rank's device for it."""

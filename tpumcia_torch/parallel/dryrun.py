@@ -1,9 +1,11 @@
-"""One rank of a multi-process check run of the sharded feature path (the
-port's counterpart of ``__graft_entry__.dryrun_multichip``, without its CNN
-step).
+"""One rank of a multi-process check run of the sharded feature path or,
+with ``--mode cnn``, of the CNN path (the port's counterpart of
+``__graft_entry__.dryrun_multichip``).
 
     python -m tpumcia_torch.parallel.dryrun --world 2 --rank 0 --store /tmp/run/store \\
         --backend gloo --device cpu --objects 64 --out /tmp/run/rank0.json
+    python -m tpumcia_torch.parallel.dryrun --mode cnn --size tiny --world 2 --rank 0 \\
+        --store /tmp/run/store --backend gloo --device cpu --out /tmp/run/rank0.json
 
 Start one process per rank with the same ``--store`` (a ``file://``
 rendezvous) and ``--world``. Every rank makes the same cytometry-shaped
@@ -20,6 +22,17 @@ array, the kernel launches of every rank and the seconds to ``--out``.
 :func:`reference` computes the same results in one process on one device,
 through the unsharded calls, and :func:`mismatches` names where a rank's
 results differ from them: a run is right when it names nothing.
+
+The CNN mode trains ``fit_cnn(mesh=)`` over every rank's ``--slots`` slots
+on seeded synthetic images of one of :data:`CNN_SIZES`, then runs
+``predict_logits`` and the three occlusion probes over the same mesh. Every
+rank's record (the loss history, a digest of the final ``state_dict``, the
+logits' digest, the probes' drops, its seconds by step) goes into rank 0's
+``--out``. After the gradient all-reduce every rank holds the same weights,
+so the records are equal; :func:`reference_cnn` is the same run in one
+process over as many slots on one device, equal to them bit for bit where
+each slot's block runs the same kernels (one CPU thread; cuDNN with
+``deterministic`` set, which the CNN mode sets on a CUDA device).
 """
 
 from __future__ import annotations
@@ -38,6 +51,20 @@ HW, CHANNELS, SIGNAL = 48, 12, 4
 HEAD_STEPS = 300
 FOREST_TREES = 10
 SWEEP_REPEATS = 5
+
+# the CNN mode's sizes: ``tiny`` for the CPU tests, ``full`` for the card
+# (ResNet-18 at width 64; 24 steps at batch 256, enough to learn the signal
+# channel, so that the probes' drops are not all zero)
+CNN_SIZES = {
+    "tiny": {"images": 96, "hw": 16, "width": 8, "depth": "10", "epochs": 2, "batch_size": 16,
+             "learning_rate": 3e-3},
+    "full": {"images": 2048, "hw": 64, "width": 64, "depth": "18", "epochs": 3, "batch_size": 256,
+             "learning_rate": 1e-3},
+}
+CNN_CLASSES = 4
+CNN_PROBE_ROWS = 512  # the probes' rows (the first ones)
+CNN_MAP_ROWS = 16  # occlusion_map's images
+CNN_REPEATS = 2
 
 
 def make_objects(n: int, seed: int = 0):
@@ -121,6 +148,122 @@ def _fetcher(images, mask, labels):
     return lambda idx: (images[idx], mask[idx], labels[idx])
 
 
+def cnn_data(size: str):
+    """Seeded (images float32 (N, hw, hw, 3) in [0, 1], labels) for the CNN
+    mode: the port's ``synthetic_multichannel`` drawn on the CPU, so every
+    rank and the reference hold the same images."""
+    from tpumcia_torch.io.synthetic import synthetic_multichannel
+
+    sz = CNN_SIZES[size]
+    images, labels, _ = synthetic_multichannel(
+        sz["images"] // CNN_CLASSES, num_classes=CNN_CLASSES, hw=sz["hw"], seed=3, device="cpu")
+    return images.astype(np.float32) / 255.0, labels
+
+
+def cnn_config(size: str):
+    from tpumcia_torch.models.train import CNNConfig
+
+    sz = CNN_SIZES[size]
+    return CNNConfig(num_classes=CNN_CLASSES, width=sz["width"], depth=sz["depth"],
+                     epochs=sz["epochs"], batch_size=sz["batch_size"], learning_rate=sz["learning_rate"])
+
+
+def state_digest(model) -> str:
+    """sha256 over every tensor of a ``state_dict``, in order, with its name."""
+    h = hashlib.sha256()
+    for name, t in model.state_dict().items():
+        h.update(name.encode() + digest(t).encode())
+    return h.hexdigest()
+
+
+def cnn_steps(size: str, device, mesh, step) -> dict:
+    """``fit_cnn`` over ``mesh`` on the CNN mode's data, then
+    ``predict_logits`` and the three probes over the same mesh, each through
+    ``step(name, fn)``; returns the record (no seconds)."""
+    from tpumcia_torch.importance import occlusion
+    from tpumcia_torch.models.train import fit_cnn
+
+    images, labels = cnn_data(size)
+    x, y = images[:CNN_PROBE_ROWS], labels[:CNN_PROBE_ROWS]
+    head = step("fit", lambda: fit_cnn(images, labels, device=device, config=cnn_config(size), mesh=mesh))
+    return {
+        "history": [h["loss"] for h in head.history],
+        "state": state_digest(head.model),
+        "logits": step("logits", lambda: digest(head.predict_logits(x))),
+        "occlusion": step("occlusion", lambda: occlusion.channel_occlusion_importance(head, x, y).tolist()),
+        "permutation": step("permutation", lambda: occlusion.channel_permutation_importance_images(
+            head, x, y, n_repeats=CNN_REPEATS, seed=42).tolist()),
+        "map": step("map", lambda: digest(occlusion.occlusion_map(
+            head, x[:CNN_MAP_ROWS], y[:CNN_MAP_ROWS], window=8, stride=8))),
+    }
+
+
+def _cnn_determinism(device) -> None:
+    """One thread on the CPU; cuDNN's deterministic algorithms on a card
+    (the same kernels for the same block shapes in every process)."""
+    if device.type == "cuda":
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    else:
+        torch.set_num_threads(1)
+
+
+def reference_cnn(size: str, device, slots: int) -> dict:
+    """The CNN mode's record from one process over ``slots`` slots on
+    ``device`` (cuDNN's flags restored afterwards)."""
+    from tpumcia_torch.parallel import make_mesh
+
+    device = torch.device(device)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    try:
+        _cnn_determinism(device)
+        return cnn_steps(size, device, make_mesh(devices=[device] * slots), lambda name, fn: fn())
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def cnn_mismatches(rank0_record: dict, ref: dict) -> list[str]:
+    """Where the ranks' CNN records differ from each other or from
+    :func:`reference_cnn`'s; empty when they are all equal."""
+    ranks = rank0_record["ranks"]
+    bad = [f"rank {r} {k}" for r, rec in enumerate(ranks) for k in ref if rec.get(k) != ref[k]]
+    return bad + [f"rank {r} differs from rank 0" for r, rec in enumerate(ranks)
+                  if {k: rec.get(k) for k in ref} != {k: ranks[0].get(k) for k in ref}]
+
+
+def run_cnn_rank(args, device, t_start, t_joined) -> dict:
+    """This rank's part of the CNN check run; rank 0's record carries every
+    rank's."""
+    import torch.distributed as dist
+
+    from tpumcia_torch.parallel import make_mesh, process_summary
+    from tpumcia_torch.parallel.distributed import backend_of, barrier
+
+    _cnn_determinism(device)
+    mesh = make_mesh(devices=[device] * args.slots)
+    secs = {"rendezvous": t_joined - t_start}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    rec = cnn_steps(args.size, device, mesh, step)
+    rec["seconds"] = secs
+    out = {"summary": process_summary(), "size": args.size,
+           "mesh": {"data": mesh.shape["data"], "slots": [(r, str(d)) for r, d in mesh.slots],
+                    "backend": backend_of(mesh.group)}}
+    out["ranks"] = [None] * dist.get_world_size()
+    dist.all_gather_object(out["ranks"], rec)
+    barrier()
+    dist.destroy_process_group()
+    out["seconds"] = {"total": time.perf_counter() - t_start}
+    return out
+
+
 def run_rank(args) -> dict:
     """This rank's part of the check run; every rank returns its record,
     rank 0's carries every rank's launches."""
@@ -148,6 +291,8 @@ def run_rank(args) -> dict:
     else:
         torch.set_num_threads(1)  # the reference's CPU numbers come from one thread
         device = torch.device("cpu")
+    if args.mode == "cnn":
+        return run_cnn_rank(args, device, t_start, t_joined)
     pool = [device] * args.slots
     images, mask, labels, donors = make_objects(args.objects)
     mesh = make_mesh(devices=pool)
@@ -265,6 +410,8 @@ def mismatches(rank_record: dict, ref: dict, n: int) -> list[str]:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--mode", choices=("features", "cnn"), default="features")
+    p.add_argument("--size", choices=tuple(CNN_SIZES), default="tiny", help="the CNN mode's size")
     p.add_argument("--world", type=int, required=True, help="number of ranks")
     p.add_argument("--rank", type=int, required=True)
     p.add_argument("--store", required=True, help="rendezvous file, the same for every rank")

@@ -2,8 +2,10 @@
 
 A :class:`Mesh` is the port's ``jax.sharding.Mesh``: the ``data`` axis is
 a list of slots, each the (rank, device) that computes one block of the
-batch (objects are independent of each other), and ``model`` is kept for
-the CNN path's parameter split. A device pool (:func:`device_pool`) takes
+batch (objects are independent of each other). ``model`` is kept as a
+shape: each data index computes on its row's first device, and the CNN path
+keeps its classifier whole on every replica where tpumcia splits it over
+``model`` (the same numbers; ROADMAP, Known divergences). A device pool (:func:`device_pool`) takes
 the place of ``jax.devices()``: the devices this process was given, and
 under a ``torch.distributed`` process group every rank's pool, gathered in
 rank order. A pool may name one device more than once (``["cpu"] * 8``,

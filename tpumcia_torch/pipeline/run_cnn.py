@@ -2,8 +2,10 @@
 ``tpumcia.pipeline.run_cnn``): train the ResNet-style classifier on
 multichannel images and derive channel importance by occlusion and by
 pixel-space permutation: the learned-feature counterpart of
-``pipeline/run.py``. It runs on the one device it is given; a device
-``mesh`` raises ``NotImplementedError`` (ROADMAP A14b)."""
+``pipeline/run.py``. It runs on the one device it is given, or over a
+device ``mesh`` (``parallel.Mesh``: the fit and the probes split their rows
+over its data slots, across processes too; every rank passes the same
+images)."""
 
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from tpumcia_torch.importance.occlusion import (
     channel_occlusion_importance,
     channel_permutation_importance_images,
 )
-from tpumcia_torch.models.train import CNNConfig, CNNHead, fit_cnn, images_on_device, refuse_mesh
+from tpumcia_torch.models.train import CNNConfig, CNNHead, fit_cnn, images_on_device
+from tpumcia_torch.parallel.mesh import check_mesh
 from tpumcia_torch.utils.metrics import accuracy, classification_report
 from tpumcia_torch.utils.split import train_test_split_indices
 
@@ -58,9 +61,10 @@ def _to_channel_result(drops: np.ndarray, method: str) -> ChannelImportanceResul
     )
 
 
-def _now(device: torch.device) -> float:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _now(devices) -> float:
+    for device in devices:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     return time.perf_counter()
 
 
@@ -80,9 +84,14 @@ def run_cnn_pipeline(
 ) -> CNNPipelineResult:
     """images: (B, H, W, C) integer levels (uint8: scaled by 255) or float
     in [0, 1], numpy or a tensor; they cross to ``device`` once and stay
-    there. ``timings`` are wall seconds with the device synchronised."""
-    refuse_mesh(mesh, "run_cnn_pipeline")
-    device = torch.device(device)
+    there. ``timings`` are wall seconds with the devices synchronised. With
+    ``mesh``, ``device`` gives way to its first local slot's device."""
+    if mesh is None:
+        device = torch.device(device)
+        devices = [device]
+    else:
+        device = check_mesh(mesh).first_device
+        devices = list(dict.fromkeys(mesh.slots[s][1] for s in mesh.local_slots()))
     if getattr(images, "ndim", np.ndim(images)) != 4:
         raise ValueError(
             f"run_cnn_pipeline expects (B, H, W, C) images; got shape {tuple(np.shape(images))}")
@@ -96,24 +105,24 @@ def run_cnn_pipeline(
     train = torch.from_numpy(np.asarray(split.train_idx)).to(device)
     test = torch.from_numpy(np.asarray(split.test_idx)).to(device)
     timings = {}
-    t0 = _now(device)
+    t0 = _now(devices)
     cfg = config or CNNConfig(num_classes=len(np.unique(labels)))
     head = fit_cnn(
-        x[train], labels[split.train_idx], device=device, config=cfg, verbose=verbose,
+        x[train], labels[split.train_idx], device=device, config=cfg, mesh=mesh, verbose=verbose,
     )
-    timings["fit_s"] = _now(device) - t0
+    timings["fit_s"] = _now(devices) - t0
 
     x_test, y_test = x[test], labels[split.test_idx]
     pred = head.predict(x_test)
     test_acc = accuracy(y_test, pred)
     report = classification_report(y_test, pred)
 
-    t0 = _now(device)
+    t0 = _now(devices)
     occ = channel_occlusion_importance(head, x_test, y_test)
     perm = channel_permutation_importance_images(
         head, x_test, y_test, n_repeats=n_repeats, seed=importance_seed
     )
-    timings["importance_s"] = _now(device) - t0
+    timings["importance_s"] = _now(devices) - t0
 
     return CNNPipelineResult(
         head=head,
