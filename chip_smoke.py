@@ -123,7 +123,18 @@ Phases (any failure exits nonzero, and no result line is printed):
      cnn_workflow, notebook_workflow (no figures: no matplotlib here),
      streaming_scale and multihost_pipeline at their default sizes, each
      exiting 0 (cytometry_h5 needs h5py, which is not installed here);
- 18. prints the kernels' JSON line and, last, the device JSON line.
+ 18. tpumcia's API on the card (run after phase 15, on phase 5's objects):
+     (a) the stats-level ``features.stats.sufficient_stats`` on 2,048 of
+     them with no ``device=`` (one B1c launch), bit-equal to a direct
+     ``cuda_glcm`` launch and on 64 objects to the CPU plain version, its
+     ``with_intensity`` / ``with_glcm`` switches, ``sufficient_stats_multi``
+     at 4 offsets (one B2), both calls' median ms; (b)
+     ``sufficient_stats_sharded`` with tpumcia's keywords over two slots on
+     the card, bit-equal to (a); (c) ``extract_features`` (hybrid, exact)
+     and ``run_pipeline(images, labels, config=cfg)`` without ``device=``
+     on 64 bench images, against the port's copy of the notebook oracle at
+     the golden tolerances (hybrid < 1e-5 max / 1e-6 MAE, exact < 1e-9);
+ 19. prints the kernels' JSON line and, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -175,6 +186,7 @@ MESH_RANK_TIMEOUT_S = 180  # a rank that runs longer fails the phase
 # phase 15's process runs: name, ranks, backend, slots a rank (NCCL takes one rank per card)
 MESH_RUNS = (("gloo_2_ranks", 2, "gloo", 1), ("nccl_1_rank", 1, "nccl", 2))
 PACK_N = 2048  # phase 11: variable-size crops through the native packer
+API_N = 2048  # phase 18 (a), (b): phase 5's objects through the stats-level call
 # feature columns that read an f32 wire word (sums in another order on the card and on the CPU)
 FLOAT_DERIVED = ("std_intensity", "kurtosis_intensity", "skew_intensity", "shannon_entropy", "homogeneity")
 FOREST_SMALL = (600, 10)  # phase 9's card-vs-CPU forest: rows, trees
@@ -2179,6 +2191,136 @@ def phase_cnn_mesh(device, cnn_rec, n_images=N_IMAGES, width=64, depth="18"):
     }
 
 
+def _suffstats_rows(st, n, device):
+    """The first ``n`` rows of each field of ``st``, on ``device``."""
+    return type(st)(*(None if f is None else f[:n].to(device) for f in st))
+
+
+def phase_api(device, data, n=API_N, n_cpu=64, n_images=64):
+    """tpumcia's API on the card (port faults C6-C9), through calls made as
+    tpumcia makes them, with no ``device=``. (a) the stats-level
+    ``features.stats.sufficient_stats`` on ``n`` of phase 5's objects at 256
+    levels (one B1c launch): bit-equal to a direct ``cuda_glcm`` launch with
+    ``need_diff=True`` and, on ``n_cpu`` of them, to the CPU plain version;
+    ``with_intensity=False`` / ``with_glcm=False`` zero their fields;
+    ``sufficient_stats_multi`` at 4 offsets (one B2 launch) against a direct
+    launch; both calls' median ms. (b) ``sufficient_stats_sharded`` with
+    tpumcia's keywords over ``data=2`` on ``[card, card]`` (2 B1c launches
+    a call), bit-equal to (a). (c) ``extract_features`` ('hybrid': one B1a
+    launch; 'exact': one B1c) and ``run_pipeline(images, labels,
+    config=cfg)`` as bench.py calls it (one B1a) on ``n_images`` of phase
+    4's images with 2 noise channels made with numpy: on the card, and held
+    against the port's copy of the notebook oracle at the golden tolerances.
+    Returns ({form: launches}, record)."""
+    import numpy as np
+    import torch
+
+    import tpumcia_torch as tt
+    from tpumcia_torch.features import cuda_glcm, stats
+    from tpumcia_torch.features.extract import _chw_levels
+    from tpumcia_torch.io.synthetic import synthetic_mednist
+    from tpumcia_torch.parallel import make_mesh, sufficient_stats_sharded
+    from tpumcia_torch.reference_impl import feature_vector
+
+    launches = {}
+
+    def drive(call, want):
+        """``call()`` with the launch counts set to 0 just before it; raises
+        unless exactly ``want`` ({form: launches}) launched."""
+        cuda_glcm.reset_launch_counts()
+        out = call()
+        _sync(device)
+        got = {f: c for f, c in cuda_glcm.LAUNCHES_BY_FORM.items() if c}
+        if got != want:
+            raise AssertionError(f"launched {got}, want {want}")
+        for f, c in got.items():
+            launches[f] = launches.get(f, 0) + c
+        return out
+
+    (raw, mask, _, _), _ = data
+    x = torch.from_numpy((raw[:n] >> 8).astype(np.uint8)).to(device)  # phase 5's 256 levels
+    m = torch.from_numpy(mask[:n]).to(device)
+
+    # (a) the stats-level call, as tpumcia makes it
+    got = drive(lambda: stats.sufficient_stats(x, m), {"B1c": 1})
+    img, plane = _chw_levels(x), stats.prepare_mask(m, x.shape, device)
+
+    def direct():
+        return cuda_glcm.sufficient_stats(img, plane, levels=LEVELS, offset=OFFSET, need_diff=True)
+
+    _stats_error(got, direct())
+    if got.diff_hist.device != device or got.dstats is not None:
+        raise AssertionError("the stats-level call is not the card's difference-histogram contract")
+    cpu = stats.sufficient_stats(x[:n_cpu].cpu(), m[:n_cpu].cpu(), device="cpu")
+    _stats_error(_suffstats_rows(got, n_cpu, "cpu"), cpu)
+    no_int = drive(lambda: stats.sufficient_stats(x, m, with_intensity=False), {"B1c": 1})
+    no_glcm = drive(lambda: stats.sufficient_stats(x, m, with_glcm=False), {"B1c": 1})
+    zero_glcm = ("marg_l", "marg_r", "diff_hist", "glcm_sumsq", "pair_count")
+    for name in got._fields[:-1]:
+        for st, zeroed in ((no_int, ("hist",)), (no_glcm, zero_glcm)):
+            g, w = getattr(st, name), getattr(got, name)
+            if not torch.equal(g, torch.zeros_like(w) if name in zeroed else w):
+                raise AssertionError(f"with_* = False: {name} is not as tpumcia leaves it")
+    multi = drive(lambda: stats.sufficient_stats_multi(x, m, offsets=FOUR_OFFSETS), {"B2": 1})
+    want_multi = cuda_glcm.sufficient_stats_multi(img, plane, levels=LEVELS, offsets=FOUR_OFFSETS, need_diff=True)
+    for o, (g, w) in enumerate(zip(multi, want_multi)):
+        _stats_error(g, w if o == 0 else w._replace(hist=torch.zeros_like(w.hist)))
+    direct_ms = _cuda_events_ms(direct, KERNEL_REPS, 3)
+    wrapper_ms = _cuda_events_ms(lambda: stats.sufficient_stats(x, m), KERNEL_REPS, 3)
+    direct_ms2 = _cuda_events_ms(direct, KERNEL_REPS, 3)
+    wrapper_ms2 = _cuda_events_ms(lambda: stats.sufficient_stats(x, m), KERNEL_REPS, 3)
+    log(f"  (a) stats-level sufficient_stats on {tuple(x.shape)} uint8 (no device=): one B1c launch, "
+        f"bit-equal to a direct launch and, on {n_cpu} objects, to the CPU plain version; with_intensity / "
+        f"with_glcm = False zero their fields; sufficient_stats_multi at 4 offsets: one B2 launch, bit-equal")
+    log(f"  (a) median ms (CUDA events, {KERNEL_REPS} calls, in turns): stats-level {wrapper_ms!r} / "
+        f"{wrapper_ms2!r}, direct cuda_glcm {direct_ms!r} / {direct_ms2!r}")
+
+    # (b) tpumcia's parallel keywords over two slots on the card
+    mesh = make_mesh(data=2, devices=[device, device])
+    knobs = dict(chunk_size=32, onehot_dtype="bfloat16")
+    sharded = drive(lambda: sufficient_stats_sharded(x, m, mesh=mesh, with_intensity=True, with_glcm=True,
+                                                     **knobs), {"B1c": 2})
+    _stats_error(sharded, got)
+    sharded = drive(lambda: sufficient_stats_sharded(x, m, mesh=mesh, with_glcm=False, **knobs), {"B1c": 2})
+    _stats_error(sharded, no_glcm)
+    del sharded, got, no_int, no_glcm, multi, want_multi, cpu, img, plane, x, m
+    log("  (b) sufficient_stats_sharded(chunk_size=, onehot_dtype=, with_intensity=, with_glcm=) over "
+        "data=2 on [card, card]: 2 B1c launches a call, bit-equal to (a)")
+
+    # (c) extract_features and run_pipeline without device=, against the oracle
+    gray, labels, _ = synthetic_mednist(N_IMAGES // 6, num_classes=6, seed=0)
+    gray, labels = gray[:n_images], labels[:n_images]
+    noise = np.random.default_rng(18).normal(0, 0.1, size=(*gray.shape, 2))
+    images = np.concatenate([gray[..., None], (np.clip(noise, 0, 1) * 255).astype(np.uint8)], axis=-1)
+    oracle = np.stack([feature_vector(im / 255.0) for im in images])
+    hybrid = drive(lambda: tt.extract_features(images), {"B1a": 1})
+    exact = drive(lambda: tt.extract_features(images, config=tt.FeatureConfig(precision="exact")), {"B1c": 1})
+    cfg = dataclasses.replace(_slice_config(), batch_size=n_images, synth=tt.SynthConfig(noise_channels=0),
+                              head=tt.HeadConfig(kind="logistic", num_steps=60))
+    result = drive(lambda: tt.run_pipeline(images, labels, config=cfg), {"B1a": 1})
+    if result.features.device_values.device.type != device.type:
+        raise AssertionError("run_pipeline without device= did not keep its features on the card")
+    errors = {}
+    for what, values, max_tol, mae_tol in (
+            ("extract_features hybrid", hybrid.values, 1e-5, 1e-6),
+            ("extract_features exact", exact.values, 1e-9, 1e-9),
+            ("run_pipeline", result.features.values, 1e-5, 1e-6)):
+        if values.shape != oracle.shape or not np.array_equal(np.isnan(values), np.isnan(oracle)):
+            raise AssertionError(f"{what}: {values.shape} features, NaNs unlike the oracle's {oracle.shape}")
+        err = np.abs(np.nan_to_num(values) - np.nan_to_num(oracle))
+        errors[what] = {"max_abs": float(err.max()), "mae": float(err.mean())}
+        if not (err.max() < max_tol and err.mean() < mae_tol):
+            raise AssertionError(f"{what} against the oracle: {errors[what]} (tolerance {max_tol}, MAE {mae_tol})")
+    log(f"  (c) {n_images} bench images + 2 numpy noise channels, no device=: extract_features hybrid (one "
+        f"B1a) and exact (one B1c), run_pipeline(images, labels, config=cfg) (one B1a, features on "
+        f"{result.features.device_values.device}); against the oracle: {json.dumps(errors)}")
+    log(f"  launches: {launches}")
+    return launches, {
+        "stats_objects": n, "stats_level_ms": [wrapper_ms, wrapper_ms2], "direct_ms": [direct_ms, direct_ms2],
+        "oracle_images": n_images, "oracle_errors": errors, "launches": launches,
+    }
+
+
 def phase_examples(device):
     """``python -m tpumcia_torch.examples.<name>`` for each of EXAMPLES at its
     default size on the card, started together; each must exit 0 within
@@ -2318,6 +2460,11 @@ def main() -> int:
     launches, mesh_rec = phase_mesh(device, cyto)
     for form, count in launches.items():
         kernels[form]["launches"] += count
+
+    log("== tpumcia's API on the card (stats-level call, parallel keywords, no device=, the oracle)")
+    launches, api_rec = phase_api(device, cyto)
+    for form, count in launches.items():
+        kernels[form]["launches"] += count
     del cyto
 
     log("== the CNN path over a mesh (two slots on the card; float32 parity; two gloo ranks; one NCCL rank)")
@@ -2334,7 +2481,7 @@ def main() -> int:
         "forest": forest_rec, "cytometry_morphology": cyto_morph_rec,
         "faults": faults_rec, "analyze_objects": analyze_rec, "streaming": streaming_rec,
         "cnn": cnn_rec, "eval": eval_rec, "mesh": mesh_rec, "cnn_mesh": cnn_mesh_rec,
-        "examples": examples_rec,
+        "examples": examples_rec, "api_parity": api_rec,
     }), flush=True)
     print(json.dumps({
         "ok": True,

@@ -5,7 +5,8 @@ against its plain version, the wrapper's checks, and the slice and
 ``extract_features`` on the card against the same calls on the CPU, the
 forest fitted on the card against the CPU fit and the morphology block;
 offset lists past the kernel's 16, the refusals past the kernel's bounds
-(2^24 pixels, 32768 levels) and of ``use_pallas='never'``, per-batch uploads with ``in_flight`` and ``stream_extract`` with staged uploads.
+(2^24 pixels, 32768 levels) and of ``use_pallas='never'``, per-batch uploads with ``in_flight`` and ``stream_extract`` with staged uploads,
+and tpumcia's stats-level call with no ``device=``.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The file
 imports neither jax nor tpumcia, so it also runs where only torch is
@@ -699,3 +700,28 @@ def test_two_slots_on_the_card_match_one_slot_float32():
     finally:
         (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_stats_level_call_defaults_to_the_card(masked):
+    """tpumcia's stats-level ``sufficient_stats(_multi)`` with no
+    ``device=``: one B1c launch (one B2 for several offsets) on the card,
+    bit-equal to the plain version on the CPU."""
+    require_cuda()
+    from tpumcia_torch.features import stats
+
+    def on_cpu(st):
+        return type(st)(*(None if f is None else f.cpu() for f in st))
+
+    rng = np.random.default_rng(11)
+    x = rng.integers(0, 256, size=(16, 48, 48, 4)).astype(np.uint8)
+    mask = rng.random((16, 48, 48)) < 0.7 if masked else None
+    cuda_glcm.reset_launch_counts()
+    got = stats.sufficient_stats(x, mask)
+    assert cuda_glcm.LAUNCHES == cuda_glcm.LAUNCHES_BY_FORM["B1c"] == 1 and got.hist.device.type == "cuda"
+    _assert_stats_equal(on_cpu(got), stats.sufficient_stats(x, mask, device="cpu"))
+    offsets = ((0, 5), (4, 4), (5, 0))
+    multi = stats.sufficient_stats_multi(x, mask, offsets=offsets)
+    assert cuda_glcm.LAUNCHES_BY_FORM["B2"] == 1
+    for g, w in zip(multi, stats.sufficient_stats_multi(x, mask, offsets=offsets, device="cpu")):
+        _assert_stats_equal(on_cpu(g), w)

@@ -9,9 +9,13 @@ are in ``test_torch_cuda.py``):
   rescale rows without the L x L table) against tpumcia up to 16384 levels;
 - ``in_flight`` and per-batch uploads in the batched extraction;
 - ``MinMaxScaler.inverse_transform`` / ``to_numpy``;
-- the citation of the reference's permutation importance.
+- the citation of the reference's permutation importance;
+- tpumcia's stats-level ``sufficient_stats(_multi)`` (C6), made unchanged
+  on both packages against tpumcia's XLA path, and ``glcm_sumsq_value`` in
+  tpumcia's positional order.
 
-Tolerances: integer statistics bit-equal, features 1e-5 max abs (hybrid) as
+Tolerances: integer statistics bit-equal (every field of the stats-level
+call is an integer count), features 1e-5 max abs (hybrid) as
 in ``test_torch_multi_offset.py``; the 8192-level features rel 1e-6 (their
 values reach 1e7); scaler values rel 1e-6 against tpumcia's, the f32 round
 trip itself rel 1e-5.
@@ -343,3 +347,109 @@ def test_permutation_importance_citation():
 
     src = inspect.getsource(config.ImportanceConfig)
     assert "'permutation' (reference default,\n    # ipynb:493-505)" in src
+
+
+# --- C6: tpumcia's stats-level sufficient_stats(_multi) ----------------------
+
+
+def _stats_batch(levels, mask_kind, seed=3):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, levels, size=(3, 20, 18, 2)).astype(np.uint8 if levels <= 256 else np.int32)
+    x[1, ..., 1] = 0  # an all-zero channel: vmax 0, rescale row 0
+    shape = {"none": None, "shared": x.shape[:3], "per_channel": x.shape}[mask_kind]
+    mask = None if shape is None else rng.random(shape) < 0.7
+    if mask is not None:
+        mask[2] = False  # an empty mask: count 0, vmax -1
+    return x, mask
+
+
+def _assert_suffstats_equal(got, want):
+    """Every field of tpumcia's stats-level result bit-equal; ``dstats``
+    absent on both."""
+    assert want.dstats is None and got.dstats is None
+    for name in want._fields:
+        w = getattr(want, name)
+        if w is None:
+            continue
+        g = getattr(got, name)
+        assert g.dtype == {"vmax": torch.int32, "glcm_sumsq": torch.int32}.get(name, torch.float32), name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+
+
+@pytest.mark.parametrize("levels", [256, 1024])
+@pytest.mark.parametrize("mask_kind", ["none", "shared", "per_channel"])
+def test_stats_level_sufficient_stats_matches_jax(levels, mask_kind):
+    from tpumcia.features import stats as jstats
+    from tpumcia_torch.features import stats as tstats
+
+    x, mask = _stats_batch(levels, mask_kind)
+    kw = dict(levels=levels, offset=(1, 3), chunk_size=2, onehot_dtype="float32")
+    want = jstats.sufficient_stats(x, mask, **kw)
+    got = tstats.sufficient_stats(x, mask, device="cpu", **kw)
+    assert got.diff_hist.shape == (3, 2, 2 * levels - 1)
+    _assert_suffstats_equal(got, want)
+    # tpumcia's defaults (256 levels, offset (0, 5)) and XLA knobs left out
+    if levels == 256:
+        _assert_suffstats_equal(tstats.sufficient_stats(x, mask, device="cpu"),
+                                jstats.sufficient_stats(x, mask))
+
+
+@pytest.mark.parametrize("with_intensity,with_glcm", [(False, True), (True, False), (False, False)])
+def test_stats_level_fields_off_match_jax(with_intensity, with_glcm):
+    """``with_*=False`` zero the fields they turn off (zeros, not None);
+    without the GLCM fields an offset that leaves the image is accepted, as
+    tpumcia accepts it, and with them refused with tpumcia's message."""
+    from tpumcia.features import stats as jstats
+    from tpumcia_torch.features import stats as tstats
+
+    x, mask = _stats_batch(256, "shared")
+    kw = dict(with_intensity=with_intensity, with_glcm=with_glcm)
+    got = tstats.sufficient_stats(x, mask, device="cpu", **kw)
+    _assert_suffstats_equal(got, jstats.sufficient_stats(x, mask, **kw))
+    assert bool(got.count.any()) and got.diff_hist is not None
+    assert bool(got.hist.any()) == with_intensity and bool(got.marg_l.any()) == with_glcm
+    far = dict(kw, offset=(0, 40))
+    if with_glcm:
+        with pytest.raises(ValueError) as want_err:
+            jstats.sufficient_stats(x, mask, **far)
+        with pytest.raises(ValueError, match="leaves no valid pairs") as got_err:
+            tstats.sufficient_stats(x, mask, device="cpu", **far)
+        assert str(got_err.value) == str(want_err.value)
+    else:
+        _assert_suffstats_equal(tstats.sufficient_stats(x, mask, device="cpu", **far),
+                                jstats.sufficient_stats(x, mask, **far))
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "per_channel"])
+@pytest.mark.parametrize("with_intensity", [True, False])
+def test_stats_level_sufficient_stats_multi_matches_jax(mask_kind, with_intensity):
+    """One SuffStats per offset; the intensity histogram on the first only."""
+    from tpumcia.features import stats as jstats
+    from tpumcia_torch.features import stats as tstats
+
+    x, mask = _stats_batch(256, mask_kind, seed=4)
+    offsets = ((0, 5), (2, -2), (3, 0))
+    want = jstats.sufficient_stats_multi(x, mask, offsets=offsets, with_intensity=with_intensity)
+    got = tstats.sufficient_stats_multi(x, mask, offsets=offsets, with_intensity=with_intensity,
+                                        device="cpu")
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        _assert_suffstats_equal(g, w)
+    assert bool(got[0].hist.any()) == with_intensity and not got[1].hist.any()
+
+
+def test_glcm_sumsq_value_in_tpumcias_positional_order():
+    from tpumcia.features import stats as jstats
+    from tpumcia_torch.features import stats as tstats
+
+    rng = np.random.default_rng(5)
+    limbs = rng.integers(0, 1 << 20, size=(4, 3, 4)).astype(np.int32)
+    want = jstats.glcm_sumsq_value(limbs, np, np.float64)
+    got = tstats.glcm_sumsq_value(limbs, np, np.float64)
+    assert got.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tstats.glcm_sumsq_value(limbs), want)
+    t = tstats.glcm_sumsq_value(torch.from_numpy(limbs))
+    assert t.dtype == torch.float32
+    np.testing.assert_array_equal(t.numpy(), jstats.glcm_sumsq_value(limbs, np, np.float32))
+    np.testing.assert_array_equal(tstats.glcm_sumsq_value(torch.from_numpy(limbs), np), want)

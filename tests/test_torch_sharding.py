@@ -12,6 +12,10 @@ one after the other, through the kernel's plain version. Tolerances:
 - features: 1e-5 max abs in hybrid (f32 wire words summed in another
   order), 1e-9 in exact; sweep drops at most 1/N_test per entry (an f32
   argmax near-tie); rankings and splits identical.
+tpumcia's keywords (``chunk_size``, ``onehot_dtype``, ``with_intensity``,
+``with_glcm``, ``axis``) are held against the port's unsharded stats-level
+call bit for bit, and the placements (``data_sharding``, ``replicated``,
+``place_global``, ``local_to_global``, ``fetch_to_host``) on a 3-slot mesh.
 JAX's draws (head init, sweep permutations) are replayed into the port;
 tpumcia's sharded sweep splits its keys over the groups padded to the data
 axis, so the replay takes its first G*R draws of that split.
@@ -391,3 +395,90 @@ def test_mesh_rejects_other_objects():
         tmesh.check_mesh(object())
     assert tmesh.device_pool(["cpu", "cpu"]) == [torch.device("cpu")] * 2
     assert tmesh.device_pool("cpu") == [torch.device("cpu")]
+
+
+# --- tpumcia's keywords and placements --------------------------------------
+
+
+@pytest.mark.parametrize("slots", [1, 3, 8])
+@pytest.mark.parametrize("with_intensity,with_glcm", [(True, True), (False, True), (True, False)])
+def test_sharded_stats_take_tpumcias_keywords(slots, with_intensity, with_glcm):
+    """``chunk_size`` and ``onehot_dtype`` change nothing; ``with_*=False``
+    zero the same fields as the unsharded stats-level call, bit for bit,
+    and as tpumcia's sharded call on its 8 devices."""
+    from tpumcia_torch.features import stats as tstats
+
+    imgs, mask = _batch(n=11)
+    kw = dict(chunk_size=4, onehot_dtype="float32", with_intensity=with_intensity, with_glcm=with_glcm)
+    got = tsharding.sufficient_stats_sharded(imgs, mask, mesh=tmesh.make_mesh(data=slots, devices=POOL), **kw)
+    _assert_stats_equal(got, tstats.sufficient_stats(imgs, mask, device="cpu", **kw), got._fields)
+    if slots == 8:
+        _assert_stats_equal(got, jsharding.sufficient_stats_sharded(imgs, mask, mesh=jmesh.make_mesh(), **kw))
+    multi = tsharding.sufficient_stats_sharded_multi(
+        imgs, mask, mesh=tmesh.make_mesh(data=slots, devices=POOL), offsets=((0, 5), (2, 2)),
+        chunk_size=4, onehot_dtype="float32", with_intensity=with_intensity)
+    one = tstats.sufficient_stats_multi(imgs, mask, device="cpu", offsets=((0, 5), (2, 2)),
+                                        with_intensity=with_intensity)
+    for o, (g, w) in enumerate(zip(multi, one)):
+        # the sharded call shares the first offset's histogram, as tpumcia's kernel path does
+        _assert_stats_equal(g, w, g._fields if o == 0 else g._fields[1:])
+        assert torch.equal(g.hist, multi[0].hist)
+
+
+@pytest.mark.parametrize("slots", [1, 3, 8])
+def test_extract_features_sharded_takes_chunk_size(slots):
+    imgs, mask = _batch(n=7)
+    mesh = tmesh.make_mesh(data=slots, devices=POOL)
+    got = tsharding.extract_features_sharded(imgs, mask, mesh=mesh, chunk_size=2)
+    want = tsharding.extract_features_sharded(imgs, mask, mesh=mesh)
+    np.testing.assert_array_equal(got.to_numpy(), want.to_numpy())
+
+
+def test_shard_across_processes_takes_the_data_axis():
+    from tpumcia.parallel import distributed as jdist
+    from tpumcia_torch.parallel import distributed as tdist
+
+    x = np.arange(16).reshape(8, 2)
+    mesh = tmesh.make_mesh(data=4, model=2, devices=POOL)
+    rows = tdist.shard_across_processes(x, mesh, axis="data")
+    assert (rows.offset, rows.total) == (0, 8) and rows.rows is x
+    with pytest.raises(ValueError) as want:
+        jdist.shard_across_processes(x, jmesh.make_mesh(data=4, model=2), axis="foo")
+    with pytest.raises(ValueError) as got:
+        tdist.shard_across_processes(x, mesh, axis="foo")
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="'data' axis only"):
+        tdist.shard_across_processes(x, mesh, axis="model")
+
+
+def test_placements_on_a_three_slot_mesh():
+    """``data_sharding`` / ``replicated`` and tpumcia's ``place_global``
+    (a spec, or a Mesh as today's calls pass it) and ``local_to_global``;
+    the sharded statistics of a placed batch equal the whole batch's."""
+    from tpumcia_torch import parallel
+    from tpumcia_torch.features.finalize import fetch_to_host
+    from tpumcia_torch.parallel.distributed import ShardedRows
+
+    mesh = tmesh.make_mesh(data=3, devices=["cpu"] * 3)
+    rows_spec, whole_spec = parallel.data_sharding(mesh), parallel.replicated(mesh)
+    assert (rows_spec.mesh, rows_spec.spec, whole_spec.spec) == (mesh, ("data",), ())
+    imgs, mask = _batch(n=10)
+    placed = tsharding.local_to_global(imgs, rows_spec)
+    assert isinstance(placed, ShardedRows) and (placed.offset, placed.total) == (0, 10)
+    np.testing.assert_array_equal(placed.rows, imgs)  # one process holds every slot's rows
+    assert tsharding.local_to_global(imgs, whole_spec) is imgs
+    assert tsharding.place_global(imgs, mesh) is imgs and tsharding.place_global(imgs, whole_spec) is imgs
+    assert tsharding.place_global(placed, rows_spec) is placed
+    whole = tsharding.place_global(placed, whole_spec)
+    assert isinstance(whole, torch.Tensor) and np.array_equal(whole.numpy(), imgs)
+    assert isinstance(tsharding.place_global(imgs, rows_spec), ShardedRows)
+    with pytest.raises(TypeError, match="data_sharding"):
+        tsharding.place_global(imgs, "data")
+    got = tsharding.sufficient_stats_sharded(placed, mask, mesh=mesh)
+    _assert_stats_equal(got, tsharding.sufficient_stats_sharded(imgs, mask, mesh=mesh), got._fields)
+    # fetch_to_host: a tensor, a host array, a ShardedRows that holds the whole batch
+    np.testing.assert_array_equal(fetch_to_host(got.hist), got.hist.numpy())
+    assert fetch_to_host(imgs) is imgs
+    np.testing.assert_array_equal(fetch_to_host(placed), imgs)
+    with pytest.raises(ValueError, match="gathered 4 rows of a batch of 10"):
+        fetch_to_host(ShardedRows(imgs[:4], 0, 10))  # no process group to gather from

@@ -27,12 +27,16 @@ mesh (``parallel.data_parallel``); ``python -m tpumcia_torch.eval`` is the
 config-driven command line, with ``reports.plots`` and ``utils.profiling``
 behind it (``--distributed`` across processes), and
 ``python -m tpumcia_torch.examples.<name>`` runs tpumcia's five examples.
-Module paths and function names mirror ``tpumcia`` so each counterpart is
-easy to find. It imports neither ``jax`` (nor ``flax``, ``optax``, ``orbax``)
-nor ``tpumcia`` nor ``sklearn``.
+Module paths, function names and signatures mirror ``tpumcia``, so
+tpumcia's calls run unchanged (``tests/test_torch_api_parity.py``; the
+divergences left are listed in ROADMAP); ``reference_impl`` is a copy of
+its notebook oracle. Every entry point runs on the card unless the caller
+passes ``device="cpu"`` (each kernel's plain version); without a card the
+default raises ``utils.device.NoCUDADevice``. It imports neither ``jax``
+(nor ``flax``, ``optax``, ``orbax``) nor ``tpumcia`` nor ``sklearn``.
 
     >>> import tpumcia_torch as tt
-    >>> res = tt.run_pipeline(gray, labels, device="cuda", config=tt.PipelineConfig(
+    >>> res = tt.run_pipeline(gray, labels, config=tt.PipelineConfig(
     ...     synth=tt.SynthConfig(noise_channels=2), fast_path="always"))
     >>> res.channel_result.ranking
 """

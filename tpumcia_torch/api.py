@@ -45,7 +45,7 @@ def run_pipeline(*args, **kwargs):
     return _impl(*args, **kwargs)
 
 
-def analyze_objects(objects, *, device, config=None, labels=None):
+def analyze_objects(objects, *, device="cuda", config=None, labels=None):
     """Full analysis straight from an h5 :class:`ObjectBatch` on ``device``:
     quantise (16-bit aware, on the device) -> features (masked) ->
     split/fit/report -> channel importance. Labels default to the batch's
@@ -54,11 +54,14 @@ def analyze_objects(objects, *, device, config=None, labels=None):
     quantised on the pool's first device)."""
     import torch
 
+    from tpumcia_torch.utils.device import require_device
+
     from tpumcia_torch.config import coerce_config
     from tpumcia_torch.parallel.mesh import device_pool
     from tpumcia_torch.pipeline.run import run_pipeline
     from tpumcia_torch.preprocess.normalize import quantize_to_levels
 
+    require_device(device, "analyze_objects")
     cfg = coerce_config(config)
     labels = labels if labels is not None else objects.labels
     if labels is None:

@@ -117,12 +117,14 @@ def main(argv=None) -> int:
 
     import torch
 
+    from tpumcia_torch.utils.device import NoCUDADevice, require_device
+
     try:
-        device = torch.device(args.device)
+        device = require_device(torch.device(args.device), f"--device {args.device}")
+    except NoCUDADevice as e:
+        p.error(str(e))
     except RuntimeError as e:
         p.error(f"invalid --device {args.device!r}: {e}")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        p.error("--device cuda, but no CUDA device is present; pass --device cpu to run on the CPU")
     if args.distributed:
         from tpumcia_torch.parallel.distributed import init_distributed, process_summary
 

@@ -37,10 +37,11 @@ def device_of(p: argparse.ArgumentParser, args):
     names a CUDA device and there is none."""
     import torch
 
+    from tpumcia_torch.utils.device import NoCUDADevice, require_device
+
     try:
-        device = torch.device(args.device)
+        return require_device(torch.device(args.device), f"--device {args.device}")
+    except NoCUDADevice as e:
+        p.error(str(e))
     except RuntimeError as e:
         p.error(f"invalid --device {args.device!r}: {e}")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        p.error("--device cuda, but no CUDA device is present; pass --device cpu to run on the CPU")
-    return device

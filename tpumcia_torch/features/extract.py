@@ -54,6 +54,7 @@ import torch
 
 from tpumcia_torch.config import FeatureConfig
 from tpumcia_torch.features import registry
+from tpumcia_torch.utils.device import require_device
 
 
 def _to_host(a):
@@ -268,7 +269,7 @@ def extract_features(
     images,
     mask=None,
     *,
-    device,
+    device="cuda",
     config: FeatureConfig | None = None,
     channel_names: list[str] | None = None,
     mesh=None,
@@ -290,6 +291,8 @@ def extract_features(
     finalised as tpumcia's mesh branch finalises them) and ``device`` is
     not used.
     """
+    if mesh is None:
+        require_device(device, "extract_features")
     return _extract_features(
         images, mask, device=device, config=config, channel_names=channel_names, mesh=mesh,
     )
@@ -496,7 +499,7 @@ def extract_features_pending(
     images,
     mask=None,
     *,
-    device,
+    device="cuda",
     batch_size: int = 2048,
     config: FeatureConfig | None = None,
     channel_names: list[str] | None = None,
@@ -529,7 +532,7 @@ def extract_features_pending(
     from tpumcia_torch.io.staging import HostStager, rows_to_device, take
     from tpumcia_torch.preprocess.synth import synth_batch_seed
 
-    device = torch.device(device)
+    device = torch.device(require_device(device, "extract_features_pending"))
     cfg = config or FeatureConfig()
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1; got {batch_size}")
@@ -627,7 +630,7 @@ def extract_features_batched(
     images,
     mask=None,
     *,
-    device,
+    device="cuda",
     batch_size: int = 2048,
     config: FeatureConfig | None = None,
     channel_names: list[str] | None = None,
@@ -641,6 +644,7 @@ def extract_features_batched(
     ``keep_device_values=True`` also returns the device-resident NaN-cleaned
     f32 matrix (``FeatureMatrix.device_values``) and requires the fast
     path."""
+    require_device(device, "extract_features_batched")
     return _extract_features_batched(
         images, mask, device=device, batch_size=batch_size, config=config,
         channel_names=channel_names, keep_device_values=keep_device_values,

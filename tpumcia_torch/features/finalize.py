@@ -141,7 +141,7 @@ def _glcm_block(marg_l, marg_r, diff_hist, sumsq, npairs, dstats) -> torch.Tenso
         dissimilarity = (Pd * d.abs()).sum(-1)
         homogeneity = (Pd / (1.0 + d2)).sum(-1)
         s_d2 = dh @ d2
-    asm = glcm_sumsq_value(sumsq, f32) / (safe_N * safe_N)
+    asm = glcm_sumsq_value(sumsq, dtype=f32) / (safe_N * safe_N)
     energy = torch.sqrt(asm)
 
     mu_i = (i * Pl).sum(-1)
@@ -283,7 +283,7 @@ def _host_glcm_block(marg_l, marg_r, diff_hist, sumsq, npairs, dstats=None):
         dissimilarity = xp.sum(Pd * xp.abs(d), axis=-1)
         homogeneity = xp.sum(Pd / (1.0 + d2), axis=-1)
         s_d2 = dh @ d2
-    asm = glcm_sumsq_value(sumsq, dtype) / (safe_N * safe_N)
+    asm = glcm_sumsq_value(sumsq, dtype=dtype) / (safe_N * safe_N)
     energy = xp.sqrt(asm)
 
     mu_i = xp.sum(i * Pl, axis=-1)
@@ -320,6 +320,27 @@ def _host_finalize(stats: SuffStats, include_intensity: bool, include_glcm: bool
     values = np.concatenate(blocks, axis=1)
     degenerate = (stats.count == 0) | (stats.vmax <= 0)
     return FinalizedFeatures(values=values, degenerate=degenerate)
+
+
+def fetch_to_host(s) -> np.ndarray:
+    """A tensor on any device, a host array, or a ``parallel.ShardedRows``
+    (this process's rows of a batch spread over the ranks, gathered over
+    the default process group first) -> numpy (tpumcia's
+    ``fetch_to_host``)."""
+    from tpumcia_torch.parallel.distributed import ShardedRows, all_gather_rows, is_initialized
+
+    if isinstance(s, ShardedRows):
+        rows = s.rows if isinstance(s.rows, torch.Tensor) else torch.from_numpy(np.asarray(s.rows))
+        if len(rows) != s.total:
+            import torch.distributed as dist
+
+            rows = all_gather_rows(rows, dist.group.WORLD if is_initialized() else None)
+        if len(rows) != s.total:
+            raise ValueError(f"gathered {len(rows)} rows of a batch of {s.total}")
+        s = rows
+    if isinstance(s, torch.Tensor):
+        return s.detach().cpu().numpy()
+    return np.asarray(s)
 
 
 def _pack_for_transfer(stats: SuffStats) -> SuffStats:

@@ -389,7 +389,7 @@ def unpack_wire(packed: np.ndarray) -> dict:
     return out
 
 
-def unpack_reduced(packed: np.ndarray, *, levels: int) -> dict:
+def unpack_reduced(packed: np.ndarray, *, levels: int = 256) -> dict:
     """Decode the packed f32 wire into the dict :func:`assemble_reduced`
     consumes (tpumcia's ``unpack_reduced``). O(B*C) numpy only."""
     from tpumcia_torch.features.stats import glcm_sumsq_value
@@ -412,7 +412,7 @@ def unpack_reduced(packed: np.ndarray, *, levels: int) -> dict:
     base = float(1 << _quad_shift(levels))
     for q in ("s_i2", "s_j2", "s_d2"):
         out[q] = base * out.pop(f"{q}_hi") + out.pop(f"{q}_lo")
-    out["sumsq_value"] = glcm_sumsq_value(out.pop("sumsq"), f64)
+    out["sumsq_value"] = glcm_sumsq_value(out.pop("sumsq"), np, f64)
     out["count_overflow"] = out["n"] >= 65536
     return out
 

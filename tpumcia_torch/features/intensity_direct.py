@@ -16,6 +16,7 @@ import torch
 
 from tpumcia_torch.features.stats import on_device
 from tpumcia_torch.preprocess.normalize import _as_float32
+from tpumcia_torch.utils.device import require_device
 
 _QS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9)
 
@@ -25,7 +26,7 @@ def intensity_features_direct(images, mask=None, *, device="cuda") -> torch.Tens
     (B, H, W, C) mask -> (B, C, 17) float32 on ``device``. Masked-out pixels
     take part in no statistic; an empty mask gives zeros for that channel,
     and a constant channel NaN kurtosis and skew."""
-    x = _as_float32(on_device(images, device))
+    x = _as_float32(on_device(images, require_device(device, "intensity_features_direct")))
     B, H, W, C = x.shape
     P = H * W
     xt = x.permute(0, 3, 1, 2).reshape(B, C, P)

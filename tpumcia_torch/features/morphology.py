@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from tpumcia_torch.features.stats import on_device
+from tpumcia_torch.utils.device import require_device
 
 MORPHOLOGY_FEATURES: tuple[str, ...] = (
     "area",
@@ -43,7 +44,7 @@ def morphology_features(mask, *, device="cuda") -> torch.Tensor:
     """(B, H, W, C) or (B, H, W) mask (numpy or a tensor; nonzero selects a
     pixel) -> (B, C, 8) float32 shape features on ``device``; a (B, H, W)
     mask gives C = 1."""
-    m = on_device(mask, device)
+    m = on_device(mask, require_device(device, "morphology_features"))
     if m.dim() == 3:
         m = m[..., None]
     w = (m != 0).permute(0, 3, 1, 2).to(torch.float64)  # (B, C, H, W)

@@ -13,13 +13,14 @@ import torch
 
 from tpumcia_torch.features.registry import GLCM_FEATURES
 from tpumcia_torch.features.stats import on_device
+from tpumcia_torch.utils.device import require_device
 
 
 def glcm_properties(glcm, *, device="cuda") -> dict[str, torch.Tensor]:
     """(..., L, L) co-occurrence counts -> the 6 properties in float32 on
     ``device``, each shaped like the leading dims. skimage's semantics: each
     matrix is normalised; correlation is 1 where a marginal's variance is 0."""
-    g = on_device(glcm, device).to(torch.float32)
+    g = on_device(glcm, require_device(device, "glcm_properties")).to(torch.float32)
     L = g.shape[-1]
     total = g.sum((-2, -1), keepdim=True)
     p = g / torch.where(total == 0, 1.0, total)
@@ -54,6 +55,7 @@ def graycoprops(glcm, prop: str = "contrast", *, device="cuda") -> torch.Tensor:
     ``glcm_matrix(distances=[..], angles=[..])``) -> (..., D, A) values of
     one property ('contrast', 'dissimilarity', 'homogeneity', 'ASM',
     'energy', 'correlation'; any case)."""
+    require_device(device, "graycoprops")
     names = {n.lower(): n for n in GLCM_FEATURES}
     if prop.lower() not in names:
         raise ValueError(f"unknown property {prop!r}; one of {list(GLCM_FEATURES)}")

@@ -21,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpumcia_torch.utils.device import require_device
+
 
 class SuffStats(NamedTuple):
     """Per-(image, channel) sufficient statistics. Leading dims (B, C)."""
@@ -63,9 +65,10 @@ def rescale_lut(levels: int = 256) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def rescale_lut_device(levels: int, device: torch.device) -> torch.Tensor:
+def rescale_lut_device(levels: int = 256, device="cuda") -> torch.Tensor:
     """Cached copy of :func:`rescale_lut` on ``device`` (one upload per
     process, not one per batch)."""
+    require_device(device, "rescale_lut_device")
     return torch.from_numpy(rescale_lut(levels)).to(device)
 
 
@@ -170,19 +173,110 @@ def glcm_sumsq_limbs(glcm: torch.Tensor, cheap: bool) -> torch.Tensor:
     return torch.stack(limbs, -1).to(torch.int32)
 
 
-def glcm_sumsq_value(limbs, dtype=None):
-    """Reassemble the (.., 4) limbs into ``sum(G^2)``: float64 for numpy
-    input (exact), float32 (or ``dtype``) for a tensor."""
-    if isinstance(limbs, torch.Tensor):
-        s = limbs.to(dtype or torch.float32)
+def glcm_sumsq_value(limbs, xp=None, dtype=None):
+    """Reassemble the (.., 4) limbs into ``sum(G^2)`` (tpumcia's positional
+    order): with ``xp`` numpy (the default for anything but a tensor) a
+    float64 array (exact), or ``dtype``; with ``xp`` torch (the default for
+    a tensor) a float32 tensor, or ``dtype``."""
+    if xp is None:
+        xp = torch if isinstance(limbs, torch.Tensor) else np
+    if xp is torch:
+        s = torch.as_tensor(limbs).to(dtype or torch.float32)
     else:
-        s = np.asarray(limbs).astype(dtype or np.float64)
+        host = limbs.cpu().numpy() if isinstance(limbs, torch.Tensor) else np.asarray(limbs)
+        s = host.astype(dtype or np.float64)
     return (
         s[..., 0] * 16777216.0
         + s[..., 1] * 8192.0
         + s[..., 2] * 256.0
         + s[..., 3]
     )
+
+
+def disable_fields(st: SuffStats, *, with_intensity: bool = True, with_glcm: bool = True) -> SuffStats:
+    """tpumcia's ``with_intensity=False`` and ``with_glcm=False``: the
+    fields each turns off, zeroed (``hist``; the marginals, the difference
+    histogram or ``dstats``, the ``sum(G^2)`` limbs and the pair count).
+    ``count`` and ``vmax`` stay."""
+    if not with_intensity:
+        st = st._replace(hist=torch.zeros_like(st.hist))
+    if not with_glcm:
+        z = torch.zeros_like
+        st = st._replace(
+            marg_l=z(st.marg_l), marg_r=z(st.marg_r), glcm_sumsq=z(st.glcm_sumsq),
+            pair_count=z(st.pair_count),
+            diff_hist=None if st.diff_hist is None else z(st.diff_hist),
+            dstats=None if st.dstats is None else z(st.dstats),
+        )
+    return st
+
+
+def _stats_level(images, mask, *, levels, offsets, device, what) -> tuple[SuffStats, ...]:
+    """(B, H, W, C) levels and tpumcia's raw mask -> the difference-histogram
+    contract of ``cuda_glcm.sufficient_stats_multi`` on ``device``."""
+    from tpumcia_torch.features import cuda_glcm
+    from tpumcia_torch.features.extract import _as_level_array, _chw_levels, _to_device
+
+    device = torch.device(require_device(device, what))
+    rows = _as_level_array(images, levels)
+    if rows.ndim != 4:
+        raise ValueError(f"expected (B, H, W, C) images, got shape {tuple(rows.shape)}")
+    m = None if mask is None else prepare_mask(mask, rows.shape, device)
+    return cuda_glcm.sufficient_stats_multi(
+        _chw_levels(_to_device(rows, device)), m, levels=levels, offsets=offsets, need_diff=True,
+    )
+
+
+def sufficient_stats(
+    images,
+    mask=None,
+    *,
+    levels: int = 256,
+    offset: tuple[int, int] = (0, 5),
+    chunk_size: int = 32,
+    onehot_dtype: str = "bfloat16",
+    with_intensity: bool = True,
+    with_glcm: bool = True,
+    device="cuda",
+) -> SuffStats:
+    """Per-(image, channel) sufficient statistics, tpumcia's stats-level
+    call: (B, H, W, C) levels in [0, levels) and an optional (B, H, W) or
+    (B, H, W, C) mask (nonzero selects a pixel; a pair needs both) ->
+    :class:`SuffStats` with the difference histogram (kernel form B1c on a
+    CUDA device; B1d or B1e at their sizes). ``chunk_size`` and
+    ``onehot_dtype`` are tpumcia's XLA memory knobs: the kernel has no
+    counterpart, so they are ignored. ``with_intensity`` / ``with_glcm``
+    zero the fields they turn off (:func:`disable_fields`)."""
+    # without the GLCM fields the offset is not used: (0, 0) fits any image,
+    # as tpumcia then accepts any offset
+    (st,) = _stats_level(
+        images, mask, levels=levels, offsets=[tuple(offset) if with_glcm else (0, 0)],
+        device=device, what="sufficient_stats",
+    )
+    return disable_fields(st, with_intensity=with_intensity, with_glcm=with_glcm)
+
+
+def sufficient_stats_multi(
+    images,
+    mask=None,
+    *,
+    levels: int = 256,
+    offsets: tuple[tuple[int, int], ...] = ((0, 5),),
+    chunk_size: int = 32,
+    onehot_dtype: str = "bfloat16",
+    with_intensity: bool = True,
+    device="cuda",
+) -> tuple[SuffStats, ...]:
+    """:func:`sufficient_stats` for several offsets in one pass (kernel form
+    B2 on a CUDA device): one :class:`SuffStats` per offset, the intensity
+    histogram on the first only (the others' ``hist`` zero), as tpumcia
+    returns them."""
+    out = _stats_level(
+        images, mask, levels=levels, offsets=[tuple(o) for o in offsets],
+        device=device, what="sufficient_stats_multi",
+    )
+    out = [st if i == 0 else st._replace(hist=torch.zeros_like(st.hist)) for i, st in enumerate(out)]
+    return tuple(disable_fields(st, with_intensity=with_intensity) for st in out)
 
 
 def glcm_matrix(
@@ -223,7 +317,7 @@ def glcm_matrix(
         ]
     else:
         offsets = [tuple(offset)]
-    x = on_device(images, device)
+    x = on_device(images, require_device(device, "glcm_matrix"))
     if x.dim() != 4:
         raise ValueError(f"expected (B, H, W, C) images, got shape {tuple(x.shape)}")
     from tpumcia_torch.preprocess.normalize import as_int32

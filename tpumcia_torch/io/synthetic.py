@@ -73,7 +73,7 @@ def synthetic_mednist(
 def synthetic_multichannel(
     n_per_class: int,
     *,
-    device,
+    device="cuda",
     num_classes: int = 6,
     hw: int = 64,
     num_noise: int = 2,
@@ -92,7 +92,9 @@ def synthetic_multichannel(
     import torch
 
     from tpumcia_torch.preprocess.synth import add_noise_channels
+    from tpumcia_torch.utils.device import require_device
 
+    require_device(device, "synthetic_multichannel")
     gray, labels, class_names = synthetic_mednist(
         n_per_class, num_classes=num_classes, hw=hw, seed=seed
     )

@@ -30,6 +30,7 @@ import torch
 
 from tpumcia_torch.models.forest_fit import Tree
 from tpumcia_torch.models.scaler import MinMaxScaler
+from tpumcia_torch.utils.device import require_device
 
 # the largest padded (leaves x internal nodes) per tree of the GEMM form;
 # above it the dense path matrix costs more than the lock-step gathers
@@ -175,6 +176,7 @@ class DeviceForest:
                     device="cuda") -> "DeviceForest":
         """Lay out fitted trees (:class:`Tree` or sklearn ``tree_`` objects,
         read by duck typing) on ``device``."""
+        require_device(device, "DeviceForest.from_arrays")
         T = len(trees)
         N = max(len(t.feature) for t in trees)
         K = np.asarray(trees[0].value).shape[-1]
@@ -223,6 +225,12 @@ class DeviceForest:
     def form(self) -> str:
         """The inference form that runs: ``'gemm'`` or ``'lockstep'``."""
         return "lockstep" if self.gemm is None else "gemm"
+
+    def apply_fn(self):
+        """tpumcia's scoring callable: ``f(X_scaled)``, (..., F) scaled f32
+        features on the forest's device -> (..., K) mean class
+        probabilities (:meth:`apply`)."""
+        return self.apply
 
     def apply(self, X: torch.Tensor, *, form: str | None = None) -> torch.Tensor:
         """(..., F) scaled f32 features -> (..., K) mean class probabilities,

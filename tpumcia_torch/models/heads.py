@@ -33,6 +33,7 @@ from tpumcia_torch.config import HeadConfig
 from tpumcia_torch.models.forest_device import DeviceForest
 from tpumcia_torch.models.forest_fit import Tree, fit_forest
 from tpumcia_torch.models.scaler import MinMaxScaler
+from tpumcia_torch.utils.device import require_device
 
 
 def init_weights(num_features: int, num_classes: int, *, seed: int, device) -> torch.Tensor:
@@ -253,6 +254,7 @@ class LogisticHead(_Head):
 
     @classmethod
     def load(cls, path, *, device="cuda") -> "LogisticHead":
+        require_device(device, "LogisticHead.load")
         with np.load(path, allow_pickle=False) as z:
             return cls(_tensor(z["w"], device), _tensor(z["b"], device), z["classes"],
                        scaler=cls._scaler_from_npz(z, device), config=_config_from_npz(z))
@@ -324,6 +326,7 @@ class MLPHead(_Head):
 
     @classmethod
     def load(cls, path, *, device="cuda") -> "MLPHead":
+        require_device(device, "MLPHead.load")
         with np.load(path, allow_pickle=False) as z:
             hidden = tuple(
                 {"w": _tensor(z[f"hidden{i}_w"], device), "b": _tensor(z[f"hidden{i}_b"], device)}
@@ -442,6 +445,7 @@ class RandomForestHead:
 
     @classmethod
     def load(cls, path, *, device="cuda") -> "RandomForestHead":
+        require_device(device, "RandomForestHead.load")
         with np.load(path, allow_pickle=False) as z:
             bounds = np.cumsum(z["node_count"])[:-1]
             fields = {k: np.split(z[k], bounds) for k in _TREE_FIELDS}
@@ -457,6 +461,7 @@ class RandomForestHead:
         """Carry over a fitted sklearn ``RandomForestClassifier`` (e.g. a
         tpumcia head's ``.model``; its ``estimators_[i].tree_`` read by duck
         typing, sklearn not imported) and the scaler it was fitted behind."""
+        require_device(device, "RandomForestHead.from_sklearn")
         trees = [Tree.from_tree_(est.tree_) for est in model.estimators_]
         return cls(trees, model.classes_, num_features=model.n_features_in_, scaler=scaler,
                    config=config, device=device)
@@ -480,7 +485,7 @@ def fit_head(
     features,
     labels,
     *,
-    device,
+    device="cuda",
     config: HeadConfig | None = None,
     scale: bool = True,
     scaler: MinMaxScaler | None = None,
@@ -488,8 +493,8 @@ def fit_head(
     """MinMax-scale (fitted on the given rows) and fit the configured head on
     ``device`` (tpumcia's ``fit_head``). ``features``: a FeatureMatrix, an
     (N, F) array or a tensor. A prefit ``scaler`` overrides the fit."""
+    device = torch.device(require_device(device, "fit_head"))
     cfg = config or HeadConfig()
-    device = torch.device(device)
     X = features if isinstance(features, torch.Tensor) else getattr(features, "values", features)
     if isinstance(X, torch.Tensor):
         X = X.to(device=device, dtype=torch.float32)

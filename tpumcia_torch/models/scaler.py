@@ -10,6 +10,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tpumcia_torch.utils.device import require_device
+
 
 def minmax_scale(data_min: torch.Tensor, data_max: torch.Tensor) -> torch.Tensor:
     """1 / (max - min), and 1 where the range is zero."""
@@ -35,6 +37,8 @@ class MinMaxScaler:
     def from_stats(cls, data_min, data_max, device="cuda") -> "MinMaxScaler":
         """A scaler from per-feature min/max (arrays or tensors), on
         ``device``."""
+        require_device(device, "MinMaxScaler.from_stats")
+
         def t(x):
             return torch.as_tensor(x, dtype=torch.float32, device=device)
 

@@ -40,6 +40,7 @@ from tpumcia_torch.models.cnn import ResNet, init_parameters, make_resnet
 from tpumcia_torch.parallel.data_parallel import data_parallel_step, local_blocks, replicate
 from tpumcia_torch.parallel.distributed import all_gather_rows, all_reduce_sum, barrier
 from tpumcia_torch.parallel.mesh import Mesh, check_mesh
+from tpumcia_torch.utils.device import require_device
 
 # images per forward pass of the inference entry points: logits do not depend
 # on the batch they were computed in (GroupNorm has no batch statistics; the
@@ -90,6 +91,11 @@ class CNNHead:
         ``model`` (default: the head's), in one pass, without gradients."""
         with torch.no_grad():
             return (model or self.model)(x)
+
+    def apply_fn(self):
+        """tpumcia's scoring callable: ``f(images)``, float32 (B, H, W, C)
+        images on the head's device -> logits (:meth:`forward`)."""
+        return self.forward
 
     def chunks(self, n: int, size: int = PREDICT_CHUNK):
         """(model, device, start, stop) of each chunk of at most ``size``
@@ -162,9 +168,10 @@ class CNNHead:
         )
 
     @classmethod
-    def load(cls, path, *, config: CNNConfig | None = None, device) -> "CNNHead":
+    def load(cls, path, *, config: CNNConfig | None = None, device="cuda") -> "CNNHead":
         """A head saved by :meth:`save`, on ``device``. ``config`` (which
         tpumcia's ``load`` requires) is needed only where none was saved."""
+        require_device(device, "CNNHead.load")
         saved = torch.load(path, map_location="cpu", weights_only=True)
         if config is None:
             if saved["config"] is None:
@@ -216,7 +223,7 @@ def fit_cnn(
     images,
     labels,
     *,
-    device,
+    device="cuda",
     config: CNNConfig | None = None,
     mesh=None,
     images_eval=None,
@@ -228,6 +235,8 @@ def fit_cnn(
     or over ``mesh`` (a ``parallel.Mesh``; ``device`` then gives way to its
     first local slot's device, and every rank passes the same full
     ``(images, labels)``)."""
+    if mesh is None:
+        require_device(device, "fit_cnn")
     if getattr(images, "ndim", np.ndim(images)) != 4:
         raise ValueError(
             f"fit_cnn expects (B, H, W, C) images; got shape "

@@ -1,13 +1,22 @@
 """Device meshes and multi-process runs for the feature and CNN paths
 (counterpart of ``tpumcia.parallel``): ``mesh`` (``Mesh``, ``make_mesh``,
-``mesh_from_config``, ``row_ranges``), ``distributed``
+``mesh_from_config``, ``row_ranges``, the placements ``data_sharding`` and
+``replicated``), ``distributed``
 (``init_distributed``, ``shard_across_processes``, ``process_summary`` and
 the collectives), ``sharding`` (the sharded statistics, features, scaler
 and permutation sweep) and ``data_parallel`` (the CNN's data-parallel step:
 per-device replicas, the gradient all-reduce). ``python -m
 tpumcia_torch.parallel.dryrun`` is one rank of a multi-process check run."""
 
-from tpumcia_torch.parallel.mesh import Mesh, make_mesh, mesh_from_config, row_ranges
+from tpumcia_torch.parallel.mesh import (
+    Mesh,
+    Sharding,
+    data_sharding,
+    make_mesh,
+    mesh_from_config,
+    replicated,
+    row_ranges,
+)
 from tpumcia_torch.parallel.distributed import (
     ShardedRows,
     init_distributed,
@@ -27,12 +36,15 @@ __all__ = [
     "init_distributed",
     "shard_across_processes",
     "process_summary",
+    "data_sharding",
+    "replicated",
     "row_ranges",
     "extract_features_sharded",
     "sufficient_stats_sharded",
     "fit_scaler_sharded",
     "permutation_importance_sharded",
     "Mesh",
+    "Sharding",
     "ShardedRows",
     "mesh_from_config",
     "replicate",

@@ -185,11 +185,22 @@ class ShardedRows:
     total: int
 
 
-def shard_across_processes(x, mesh) -> ShardedRows:
+def shard_across_processes(x, mesh, axis: str = "data") -> ShardedRows:
     """Tag this process's local rows ``x`` with their place in the global
     batch, the concatenation of every rank's rows in rank order (the
     multi-process feed for the sharded functions). A collective over the
-    mesh's group."""
+    mesh's group. Rows go over the ``data`` axis: an axis the mesh lacks is
+    refused with tpumcia's message, and ``model``, which tpumcia accepts,
+    too (the port's mesh splits rows over ``data`` only)."""
+    if axis != "data":
+        if axis not in mesh.shape:
+            raise ValueError(
+                f"Resource axis: {axis} of PartitionSpec({axis!r},) is not found in "
+                f"mesh: {tuple(mesh.shape)}."
+            )
+        raise ValueError(
+            f"shard_across_processes splits rows over the 'data' axis only; got axis={axis!r}"
+        )
     n = len(x)
     if mesh.group is None:
         return ShardedRows(x, 0, n)

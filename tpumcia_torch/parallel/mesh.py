@@ -12,8 +12,10 @@ rank order. A pool may name one device more than once (``["cpu"] * 8``,
 ``["cuda:0", "cuda:0"]``): its slots then run one after the other on it,
 which lays out a mesh on a host with fewer devices than slots.
 
-``data_sharding`` and ``replicated`` have no PyTorch object to return;
-:func:`row_ranges` gives the rows of each data slot instead.
+:func:`data_sharding` and :func:`replicated` return a :class:`Sharding`,
+the port's ``NamedSharding``: rows over the data axis (each slot's rows are
+:func:`row_ranges`) or the whole array on every slot, which
+``parallel.sharding.place_global`` and ``local_to_global`` read.
 """
 
 from __future__ import annotations
@@ -60,6 +62,25 @@ class Mesh:
     @property
     def spans_processes(self) -> bool:
         return len({r for r, _ in self.slots}) > 1
+
+
+@dataclass(frozen=True)
+class Sharding:
+    """A placement over ``mesh``: ``spec`` ``("data",)`` puts the rows over
+    the data axis, ``()`` the whole array on every slot."""
+
+    mesh: Mesh
+    spec: tuple
+
+
+def data_sharding(mesh: Mesh) -> Sharding:
+    """Rows over ``mesh``'s data axis (tpumcia's ``P("data")``)."""
+    return Sharding(check_mesh(mesh), ("data",))
+
+
+def replicated(mesh: Mesh) -> Sharding:
+    """The whole array on every slot of ``mesh`` (tpumcia's ``P()``)."""
+    return Sharding(check_mesh(mesh), ())
 
 
 def device_pool(device) -> list[torch.device]:

@@ -36,7 +36,7 @@ import torch
 
 from tpumcia_torch.features.stats import SuffStats
 from tpumcia_torch.parallel.distributed import ShardedRows, all_gather_rows, all_reduce_max, all_reduce_min
-from tpumcia_torch.parallel.mesh import Mesh, row_ranges, split_rows
+from tpumcia_torch.parallel.mesh import Mesh, Sharding, replicated, row_ranges, split_rows
 
 # the fields one multi-offset pass shares across its offsets
 _SHARED = ("hist", "count", "vmax")
@@ -65,21 +65,54 @@ def _rows_of(x):
     return x.rows if isinstance(x, ShardedRows) else x
 
 
-def place_global(x, mesh: Mesh):
-    """The whole batch on this process: a :class:`ShardedRows` gathered over
-    the mesh's ranks (a tensor on the first slot's device), anything else as
-    it is (tpumcia's ``place_global`` for replicated inputs)."""
-    if not isinstance(x, ShardedRows):
-        return x
-    rows = x.rows if isinstance(x.rows, torch.Tensor) else torch.from_numpy(np.asarray(x.rows))
-    return _gather_rows([rows], mesh)
+def _as_sharding(sharding) -> Sharding:
+    """A :class:`Sharding`, or a :class:`Mesh` as its replicated placement."""
+    if isinstance(sharding, Mesh):
+        return replicated(sharding)
+    if not isinstance(sharding, Sharding):
+        raise TypeError(
+            "sharding must be parallel.data_sharding(mesh), parallel.replicated(mesh) "
+            f"or a Mesh; got {type(sharding).__name__}"
+        )
+    return sharding
 
 
-def _stats_over_mesh(images, mask, mesh, *, levels, offsets, use_pallas, need_diff):
+def local_to_global(arr, sharding):
+    """``arr``, which every process holds whole, placed by ``sharding``:
+    under ``data_sharding`` the rows of this process's slots as a
+    :class:`ShardedRows`, under ``replicated`` (or a Mesh) ``arr`` as it
+    is."""
+    sh = _as_sharding(sharding)
+    if sh.spec != ("data",):
+        return arr
+    ranges = row_ranges(len(arr), sh.mesh)
+    local = sh.mesh.local_slots()
+    a, b = ranges[local[0]][0], ranges[local[-1]][1]
+    return ShardedRows(arr[a:b], a, len(arr))
+
+
+def place_global(arr, sharding):
+    """``arr`` placed by ``sharding`` (``data_sharding`` or ``replicated``
+    of a mesh, or a Mesh for ``replicated``): a :class:`ShardedRows` stays
+    as it is under ``data_sharding`` and is gathered whole over the mesh's
+    ranks under ``replicated`` (a tensor on the first slot's device);
+    anything else is a batch every process holds whole
+    (:func:`local_to_global`)."""
+    sh = _as_sharding(sharding)
+    if not isinstance(arr, ShardedRows):
+        return local_to_global(arr, sh)
+    if sh.spec == ("data",):
+        return arr
+    rows = arr.rows if isinstance(arr.rows, torch.Tensor) else torch.from_numpy(np.asarray(arr.rows))
+    return _gather_rows([rows], sh.mesh)
+
+
+def _stats_over_mesh(images, mask, mesh, *, levels, offsets, use_pallas, need_diff,
+                     with_intensity=True, with_glcm=True):
     from tpumcia_torch.config import FeatureConfig
     from tpumcia_torch.features import cuda_glcm
     from tpumcia_torch.features.extract import _as_level_array, _chw_levels, _to_device, check_use_pallas
-    from tpumcia_torch.features.stats import check_mask_shape, prepare_mask
+    from tpumcia_torch.features.stats import check_mask_shape, disable_fields, prepare_mask
 
     pallas = FeatureConfig(use_pallas=use_pallas)
     rows = _as_level_array(_rows_of(images), levels)
@@ -94,10 +127,10 @@ def _stats_over_mesh(images, mask, mesh, *, levels, offsets, use_pallas, need_di
         dev = mesh.slots[s][1]
         check_use_pallas(pallas, dev)
         m = None if mask is None else prepare_mask(mask_blocks[i][1], block.shape, dev)
-        per_slot.append(cuda_glcm.sufficient_stats_multi(
-            _chw_levels(_to_device(block, dev)), m, levels=levels, offsets=offsets,
-            need_diff=need_diff,
-        ))
+        per_slot.append([disable_fields(st, with_intensity=with_intensity, with_glcm=with_glcm)
+                         for st in cuda_glcm.sufficient_stats_multi(
+                             _chw_levels(_to_device(block, dev)), m, levels=levels,
+                             offsets=offsets, need_diff=need_diff)])
     out = []
     for o in range(len(offsets)):
         fields = {}
@@ -118,17 +151,25 @@ def sufficient_stats_sharded(
     mesh: Mesh,
     levels: int = 256,
     offset: tuple[int, int] = (0, 5),
+    chunk_size: int = 32,
+    onehot_dtype: str = "bfloat16",
     use_pallas: str = "auto",
+    with_intensity: bool = True,
+    with_glcm: bool = True,
     need_diff_hist: bool = True,
 ) -> SuffStats:
     """Per-(image, channel) sufficient statistics with the batch over the
     mesh's data axis: (B, H, W, C) levels and an optional (B, H, W[, C])
     mask -> the whole batch's :class:`SuffStats` on this process's first
     slot's device. ``need_diff_hist=False`` selects the ``dstats`` contract
-    (below the B1d sizes), as on one device."""
+    (below the B1d sizes), as on one device. ``with_intensity`` /
+    ``with_glcm`` zero the fields they turn off in each slot's result, as
+    ``features.stats.sufficient_stats`` does; ``chunk_size`` and
+    ``onehot_dtype`` (tpumcia's XLA memory knobs) are ignored."""
     return _stats_over_mesh(
-        images, mask, mesh, levels=levels, offsets=[tuple(offset)],
+        images, mask, mesh, levels=levels, offsets=[tuple(offset) if with_glcm else (0, 0)],
         use_pallas=use_pallas, need_diff=need_diff_hist,
+        with_intensity=with_intensity, with_glcm=with_glcm,
     )[0]
 
 
@@ -139,14 +180,17 @@ def sufficient_stats_sharded_multi(
     mesh: Mesh,
     levels: int = 256,
     offsets: tuple[tuple[int, int], ...] = ((0, 5),),
+    chunk_size: int = 32,
+    onehot_dtype: str = "bfloat16",
     use_pallas: str = "auto",
+    with_intensity: bool = True,
     need_diff_hist: bool = True,
 ) -> tuple[SuffStats, ...]:
     """:func:`sufficient_stats_sharded` for several offsets in one pass a
     slot (kernel form B2), one :class:`SuffStats` per offset."""
     return _stats_over_mesh(
         images, mask, mesh, levels=levels, offsets=[tuple(o) for o in offsets],
-        use_pallas=use_pallas, need_diff=need_diff_hist,
+        use_pallas=use_pallas, need_diff=need_diff_hist, with_intensity=with_intensity,
     )
 
 
@@ -157,12 +201,14 @@ def extract_features_sharded(
     mesh: Mesh,
     levels: int = 256,
     offset: tuple[int, int] = (0, 5),
+    chunk_size: int = 32,
     precision: str = "exact",
     channel_names: list[str] | None = None,
 ):
     """The 23-per-channel features of one offset with the statistics over
     the mesh (tpumcia's ``extract_features_sharded``); ``extract_features``
-    with ``mesh=`` takes every other config."""
+    with ``mesh=`` takes every other config. ``chunk_size`` (an XLA memory
+    knob of tpumcia's) is ignored."""
     from tpumcia_torch.features import registry
     from tpumcia_torch.features.extract import FeatureMatrix
     from tpumcia_torch.features.finalize import finalize_features

@@ -39,6 +39,7 @@ from tpumcia_torch.features.extract import (
     check_use_pallas,
 )
 from tpumcia_torch.importance.channels import ChannelImportanceResult, channel_importance
+from tpumcia_torch.utils.device import require_device
 from tpumcia_torch.utils.metrics import accuracy, classification_report
 from tpumcia_torch.utils.split import train_test_split_indices
 
@@ -162,7 +163,7 @@ def run_pipeline(
     images,
     labels,
     *,
-    device,
+    device="cuda",
     mask=None,
     config: PipelineConfig | None = None,
     channel_names: list[str] | None = None,
@@ -192,6 +193,7 @@ def run_pipeline(
     """
     from tpumcia_torch.parallel.mesh import device_pool, mesh_from_config
 
+    require_device(device, "run_pipeline")
     cfg = coerce_config(config)
     pool = device_pool(device)
     mesh = mesh_from_config(cfg.mesh, pool)

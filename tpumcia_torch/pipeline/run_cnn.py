@@ -22,6 +22,7 @@ from tpumcia_torch.importance.occlusion import (
 )
 from tpumcia_torch.models.train import CNNConfig, CNNHead, fit_cnn, images_on_device
 from tpumcia_torch.parallel.mesh import check_mesh
+from tpumcia_torch.utils.device import require_device
 from tpumcia_torch.utils.metrics import accuracy, classification_report
 from tpumcia_torch.utils.split import train_test_split_indices
 
@@ -72,7 +73,7 @@ def run_cnn_pipeline(
     images,
     labels,
     *,
-    device,
+    device="cuda",
     config: CNNConfig | None = None,
     mesh=None,
     test_size: float = 0.25,
@@ -87,7 +88,7 @@ def run_cnn_pipeline(
     there. ``timings`` are wall seconds with the devices synchronised. With
     ``mesh``, ``device`` gives way to its first local slot's device."""
     if mesh is None:
-        device = torch.device(device)
+        device = torch.device(require_device(device, "run_cnn_pipeline"))
         devices = [device]
     else:
         device = check_mesh(mesh).first_device

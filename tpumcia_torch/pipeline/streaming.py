@@ -37,6 +37,7 @@ import torch
 from tpumcia_torch.config import FeatureConfig
 from tpumcia_torch.features import registry
 from tpumcia_torch.features.extract import FeatureMatrix, extract_features
+from tpumcia_torch.utils.device import require_device
 
 
 @dataclass
@@ -201,7 +202,7 @@ def stream_extract(
     n: int,
     out_dir: str | Path,
     *,
-    device,
+    device="cuda",
     shard_size: int = 1024,
     config: FeatureConfig | None = None,
     config_tag: str | None = None,
@@ -249,6 +250,8 @@ def stream_extract(
     exist — for sequential launchers that invoke one process at a time and
     know only the last call sees the full collection.
     """
+    if mesh is None:
+        require_device(device, "stream_extract")
     cfg = config or FeatureConfig()
     if n < 1:
         raise ValueError(f"stream_extract needs n >= 1 objects; got {n}")
@@ -638,7 +641,7 @@ def stream_extract_h5(
     source,
     out_dir: str | Path,
     *,
-    device,
+    device="cuda",
     shard_size: int = 1024,
     config: FeatureConfig | None = None,
     config_tag: str | None = None,
@@ -660,6 +663,8 @@ def stream_extract_h5(
     process opens and decodes only its own objects' h5 files."""
     from tpumcia_torch.io.h5 import h5_stream_source
 
+    if mesh is None:
+        require_device(device, "stream_extract_h5")
     cfg = config or FeatureConfig()
     src = h5_stream_source(
         source,

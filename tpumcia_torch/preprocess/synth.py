@@ -20,6 +20,8 @@ import math
 import numpy as np
 import torch
 
+from tpumcia_torch.utils.device import require_device
+
 
 def synth_batch_seed(seed: int, batch: int) -> int:
     """The per-batch seed stream that replaces ``synth_batch_keys``: batch
@@ -40,26 +42,26 @@ def noise_from_normal(gray: torch.Tensor, normal: torch.Tensor, var: float) -> t
 
 
 def noise_channels_chw(
-    gray: torch.Tensor,
+    images: torch.Tensor,
     generator: torch.Generator,
     *,
     num_noise: int = 2,
     var: float = 0.01,
 ) -> torch.Tensor:
     """(B, H, W) grayscale levels -> (B, 1 + num_noise, H, W) int32, the
-    noise drawn on ``gray``'s device from ``generator``."""
-    if gray.dim() != 3:
-        raise ValueError(f"expected (B, H, W) grayscale batch, got {tuple(gray.shape)}")
-    B, H, W = gray.shape
+    noise drawn on ``images``' device from ``generator``."""
+    if images.dim() != 3:
+        raise ValueError(f"expected (B, H, W) grayscale batch, got {tuple(images.shape)}")
+    B, H, W = images.shape
     normal = torch.randn(
         (B, num_noise, H, W), generator=generator, dtype=torch.float32,
-        device=gray.device,
+        device=images.device,
     )
-    return noise_from_normal(gray, normal, var)
+    return noise_from_normal(images, normal, var)
 
 
 def add_noise_channels(
-    gray: torch.Tensor,
+    images: torch.Tensor,
     generator: torch.Generator,
     *,
     num_noise: int = 2,
@@ -68,7 +70,7 @@ def add_noise_channels(
     """(B, H, W) grayscale -> (B, H, W, 1 + num_noise) uint8, channels last
     (tpumcia's ``add_noise_channels``): the values of
     :func:`noise_channels_chw` from the same draw."""
-    chw = noise_channels_chw(gray, generator, num_noise=num_noise, var=var)
+    chw = noise_channels_chw(images, generator, num_noise=num_noise, var=var)
     return chw.permute(0, 2, 3, 1).to(torch.uint8)
 
 
@@ -77,7 +79,7 @@ def add_noise_channels_batched(
     *,
     seed: int,
     batch_size: int,
-    device,
+    device="cuda",
     num_noise: int = 2,
     var: float = 0.01,
 ) -> torch.Tensor:
@@ -86,7 +88,7 @@ def add_noise_channels_batched(
     draws it: batch ``i`` from :func:`synth_batch_seed` ``(seed, i)``, the
     last batch wrap-padded to ``batch_size`` rows with the first images (the
     pad rows' draws are dropped), so both paths synthesize the same data."""
-    device = torch.device(device)
+    device = torch.device(require_device(device, "add_noise_channels_batched"))
     gray = images.to(device) if isinstance(images, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(images)).to(device)
     if gray.dim() != 3:
