@@ -21,14 +21,16 @@ Phases (any failure exits nonzero, and no result line is printed):
      at 1024 levels; B1e at 48x48 and 64x64 with no workspace);
   4. the slice: ``run_pipeline`` over 12,000 synthetic 64x64 images with 2
      synthesized noise channels, a 300-step logistic head and permutation
-     importance, as bench.py drives the JAX package. It checks the launch
+     importance, as bench.py drives the JAX package (the images, config
+     and gates are bench_torch.py's). It checks the launch
      count, the accuracy and the channel ranking, times untimed runs (img/s)
      and one staged run, and checks a small run's features against the same
      run on the CPU with the plain version;
   5. the cytometry slice (BASELINE config 4): ``run_pipeline`` over 16,384
      masked 12-channel 48x48 uint16 objects quantized to 256 levels on the
-     card, donor-grouped split; checks launches, donors, accuracy and the
-     signal channel, times it like phase 4;
+     card, donor-grouped split (bench_torch.py's objects, config and
+     gates); checks launches, donors, accuracy and the signal channel,
+     times it like phase 4;
   6. extract_features: the exact, masked hybrid and 4-offset hybrid forms
      of the public extraction on the card, against each other and against
      the same calls on the CPU; then what lies past the kernel's argument
@@ -134,7 +136,12 @@ Phases (any failure exits nonzero, and no result line is printed):
      and ``run_pipeline(images, labels, config=cfg)`` without ``device=``
      on 64 bench images, against the port's copy of the notebook oracle at
      the golden tolerances (hybrid < 1e-5 max / 1e-6 MAE, exact < 1e-9);
- 19. prints the kernels' JSON line and, last, the device JSON line.
+ 19. the bench: ``bench_torch.py --cell all --reps 2`` in a process of its
+     own (both cells, MedNIST fused and cytometry masked, through
+     ``run_pipeline`` as tpumcia's bench calls it): exit 0, each line
+     correct by its own gates, every metric present and finite, both
+     roofline shares in (0, 1.05];
+ 20. prints the kernels' JSON line and, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -142,6 +149,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -187,6 +195,8 @@ MESH_RANK_TIMEOUT_S = 180  # a rank that runs longer fails the phase
 MESH_RUNS = (("gloo_2_ranks", 2, "gloo", 1), ("nccl_1_rank", 1, "nccl", 2))
 PACK_N = 2048  # phase 11: variable-size crops through the native packer
 API_N = 2048  # phase 18 (a), (b): phase 5's objects through the stats-level call
+BENCH_REPS = 2  # phase 19: bench_torch.py --cell all --reps 2
+BENCH_TIMEOUT_S = 600
 # feature columns that read an f32 wire word (sums in another order on the card and on the CPU)
 FLOAT_DERIVED = ("std_intensity", "kurtosis_intensity", "skew_intensity", "shannon_entropy", "homogeneity")
 FOREST_SMALL = (600, 10)  # phase 9's card-vs-CPU forest: rows, trees
@@ -275,34 +285,6 @@ def _timed_pair(run_kernel, run_plain):
     return (k1, k2), (p1, p2)
 
 
-def cytometry_objects(n, hw=CYTO_HW, channels=CYTO_CH, signal_ch=CYTO_SIGNAL, seed=0):
-    """Imaging-flow-cytometry-like objects (BASELINE config 4), shaped like
-    examples/cytometry_h5.py: uint16 (n, hw, hw, channels) with background
-    U[200, 1500), a cell disk of radius U(10, 16)*hw/48 centred in
-    [0.35, 0.65]*hw, signal on ``signal_ch`` only (activated:
-    exp(-r/(8*hw/48))*38000, resting: disk*6000). Returns (images, shared
-    disk mask, labels (i // 8) % 2 with 0 = activated, donors
-    "donor{i % 8}"): every donor holds both classes."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    scale = hw / 48.0
-    img = rng.integers(200, 1500, size=(n, hw, hw, channels)).astype(np.uint16)
-    cy, cx = rng.uniform(hw * 0.35, hw * 0.65, size=(2, n, 1, 1))
-    yy, xx = np.mgrid[:hw, :hw]
-    r = np.hypot(yy[None] - cy, xx[None] - cx)
-    cell = r < rng.uniform(10, 16, size=(n, 1, 1)) * scale
-    labels = (np.arange(n) // 8) % 2
-    boost = np.where(
-        labels[:, None, None] == 0, np.exp(-r / (8 * scale)) * 38000, cell * 6000.0
-    ).astype(np.uint16)
-    img[..., signal_ch] = np.clip(
-        img[..., signal_ch].astype(np.int64) + boost, 0, 65535
-    ).astype(np.uint16)
-    donors = np.array([f"donor{i % 8}" for i in range(n)])
-    return img, cell, labels, donors
-
-
 def field_batch(device):
     """Phase 8's data: 1,200 synthetic 256x256 grayscale fields, their
     labels, and the (N, H, W, 3) uint8 batch on ``device`` with the 2 noise
@@ -325,6 +307,8 @@ def timed_cases(device):
     must give). Each form's main-path shapes come first."""
     import numpy as np
     import torch
+
+    from bench_torch import cytometry_objects
 
     rng = np.random.default_rng(1)
 
@@ -633,44 +617,17 @@ def phase_kernel(device):
     return records
 
 
-def _slice_config():
-    import tpumcia_torch as tt
-
-    return tt.PipelineConfig(
-        synth=tt.SynthConfig(noise_channels=2, seed=0),
-        head=tt.HeadConfig(kind="logistic", num_steps=300),
-        split=tt.SplitConfig(test_size=0.25, seed=0, stratify=True),
-        fast_path="always",
-        batch_size=BATCH,
-    )
-
-
-def _signal_first(result) -> bool:
-    import numpy as np
-
-    feat_chan_total = np.array([
-        result.feature_result.feature_importances[cols].sum()
-        for cols in result.features.channel_columns()
-    ])
-    return (
-        int(np.argmax(result.channel_result.total)) == 0
-        and int(np.argmax(feat_chan_total)) == 0
-    )
-
-
 def phase_slice(device, n_images=N_IMAGES, timed_runs=TIMED_RUNS):
     """The main path through the public entry; returns (launches, record)."""
-    import numpy as np
     import torch
 
     import tpumcia_torch as tt
-    from tpumcia_torch.io.synthetic import synthetic_mednist
+    from bench_torch import launches_per_run, mednist_config, mednist_failures, mednist_workload
     from tpumcia_torch.utils.profiling import StageTimer
 
-    gray, labels, _ = synthetic_mednist(max(n_images // 6, 1), num_classes=6, seed=0)
-    gray, labels = gray[:n_images], labels[:n_images]
-    cfg = _slice_config()
-    per_run = -(-len(gray) // min(BATCH, len(gray)))
+    gray, labels = mednist_workload(n_images)  # the bench's own images, config and gates
+    cfg = mednist_config()
+    per_run = launches_per_run(len(gray), cfg.batch_size)
 
     def run():
         out = tt.run_pipeline(gray, labels, config=cfg, device=device)
@@ -679,18 +636,12 @@ def phase_slice(device, n_images=N_IMAGES, timed_runs=TIMED_RUNS):
 
     launches, times, result = _timed_runs(run, timed_runs, "B1a", per_run)
 
-    X = result.features.values
-    if X.shape != (len(gray), 69) or not np.isfinite(np.nan_to_num(X)).all():
-        raise AssertionError(f"feature matrix {X.shape} is not finite (N, 69)")
+    fails = mednist_failures(result, len(gray))
+    if fails:
+        raise AssertionError("; ".join(fails))
     dv = result.features.device_values
     if tuple(dv.shape) != (len(gray), 69) or not bool(torch.isfinite(dv).all()):
         raise AssertionError("device feature block is not finite (N, 69)")
-    if not _signal_first(result):
-        raise AssertionError(
-            f"signal channel not ranked first: {result.channel_result.total}"
-        )
-    if result.test_accuracy < 0.90:
-        raise AssertionError(f"test accuracy {result.test_accuracy} < 0.90")
 
     timer = StageTimer(device)
     tt.run_pipeline(gray, labels, config=cfg, device=device, timer=timer)
@@ -713,6 +664,7 @@ def phase_reference(device, n_images=180):
     import numpy as np
 
     import tpumcia_torch as tt
+    from bench_torch import mednist_config, signal_first
     from tpumcia_torch.io.synthetic import synthetic_mednist
 
     gray, labels, _ = synthetic_mednist(n_images // 6, num_classes=6, seed=5)
@@ -721,7 +673,7 @@ def phase_reference(device, n_images=180):
         [gray[..., None], (np.clip(noise, 0, 1) * 255).astype(np.uint8)], axis=-1
     )
     cfg = dataclasses.replace(
-        _slice_config(), batch_size=64, synth=tt.SynthConfig(noise_channels=0),
+        mednist_config(), batch_size=64, synth=tt.SynthConfig(noise_channels=0),
         head=tt.HeadConfig(kind="logistic", num_steps=60),
     )
     card = tt.run_pipeline(images, labels, config=cfg, device=device)
@@ -732,7 +684,7 @@ def phase_reference(device, n_images=180):
     diff = float(np.nanmax(np.abs(a - b)))
     if not diff <= FEATURE_ATOL:
         raise AssertionError(f"card vs CPU features differ by {diff}")
-    if not (_signal_first(card) and _signal_first(cpu)):
+    if not (signal_first(card) and signal_first(cpu)):
         raise AssertionError("signal channel not first on the card or on the CPU")
     log(f"  {n_images} images: card vs CPU features max abs diff {diff!r}; "
         f"rankings {card.channel_result.ranking.tolist()} / {cpu.channel_result.ranking.tolist()}")
@@ -747,6 +699,7 @@ def phase_cytometry(device, data, timed_runs=4):
     import torch
 
     import tpumcia_torch as tt
+    from bench_torch import cytometry_config, cytometry_failures, launches_per_run
     from tpumcia_torch.utils.profiling import StageTimer
 
     (raw, mask, labels, donors), gen_s = data
@@ -760,13 +713,8 @@ def phase_cytometry(device, data, timed_runs=4):
     if not np.array_equal(x[:64].cpu().numpy(), (raw[:64] >> 8).astype(np.int32)):
         raise AssertionError("quantize_to_levels on the card differs from v >> 8")
     del raw_dev
-    cfg = tt.PipelineConfig(
-        head=tt.HeadConfig(kind="logistic", num_steps=300),
-        split=tt.SplitConfig(test_size=0.25, seed=0, group_by="donor"),
-        fast_path="always",
-        batch_size=BATCH,
-    )
-    per_run = -(-n // BATCH)
+    cfg = cytometry_config()  # the bench's own config and gates
+    per_run = launches_per_run(n, cfg.batch_size)
 
     def run(timer=None):
         out = tt.run_pipeline(x, labels, mask=mask, groups=donors, config=cfg,
@@ -776,19 +724,11 @@ def phase_cytometry(device, data, timed_runs=4):
 
     launches, times, result = _timed_runs(run, timed_runs, "B1b", per_run)
 
-    X = result.features.values
-    F = CYTO_CH * 23
-    if X.shape != (n, F) or not np.isfinite(np.nan_to_num(X)).all():
-        raise AssertionError(f"feature matrix {X.shape} is not finite ({n}, {F})")
-    train_donors = {str(d) for d in donors[result.train_idx]}
+    fails = cytometry_failures(result, n, donors)
+    if fails:
+        raise AssertionError("; ".join(fails))
     test_donors = {str(d) for d in donors[result.test_idx]}
-    if train_donors & test_donors or not test_donors:
-        raise AssertionError(f"donor split leaks: train {train_donors}, test {test_donors}")
     total = np.asarray(result.channel_result.total)
-    if int(np.argmax(total)) != CYTO_SIGNAL or not total[CYTO_SIGNAL] > 0:
-        raise AssertionError(f"signal channel {CYTO_SIGNAL} not first: {total.tolist()}")
-    if result.test_accuracy < 0.95:
-        raise AssertionError(f"test accuracy {result.test_accuracy} < 0.95")
 
     timer = StageTimer(device)
     run(timer)
@@ -1104,6 +1044,7 @@ def phase_classic_fields(device, timed_runs=3, n_check=8):
     import numpy as np
 
     import tpumcia_torch as tt
+    from bench_torch import signal_first
     from tpumcia_torch.importance.channels import channel_importance
     from tpumcia_torch.models.heads import fit_head
     from tpumcia_torch.utils.profiling import StageTimer
@@ -1128,7 +1069,7 @@ def phase_classic_fields(device, timed_runs=3, n_check=8):
         raise AssertionError(f"feature matrix {X.shape} is not finite (N, 69)")
     if result.test_accuracy < 0.90:
         raise AssertionError(f"test accuracy {result.test_accuracy} < 0.90")
-    if not _signal_first(result):
+    if not signal_first(result):
         raise AssertionError(f"signal channel not ranked first: {result.channel_result.total}")
 
     # the card against the CPU on the run's own synthesized fields: the
@@ -1218,6 +1159,7 @@ def phase_forest(device, n_images=N_IMAGES, timed_runs=3):
     import torch
 
     import tpumcia_torch as tt
+    from bench_torch import mednist_config, signal_first
     from tpumcia_torch.io.synthetic import synthetic_mednist
     from tpumcia_torch.models.heads import fit_head
     from tpumcia_torch.pipeline.run import _fast_path_ok
@@ -1225,7 +1167,7 @@ def phase_forest(device, n_images=N_IMAGES, timed_runs=3):
 
     gray, labels, _ = synthetic_mednist(n_images // 6, num_classes=6, seed=0)
     cfg = dataclasses.replace(
-        _slice_config(), head=tt.HeadConfig(kind="random_forest", n_estimators=100, max_depth=None, seed=0),
+        mednist_config(), head=tt.HeadConfig(kind="random_forest", n_estimators=100, max_depth=None, seed=0),
         fast_path="auto",
     )
     if _fast_path_ok(cfg, gray, None):
@@ -1242,7 +1184,7 @@ def phase_forest(device, n_images=N_IMAGES, timed_runs=3):
         raise AssertionError(f"feature matrix {X.shape} is not finite (N, 69)")
     if result.feature_result.method != "mdi" or result.channel_result.method != "permutation":
         raise AssertionError(f"views {result.channel_result.method} / {result.feature_result.method}")
-    if not _signal_first(result):
+    if not signal_first(result):
         raise AssertionError(f"signal channel not first: permutation {result.channel_result.total}, "
                              f"MDI {result.feature_result.total}")
     if result.test_accuracy < 0.90:
@@ -2216,6 +2158,7 @@ def phase_api(device, data, n=API_N, n_cpu=64, n_images=64):
     import torch
 
     import tpumcia_torch as tt
+    from bench_torch import mednist_config
     from tpumcia_torch.features import cuda_glcm, stats
     from tpumcia_torch.features.extract import _chw_levels
     from tpumcia_torch.io.synthetic import synthetic_mednist
@@ -2295,7 +2238,7 @@ def phase_api(device, data, n=API_N, n_cpu=64, n_images=64):
     oracle = np.stack([feature_vector(im / 255.0) for im in images])
     hybrid = drive(lambda: tt.extract_features(images), {"B1a": 1})
     exact = drive(lambda: tt.extract_features(images, config=tt.FeatureConfig(precision="exact")), {"B1c": 1})
-    cfg = dataclasses.replace(_slice_config(), batch_size=n_images, synth=tt.SynthConfig(noise_channels=0),
+    cfg = dataclasses.replace(mednist_config(), batch_size=n_images, synth=tt.SynthConfig(noise_channels=0),
                               head=tt.HeadConfig(kind="logistic", num_steps=60))
     result = drive(lambda: tt.run_pipeline(images, labels, config=cfg), {"B1a": 1})
     if result.features.device_values.device.type != device.type:
@@ -2350,6 +2293,46 @@ def phase_examples(device):
     return {"run": rec, "left_out": EXAMPLES_LEFT_OUT}
 
 
+def phase_bench():
+    """``bench_torch.py --cell all`` in a process of its own: both cells'
+    lines, each correct (its gates), every metric present and finite, both
+    roofline shares in (0, 1.05] (``bench_torch.line_failures``). Returns
+    the lines' headline numbers."""
+    import torch
+
+    from bench_torch import CELLS, line_failures
+
+    torch.cuda.empty_cache()  # this process's cached blocks, for the bench's own peak
+    here = os.path.dirname(os.path.abspath(__file__))
+    # its own session: the bench starts a process a cell, all killed on a timeout
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "bench_torch.py"), "--cell", "all", "--reps", str(BENCH_REPS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=here, start_new_session=True,
+    )
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"bench_torch.py ran past {BENCH_TIMEOUT_S} s") from None
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    if proc.returncode != 0 or [x["cell"] for x in lines] != list(CELLS):
+        raise AssertionError(f"bench_torch.py exited {proc.returncode} with cells "
+                             f"{[x['cell'] for x in lines]}: {err[-3000:]}")
+    record = {}
+    for line in lines:
+        fails = line_failures(line)
+        if fails:
+            raise AssertionError(f"{line['cell']}: {fails}")
+        m = line["metrics"]
+        record[line["cell"]] = {key: m[key]["value"] for key in (
+            CELLS[line["cell"]][1], "median_s", "glcm_ms", "glcm_roofline_share", "run_mfu",
+            "idle_share", "peak_device_bytes")}
+        record[line["cell"]]["stages_s"] = line["stages_s"]
+        log(f"  {line['cell']}: {json.dumps(record[line['cell']])}")
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -2361,9 +2344,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        import bench_torch
         import tpumcia_torch  # noqa: F401
     except ImportError as e:
-        print(f"chip_smoke: tpumcia_torch not found next to this script ({e})", file=sys.stderr)
+        print(f"chip_smoke: tpumcia_torch or bench_torch.py not found next to this script ({e})", file=sys.stderr)
         return 1
     banned = ("jax", "tpumcia", "sklearn", "h5py", "imageio", "matplotlib")
     if any(m in sys.modules for m in banned):
@@ -2406,7 +2390,7 @@ def main() -> int:
 
     log("== cytometry slice")
     t0 = time.perf_counter()
-    cyto = cytometry_objects(CYTO_N), time.perf_counter() - t0
+    cyto = bench_torch.cytometry_objects(CYTO_N), time.perf_counter() - t0
     launches, cyto_rec = phase_cytometry(device, cyto)
     kernels["B1b"]["launches"] = launches
 
@@ -2473,6 +2457,9 @@ def main() -> int:
     log("== the examples (python -m tpumcia_torch.examples.<name>)")
     examples_rec = phase_examples(device)
 
+    log(f"== the bench (bench_torch.py --cell all --reps {BENCH_REPS})")
+    bench_rec = phase_bench()
+
     print(gpu_line, flush=True)
     print(json.dumps({
         "kernels": [{"form": form, **kernels[form]} for form in FORMS],
@@ -2481,7 +2468,7 @@ def main() -> int:
         "forest": forest_rec, "cytometry_morphology": cyto_morph_rec,
         "faults": faults_rec, "analyze_objects": analyze_rec, "streaming": streaming_rec,
         "cnn": cnn_rec, "eval": eval_rec, "mesh": mesh_rec, "cnn_mesh": cnn_mesh_rec,
-        "examples": examples_rec, "api_parity": api_rec,
+        "examples": examples_rec, "api_parity": api_rec, "bench": bench_rec,
     }), flush=True)
     print(json.dumps({
         "ok": True,

@@ -6,7 +6,8 @@ against its plain version, the wrapper's checks, and the slice and
 forest fitted on the card against the CPU fit and the morphology block;
 offset lists past the kernel's 16, the refusals past the kernel's bounds
 (2^24 pixels, 32768 levels) and of ``use_pallas='never'``, per-batch uploads with ``in_flight`` and ``stream_extract`` with staged uploads,
-and tpumcia's stats-level call with no ``device=``.
+tpumcia's stats-level call with no ``device=``, and ``bench_torch.py``
+end to end.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The file
 imports neither jax nor tpumcia, so it also runs where only torch is
@@ -725,3 +726,27 @@ def test_stats_level_call_defaults_to_the_card(masked):
     assert cuda_glcm.LAUNCHES_BY_FORM["B2"] == 1
     for g, w in zip(multi, stats.sufficient_stats_multi(x, mask, offsets=offsets, device="cpu")):
         _assert_stats_equal(on_cpu(g), w)
+
+
+def test_bench_torch_on_the_card():
+    """``bench_torch.py --cell all --reps 2`` on the card: exit 0, one line a
+    cell, each correct by its gates (6 B1a / 8 B1b launches a run, the
+    accuracy, the signal channel, donors), every metric present and finite,
+    both roofline shares in (0, 1.05], the card's name and power limit."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    require_cuda()
+    from bench_torch import CELLS, line_failures
+
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, str(root / "bench_torch.py"), "--cell", "all", "--reps", "2"],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    assert [x["cell"] for x in lines] == list(CELLS)
+    for line in lines:
+        assert line["measured_on"] == "cuda" and line_failures(line) == [], line_failures(line)
+        assert line["glcm_profiled_launches"] == line["metrics"]["glcm_launches"]["value"]
