@@ -1,0 +1,188 @@
+"""The port's own spans and counters (``tpumcia_torch.utils.profiling``),
+read from ``torch.profiler``'s CPU events of ``run_pipeline`` calls on the
+CPU at a tiny size, on the fused path and on the classic path.
+
+Each call is one ``run_pipeline`` span; inside it the stage spans, named as
+``StageTimer``'s stages and in their order (the fused path's first four once
+a batch); ``adam`` inside the head's stage and ``sweep`` inside the stage
+that runs the sweeps. ``COUNTERS`` counts the head's Adam steps and the
+sweeps' evaluations a call. No span synchronises the device. This file
+imports no jax.
+"""
+
+import pytest
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from tpumcia_torch.io.synthetic import synthetic_mednist
+from tpumcia_torch.pipeline.run import run_pipeline
+from tpumcia_torch.utils import profiling
+
+N_PER_CLASS = 30  # 180 images, 6 classes
+BATCH = 64  # three fused batches, the last wrap-padded
+STEPS = 12
+REPEATS = 2
+CHANNELS, FEATURES = 3, 69  # the grayscale image and 2 noise channels
+CALLS = 2
+# StageTimer's stages of each path, in the order a call runs them
+TIMER_STAGES = {
+    "fast": ["inputs", "synth", "stats_kernel", "wire_features", "head_sweeps", "d2h_assembly"],
+    "classic": ["synth", "inputs", "stats_kernel", "finalize", "host_matrix_upload", "head",
+                "importance"],
+}
+PER_BATCH = {"inputs", "synth", "stats_kernel", "wire_features"}
+HEAD_STAGE = {"fast": "head_sweeps", "classic": "head"}
+SWEEP_STAGE = {"fast": "head_sweeps", "classic": "importance"}
+SPANS = {profiling.ROOT_SPAN, "adam", "sweep"} | {s for v in TIMER_STAGES.values() for s in v}
+
+
+def _config(path):
+    return {
+        "head": {"kind": "logistic", "num_steps": STEPS},
+        "importance": {"n_repeats": REPEATS},
+        "split": {"test_size": 0.25, "seed": 0, "stratify": True},
+        "synth": {"noise_channels": 2, "seed": 0},
+        "fast_path": "always" if path == "fast" else "never",
+        "batch_size": BATCH,
+    }
+
+
+@pytest.fixture(scope="module")
+def gray():
+    images, labels, _ = synthetic_mednist(N_PER_CLASS, num_classes=6, seed=3)
+    return images, labels
+
+
+def _call(gray, path, timer=None):
+    images, labels = gray
+    return run_pipeline(images, labels, config=_config(path), device="cpu", timer=timer)
+
+
+@pytest.fixture(scope="module")
+def traced(gray):
+    """Per path: the program's spans of ``CALLS`` profiled calls, as
+    (name, start_us, end_us) by start, and the counters of each call."""
+    out = {}
+    for path in TIMER_STAGES:
+        _call(gray, path)  # warm
+        counters = []
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(CALLS):
+                profiling.reset_counters()
+                _call(gray, path)
+                counters.append(dict(profiling.COUNTERS))
+        spans = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                        if e.device_type == DeviceType.CPU and e.name in SPANS),
+                       key=lambda s: (s[1], -s[2]))
+        out[path] = {"spans": spans, "counters": counters}
+    return out
+
+
+def _parent(spans, span):
+    """The innermost other span that holds ``span``."""
+    name, s, e = span
+    holders = [h for h in spans if h is not span and h[1] <= s and e <= h[2]]
+    return max(holders, key=lambda h: h[1], default=None)
+
+
+def _calls(spans):
+    """The spans of each call, the root's own first."""
+    roots = [s for s in spans if s[0] == profiling.ROOT_SPAN]
+    return [[s for s in spans if r[1] <= s[1] and s[2] <= r[2]] for r in roots]
+
+
+def _n_batches(path):
+    return -(-6 * N_PER_CLASS // BATCH) if path == "fast" else 1
+
+
+@pytest.mark.parametrize("path", sorted(TIMER_STAGES))
+def test_every_span_once_a_call_or_a_batch(traced, path):
+    calls = _calls(traced[path]["spans"])
+    assert len(calls) == CALLS
+    for call in calls:
+        names = [s[0] for s in call]
+        want = {profiling.ROOT_SPAN: 1, "adam": 1, "sweep": 2}
+        for st in TIMER_STAGES[path]:
+            want[st] = _n_batches(path) if path == "fast" and st in PER_BATCH else 1
+        assert {n: names.count(n) for n in set(names)} == want
+
+
+@pytest.mark.parametrize("path", sorted(TIMER_STAGES))
+def test_each_span_sits_under_its_parent(traced, path):
+    spans = traced[path]["spans"]
+    want = {"adam": HEAD_STAGE[path], "sweep": SWEEP_STAGE[path]}
+    for span in spans:
+        parent = _parent(spans, span)
+        if span[0] == profiling.ROOT_SPAN:
+            assert parent is None
+        else:
+            assert parent[0] == want.get(span[0], profiling.ROOT_SPAN), (span, parent)
+
+
+@pytest.mark.parametrize("path", sorted(TIMER_STAGES))
+def test_stage_spans_in_the_timer_order(traced, path):
+    stages = TIMER_STAGES[path]
+    want = (stages[:4] * _n_batches(path) + stages[4:]) if path == "fast" else stages
+    for call in _calls(traced[path]["spans"]):
+        assert [s[0] for s in call if s[0] in stages] == want
+
+
+@pytest.mark.parametrize("path", sorted(TIMER_STAGES))
+def test_stage_timer_keys_unchanged(gray, path):
+    """A timed call gives the same stages, in the same order, as before the
+    spans, each with a time."""
+    timer = profiling.StageTimer("cpu")
+    _call(gray, path, timer)
+    assert list(timer.totals) == TIMER_STAGES[path]
+    assert all(t > 0 for t in timer.totals.values())
+
+
+@pytest.mark.parametrize("path", sorted(TIMER_STAGES))
+def test_adam_steps_a_call_are_the_head_steps(traced, path):
+    assert [c["adam_steps"] for c in traced[path]["counters"]] == [STEPS] * CALLS
+
+
+@pytest.mark.parametrize("path", sorted(TIMER_STAGES))
+def test_sweep_evals_a_call_follow_the_configuration(traced, path):
+    """The channel sweep and the per-feature sweep: each permuted copy
+    (groups x repeats) and the baseline, the same on every call."""
+    want = (CHANNELS * REPEATS + 1) + (FEATURES * REPEATS + 1)
+    assert [c["sweep_evals"] for c in traced[path]["counters"]] == [want] * CALLS
+
+
+def test_reset_counters_zeroes_every_counter():
+    profiling.COUNTERS["adam_steps"] += 3
+    profiling.reset_counters()
+    assert profiling.COUNTERS == {"adam_steps": 0, "sweep_evals": 0}
+
+
+@pytest.mark.parametrize("timed", [False, True])
+@pytest.mark.parametrize("path", sorted(TIMER_STAGES))
+def test_spans_never_synchronise(gray, path, timed, monkeypatch):
+    """``torch.cuda.synchronize`` is never called by an untimed call; a
+    timer on a CUDA device calls it at its start and every stamp (which shows
+    the patch sees the calls)."""
+    seen = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: seen.append(device))
+    timer = profiling.StageTimer("cuda") if timed else None
+    _call(gray, path, timer)
+    if timed:
+        stamps = _n_batches(path) * 4 + 2 if path == "fast" else len(TIMER_STAGES[path])
+        assert len(seen) == stamps + 1
+    else:
+        assert seen == []
+
+
+def test_stage_closes_its_timer_at_exit():
+    timer = profiling.StageTimer("cpu")
+    timer.start()
+    with profiling.stage("inputs", timer):
+        assert timer.totals == {}
+    with profiling.stage("inputs", None):
+        pass
+    assert list(timer.totals) == ["inputs"]
+    with pytest.raises(RuntimeError), profiling.stage("head", timer):
+        raise RuntimeError("no stamp on the way out of an error")
+    assert list(timer.totals) == ["inputs"]
+

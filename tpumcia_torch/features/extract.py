@@ -55,6 +55,7 @@ import torch
 from tpumcia_torch.config import FeatureConfig
 from tpumcia_torch.features import registry
 from tpumcia_torch.utils.device import require_device
+from tpumcia_torch.utils.profiling import stage
 
 
 def _to_host(a):
@@ -222,34 +223,40 @@ def _chw_levels(imgs: torch.Tensor) -> torch.Tensor:
     return as_int32(imgs.permute(0, 3, 1, 2)).contiguous()
 
 
+def _batch_levels(imgs: torch.Tensor, generator, *, synth_noise=0, synth_var=0.01):
+    """A batch's kernel input: the (B, C, H, W) int32 levels, with
+    ``synth_noise`` noise channels drawn from ``generator`` after a
+    grayscale batch's own."""
+    if synth_noise:
+        from tpumcia_torch.preprocess.synth import noise_channels_chw
+
+        return noise_channels_chw(imgs, generator, num_noise=synth_noise, var=synth_var)
+    return _chw_levels(imgs)
+
+
+def _batch_wire(st, keep_device: bool):
+    """A batch's statistics -> (u32 wire, the NaN-cleaned f32 feature block
+    or None)."""
+    from tpumcia_torch.features.finalize import _finalize
+    from tpumcia_torch.features.hybrid import _device_reduce_wire
+
+    wire = _device_reduce_wire(st)
+    return wire, torch.nan_to_num(_finalize(st).values) if keep_device else None
+
+
 def _batch_fused_dispatch(
     imgs: torch.Tensor, mask, generator, *, levels, offset, keep_device,
-    synth_noise=0, synth_var=0.01, timer=None,
+    synth_noise=0, synth_var=0.01,
 ):
     """One batch on the device: (optional noise synth) -> sufficient
     statistics (masked when ``mask``, the (B, 1 or C, H, W) uint8 plane, is
     given) -> u32 wire (+ optionally the NaN-cleaned f32 feature block,
     which never leaves the device)."""
     from tpumcia_torch.features import cuda_glcm
-    from tpumcia_torch.features.finalize import _finalize
-    from tpumcia_torch.features.hybrid import _device_reduce_wire
 
-    if synth_noise:
-        from tpumcia_torch.preprocess.synth import noise_channels_chw
-
-        img = noise_channels_chw(imgs, generator, num_noise=synth_noise, var=synth_var)
-    else:
-        img = _chw_levels(imgs)
-    if timer is not None:
-        timer.stamp("synth")
+    img = _batch_levels(imgs, generator, synth_noise=synth_noise, synth_var=synth_var)
     st = cuda_glcm.sufficient_stats(img, mask, levels=levels, offset=offset)
-    if timer is not None:
-        timer.stamp("stats_kernel")
-    wire = _device_reduce_wire(st)
-    feats = torch.nan_to_num(_finalize(st).values) if keep_device else None
-    if timer is not None:
-        timer.stamp("wire_features")
-    return wire, feats
+    return _batch_wire(st, keep_device)
 
 
 def _prepare(images, mask, cfg: FeatureConfig, device: torch.device):
@@ -302,7 +309,8 @@ def _extract_features(images, mask=None, *, device, config, channel_names, mesh=
     """:func:`extract_features`; ``timer``, a started
     ``utils.profiling.StageTimer``, gets the inputs (validation and
     host-to-device copies), stats kernel (with the wire reduction on the
-    u32-wire branch) and finalize stages (the classic pipeline's split)."""
+    u32-wire branch) and finalize stages (the classic pipeline's split),
+    each also a span."""
     cfg = config or FeatureConfig()
     if mesh is not None:
         from tpumcia_torch.parallel.mesh import check_mesh
@@ -316,21 +324,17 @@ def _extract_features(images, mask=None, *, device, config, channel_names, mesh=
     if cfg.precision not in backends:
         raise ValueError(f"unknown precision {cfg.precision!r}; one of {sorted(backends)}")
     backend = backends[cfg.precision]
-    if mesh is None:
-        device = torch.device(device)
-        images, imgs, m = _prepare(images, mask, cfg, device)
-    else:
-        # the sharded statistics check and place each slot's rows
-        device = mesh.first_device
-        images, imgs, m = _as_level_array(images, cfg.glcm.levels), None, None
-        if images.ndim != 4:
-            raise ValueError(f"expected (B, H, W, C) images; got shape {tuple(images.shape)}")
+    with stage("inputs", timer):
+        if mesh is None:
+            device = torch.device(device)
+            images, imgs, m = _prepare(images, mask, cfg, device)
+        else:
+            # the sharded statistics check and place each slot's rows
+            device = mesh.first_device
+            images, imgs, m = _as_level_array(images, cfg.glcm.levels), None, None
+            if images.ndim != 4:
+                raise ValueError(f"expected (B, H, W, C) images; got shape {tuple(images.shape)}")
 
-    def stamp(stage):
-        if timer is not None:
-            timer.stamp(stage)
-
-    stamp("inputs")
     from tpumcia_torch.features import cuda_glcm
 
     levels = cfg.glcm.levels
@@ -366,71 +370,74 @@ def _extract_features(images, mask=None, *, device, config, channel_names, mesh=
         flags = _to_host(flags)
         degenerate = flags if degenerate is None else degenerate | flags
 
-    if mesh is None and backend == "hybrid" and hybrid_wire_ok(cfg):
-        from tpumcia_torch.features.hybrid import unpack_wire
-
-        wire, _ = _batch_fused_dispatch(
-            imgs, m, None, levels=levels, offset=offsets[0], keep_device=False,
-        )
-        stamp("stats_kernel")
-        done = assemble_reduced(unpack_wire(_to_host(wire).view(np.uint32)), levels=levels)
-        add_block(done.values, done.degenerate)
-    elif len(offsets) > 1:
-        all_stats = stats_multi(offsets)
-        stamp("stats_kernel")
-        if mesh is None and backend == "hybrid" and hybrid_wire_ok(cfg, images.shape, multi_offset=True):
-            # the whole offset list in one wire and one copy to the host
-            from tpumcia_torch.features.hybrid import (
-                _device_reduce_wire_multi,
-                unpack_wire_multi,
+    wire_branch = mesh is None and backend == "hybrid" and hybrid_wire_ok(cfg)
+    with stage("stats_kernel", timer):
+        if wire_branch:
+            wire, _ = _batch_fused_dispatch(
+                imgs, m, None, levels=levels, offset=offsets[0], keep_device=False,
             )
-
-            wire = _to_host(_device_reduce_wire_multi(all_stats)).view(np.uint32)
-            for i, r in enumerate(unpack_wire_multi(wire, len(all_stats))):
-                done = assemble_reduced(
-                    r, levels=levels, include_intensity=cfg.include_intensity and i == 0,
-                    include_glcm=True,
-                )
-                add_block(done.values, done.degenerate)
-        else:
-            for i, stats in enumerate(all_stats):
-                done = finalize_features(
-                    stats, include_intensity=cfg.include_intensity and i == 0,
-                    include_glcm=True, backend=backend,
-                )
-                add_block(done.values, done.degenerate)
-    else:
-        # one offset (or intensity only): one statistics pass
-        if mesh is None:
+        elif len(offsets) > 1:
+            all_stats = stats_multi(offsets)
+        elif mesh is None:
+            # one offset (or intensity only): one statistics pass
             stats = cuda_glcm.sufficient_stats(
                 _chw_levels(imgs), m, levels=levels, offset=offsets[0], need_diff=need_dh,
             )
         else:
             (stats,) = stats_multi(offsets[:1])
-        stamp("stats_kernel")
-        done = finalize_features(
-            stats, include_intensity=cfg.include_intensity,
-            include_glcm=cfg.include_glcm, backend=backend,
-        )
-        add_block(done.values, done.degenerate)
 
     num_channels = images.shape[-1]
-    if cfg.include_morphology:
-        from tpumcia_torch.features.morphology import morphology_features
-        from tpumcia_torch.features.stats import prepare_mask
+    with stage("finalize", timer):
+        if wire_branch:
+            from tpumcia_torch.features.hybrid import unpack_wire
 
-        if m is None:  # over a mesh: the mask plane on the first slot's device
-            m = prepare_mask(mask, images.shape, device)
+            done = assemble_reduced(unpack_wire(_to_host(wire).view(np.uint32)), levels=levels)
+            add_block(done.values, done.degenerate)
+        elif len(offsets) > 1:
+            if mesh is None and backend == "hybrid" and hybrid_wire_ok(
+                    cfg, images.shape, multi_offset=True):
+                # the whole offset list in one wire and one copy to the host
+                from tpumcia_torch.features.hybrid import (
+                    _device_reduce_wire_multi,
+                    unpack_wire_multi,
+                )
 
-        # the mask plane's (B, 1 or C, 8) shape features, a shared mask's
-        # for every channel
-        morph = morphology_features(m.permute(0, 2, 3, 1), device=device)
-        morph = morph.expand(-1, num_channels, -1)
-        morph = morph.reshape(morph.shape[0], -1)
-        if not isinstance(value_blocks[0], torch.Tensor):
-            morph = morph.cpu().numpy().astype(value_blocks[0].dtype)
-        value_blocks.append(morph)
-    stamp("finalize")
+                wire = _to_host(_device_reduce_wire_multi(all_stats)).view(np.uint32)
+                for i, r in enumerate(unpack_wire_multi(wire, len(all_stats))):
+                    done = assemble_reduced(
+                        r, levels=levels, include_intensity=cfg.include_intensity and i == 0,
+                        include_glcm=True,
+                    )
+                    add_block(done.values, done.degenerate)
+            else:
+                for i, stats in enumerate(all_stats):
+                    done = finalize_features(
+                        stats, include_intensity=cfg.include_intensity and i == 0,
+                        include_glcm=True, backend=backend,
+                    )
+                    add_block(done.values, done.degenerate)
+        else:
+            done = finalize_features(
+                stats, include_intensity=cfg.include_intensity,
+                include_glcm=cfg.include_glcm, backend=backend,
+            )
+            add_block(done.values, done.degenerate)
+
+        if cfg.include_morphology:
+            from tpumcia_torch.features.morphology import morphology_features
+            from tpumcia_torch.features.stats import prepare_mask
+
+            if m is None:  # over a mesh: the mask plane on the first slot's device
+                m = prepare_mask(mask, images.shape, device)
+
+            # the mask plane's (B, 1 or C, 8) shape features, a shared mask's
+            # for every channel
+            morph = morphology_features(m.permute(0, 2, 3, 1), device=device)
+            morph = morph.expand(-1, num_channels, -1)
+            morph = morph.reshape(morph.shape[0], -1)
+            if not isinstance(value_blocks[0], torch.Tensor):
+                morph = morph.cpu().numpy().astype(value_blocks[0].dtype)
+            value_blocks.append(morph)
     names = registry.feature_names(
         num_channels,
         include_intensity=cfg.include_intensity,
@@ -528,6 +535,7 @@ def extract_features_pending(
     ``i - in_flight`` has finished. A tensor already on the device is
     sliced there.
     """
+    from tpumcia_torch.features import cuda_glcm
     from tpumcia_torch.features.stats import check_mask_shape, mask_plane
     from tpumcia_torch.io.staging import HostStager, rows_to_device, take
     from tpumcia_torch.preprocess.synth import synth_batch_seed
@@ -585,24 +593,24 @@ def extract_features_pending(
 
     wires, feats, done = [], [], []
     for i, sl in enumerate(slices):
-        if i >= in_flight and done[i - in_flight] is not None:
-            done[i - in_flight].synchronize()  # the bound on resident batches
-        imgs_b = pad_batch(images, sl)
-        mask_b = None if mask is None else pad_batch(mask, sl, is_mask=True)
-        imgs_b = take(imgs_b)
-        mask_b = None if mask_b is None else mask_plane(take(mask_b))
-        if timer is not None:
-            timer.stamp("inputs")
-        gen = None
-        if synth_noise:
-            gen = torch.Generator(device=device)
-            gen.manual_seed(synth_batch_seed(synth_seed, i))
-        wire, f = _batch_fused_dispatch(
-            imgs_b, mask_b, gen,
-            levels=cfg.glcm.levels, offset=offset,
-            keep_device=keep_device_values, synth_noise=synth_noise,
-            synth_var=synth_var, timer=timer,
-        )
+        # _batch_fused_dispatch's steps, each a stage
+        with stage("inputs", timer):
+            if i >= in_flight and done[i - in_flight] is not None:
+                done[i - in_flight].synchronize()  # the bound on resident batches
+            imgs_b = pad_batch(images, sl)
+            mask_b = None if mask is None else pad_batch(mask, sl, is_mask=True)
+            imgs_b = take(imgs_b)
+            mask_b = None if mask_b is None else mask_plane(take(mask_b))
+        with stage("synth", timer):
+            gen = None
+            if synth_noise:
+                gen = torch.Generator(device=device)
+                gen.manual_seed(synth_batch_seed(synth_seed, i))
+            img = _batch_levels(imgs_b, gen, synth_noise=synth_noise, synth_var=synth_var)
+        with stage("stats_kernel", timer):
+            st = cuda_glcm.sufficient_stats(img, mask_b, levels=cfg.glcm.levels, offset=offset)
+        with stage("wire_features", timer):
+            wire, f = _batch_wire(st, keep_device_values)
         wires.append(wire)
         if keep_device_values:
             feats.append(f)

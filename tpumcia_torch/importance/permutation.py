@@ -22,6 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tpumcia_torch.utils.profiling import COUNTERS, trace
+
 # elements of the (draws, N, F) permuted stack scored at once
 _SWEEP_CHUNK_ELEMS = 1 << 28
 
@@ -120,22 +122,25 @@ def draw_permutations(
 def _perm_sweep(X, y_idx, masks, perms, apply_fn):
     """X (N, F); y_idx (N,) class indices; masks (G, F) 0/1 columns permuted
     jointly per group; perms (G, R, N) row permutations. Returns
-    (baseline accuracy, (G, R) accuracy drops)."""
+    (baseline accuracy, (G, R) accuracy drops). The sweep is one ``sweep``
+    span and adds its G*R + 1 evaluations to ``COUNTERS["sweep_evals"]``."""
     N, F = X.shape
     G, R, _ = perms.shape
 
     def accuracy(logits):  # (..., N, k) -> (...)
         return (torch.argmax(logits, dim=-1) == y_idx).to(torch.float32).mean(-1)
 
-    baseline = accuracy(apply_fn(X))
-    flat = perms.reshape(G * R, N)
-    group_of = torch.arange(G, device=X.device).repeat_interleave(R)
-    permuted = masks[group_of].to(torch.bool)[:, None, :]  # (G*R, 1, F)
-    step = max(1, _SWEEP_CHUNK_ELEMS // max(1, N * F))
-    scores = torch.cat([X.new_zeros(0)] + [
-        accuracy(apply_fn(torch.where(permuted[s:s + step], X[flat[s:s + step]], X)))
-        for s in range(0, G * R, step)
-    ])
+    with trace("sweep"):
+        baseline = accuracy(apply_fn(X))
+        flat = perms.reshape(G * R, N)
+        group_of = torch.arange(G, device=X.device).repeat_interleave(R)
+        permuted = masks[group_of].to(torch.bool)[:, None, :]  # (G*R, 1, F)
+        step = max(1, _SWEEP_CHUNK_ELEMS // max(1, N * F))
+        scores = torch.cat([X.new_zeros(0)] + [
+            accuracy(apply_fn(torch.where(permuted[s:s + step], X[flat[s:s + step]], X)))
+            for s in range(0, G * R, step)
+        ])
+    COUNTERS["sweep_evals"] += G * R + 1
     return baseline, baseline - scores.reshape(G, R)
 
 

@@ -34,6 +34,7 @@ from tpumcia_torch.models.forest_device import DeviceForest
 from tpumcia_torch.models.forest_fit import Tree, fit_forest
 from tpumcia_torch.models.scaler import MinMaxScaler
 from tpumcia_torch.utils.device import require_device
+from tpumcia_torch.utils.profiling import COUNTERS, trace
 
 
 def init_weights(num_features: int, num_classes: int, *, seed: int, device) -> torch.Tensor:
@@ -67,14 +68,16 @@ def init_mlp_params(dims, *, seed: int, device) -> dict:
 
 def _adam(tensors: list[torch.Tensor], loss_fn, *, num_steps: int, lr: float) -> list[torch.Tensor]:
     """``num_steps`` full-batch Adam steps on copies of ``tensors``; returns
-    the fitted copies, detached."""
+    the fitted copies, detached. The loop is the ``adam`` span and adds its
+    steps to ``COUNTERS["adam_steps"]``."""
     params = [t.detach().clone().requires_grad_(True) for t in tensors]
     opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    with torch.enable_grad():
+    with trace("adam"), torch.enable_grad():
         for _ in range(num_steps):
             opt.zero_grad(set_to_none=True)
             loss_fn(params).backward()
             opt.step()
+    COUNTERS["adam_steps"] += num_steps
     return [p.detach() for p in params]
 
 

@@ -41,6 +41,7 @@ from tpumcia_torch.features.extract import (
 from tpumcia_torch.importance.channels import ChannelImportanceResult, channel_importance
 from tpumcia_torch.utils.device import require_device
 from tpumcia_torch.utils.metrics import accuracy, classification_report
+from tpumcia_torch.utils.profiling import ROOT_SPAN, stage, trace
 from tpumcia_torch.utils.split import train_test_split_indices
 
 # every ImportanceConfig.channel_method the JAX package knows
@@ -116,30 +117,28 @@ def _run_pipeline_fast(
         synth_noise=cfg.synth.noise_channels, synth_var=cfg.synth.var,
         synth_seed=cfg.synth.seed, timer=timer,
     )
-    split = train_test_split_indices(
-        pending.n,
-        test_size=cfg.split.test_size,
-        seed=cfg.split.seed,
-        stratify=labels if cfg.split.stratify else None,
-        groups=groups if cfg.split.group_by else None,
-    )
-    fit_pending = fit_logistic_with_importance(
-        pending.device_values, labels,
-        train_idx=split.train_idx, test_idx=split.test_idx,
-        groups=registry.columns_by_channel_positional(pending.num_channels),
-        names=pending.names,
-        head_config=cfg.head, importance_config=cfg.importance,
-        channel_names=pending.channel_names, defer=True,
-    )
-    if timer is not None:
-        timer.stamp("head_sweeps")
-    fm = pending.result()  # the wires' device-to-host copies + f64 assembly
-    timings["features_s"] = time.perf_counter() - t0
+    with stage("head_sweeps", timer):
+        split = train_test_split_indices(
+            pending.n,
+            test_size=cfg.split.test_size,
+            seed=cfg.split.seed,
+            stratify=labels if cfg.split.stratify else None,
+            groups=groups if cfg.split.group_by else None,
+        )
+        fit_pending = fit_logistic_with_importance(
+            pending.device_values, labels,
+            train_idx=split.train_idx, test_idx=split.test_idx,
+            groups=registry.columns_by_channel_positional(pending.num_channels),
+            names=pending.names,
+            head_config=cfg.head, importance_config=cfg.importance,
+            channel_names=pending.channel_names, defer=True,
+        )
+    with stage("d2h_assembly", timer):
+        fm = pending.result()  # the wires' device-to-host copies + f64 assembly
+        timings["features_s"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    res = fit_pending.result()  # the one packed head/sweep copy
-    if timer is not None:
-        timer.stamp("d2h_assembly")
+        t0 = time.perf_counter()
+        res = fit_pending.result()  # the one packed head/sweep copy
     y_te = labels[split.test_idx]
     test_acc = accuracy(y_te, res.y_pred)
     report = classification_report(y_te, res.y_pred)
@@ -159,6 +158,7 @@ def _run_pipeline_fast(
     )
 
 
+@trace(ROOT_SPAN)
 def run_pipeline(
     images,
     labels,
@@ -186,7 +186,9 @@ def run_pipeline(
     synth, stats kernel, wire + f32 features, head + sweeps and
     device-to-host + assembly; on the classic path synth, inputs, stats
     kernel, finalize (per batch), the host matrix and its upload, head and
-    importance.
+    importance. Each stage is also a span of the stage's name, inside the
+    call's ``run_pipeline`` span, with or without a timer
+    (``utils.profiling``).
 
     The configurations tpumcia's fast path takes run fused (see
     :func:`_fast_path_ok`); every other one runs tpumcia's classic path.
@@ -272,12 +274,11 @@ def _run_pipeline_classic(
         from tpumcia_torch.preprocess.synth import add_noise_channels_batched
 
         # the fast path's per-batch stream: the same dataset on either path
-        images = add_noise_channels_batched(
-            images, seed=cfg.synth.seed, batch_size=cfg.batch_size, device=device,
-            num_noise=cfg.synth.noise_channels, var=cfg.synth.var,
-        )
-        if timer is not None:
-            timer.stamp("synth")
+        with stage("synth", timer):
+            images = add_noise_channels_batched(
+                images, seed=cfg.synth.seed, batch_size=cfg.batch_size, device=device,
+                num_noise=cfg.synth.noise_channels, var=cfg.synth.var,
+            )
 
     t0 = time.perf_counter()
     kw = dict(device=device, config=cfg.features, channel_names=channel_names, timer=timer)
@@ -289,37 +290,35 @@ def _run_pipeline_classic(
 
     # over a mesh the statistics were gathered over the ranks before the
     # finalize: every rank holds the whole matrix (tpumcia's fetch_to_host)
-    X_host = np.nan_to_num(np.asarray(fm.to_numpy(), dtype=np.float32))
-    split = train_test_split_indices(
-        len(X_host),
-        test_size=cfg.split.test_size,
-        seed=cfg.split.seed,
-        stratify=labels if cfg.split.stratify else None,
-        groups=groups if cfg.split.group_by else None,
-    )
-    X = torch.from_numpy(X_host).to(device)  # one copy for the head and both sweeps
-    tr = torch.as_tensor(split.train_idx, device=device)
-    te = torch.as_tensor(split.test_idx, device=device)
-    if timer is not None:
-        timer.stamp("host_matrix_upload")
+    with stage("host_matrix_upload", timer):
+        X_host = np.nan_to_num(np.asarray(fm.to_numpy(), dtype=np.float32))
+        split = train_test_split_indices(
+            len(X_host),
+            test_size=cfg.split.test_size,
+            seed=cfg.split.seed,
+            stratify=labels if cfg.split.stratify else None,
+            groups=groups if cfg.split.group_by else None,
+        )
+        X = torch.from_numpy(X_host).to(device)  # one copy for the head and both sweeps
+        tr = torch.as_tensor(split.train_idx, device=device)
+        te = torch.as_tensor(split.test_idx, device=device)
 
-    t0 = time.perf_counter()
-    scaler = None
-    if mesh is not None and cfg.normalize == "minmax":
-        from tpumcia_torch.parallel.sharding import fit_scaler_sharded
+    with stage("head", timer):
+        t0 = time.perf_counter()
+        scaler = None
+        if mesh is not None and cfg.normalize == "minmax":
+            from tpumcia_torch.parallel.sharding import fit_scaler_sharded
 
-        scaler = fit_scaler_sharded(X_host[split.train_idx], mesh=mesh)
-    head = fit_head(
-        X[tr], labels[split.train_idx], device=device, config=cfg.head,
-        scale=cfg.normalize == "minmax", scaler=scaler,
-    )
-    timings["fit_s"] = time.perf_counter() - t0
-    y_te = labels[split.test_idx]
-    pred = head.predict(X[te])
-    test_acc = accuracy(y_te, pred)
-    report = classification_report(y_te, pred)
-    if timer is not None:
-        timer.stamp("head")
+            scaler = fit_scaler_sharded(X_host[split.train_idx], mesh=mesh)
+        head = fit_head(
+            X[tr], labels[split.train_idx], device=device, config=cfg.head,
+            scale=cfg.normalize == "minmax", scaler=scaler,
+        )
+        timings["fit_s"] = time.perf_counter() - t0
+        y_te = labels[split.test_idx]
+        pred = head.predict(X[te])
+        test_acc = accuracy(y_te, pred)
+        report = classification_report(y_te, pred)
 
     fm_test = FeatureMatrix(
         values=X_host[split.test_idx],
@@ -329,20 +328,19 @@ def _run_pipeline_classic(
         channel_names=fm.channel_names,
         device_values=X[te],
     )
-    t0 = time.perf_counter()
-    channel_res = channel_importance(
-        head, fm_test, y_te, method=cfg.importance.channel_method, config=cfg.importance,
-        mesh=mesh,
-    )
-    # the per-feature view (notebook cell 28, ipynb:493-505): MDI for a
-    # forest, the per-feature permutation sweep otherwise
-    feature_method = "mdi" if isinstance(head, RandomForestHead) else "permutation_features"
-    feature_res = channel_importance(
-        head, fm_test, y_te, method=feature_method, config=cfg.importance, mesh=mesh,
-    )
-    timings["importance_s"] = time.perf_counter() - t0
-    if timer is not None:
-        timer.stamp("importance")
+    with stage("importance", timer):
+        t0 = time.perf_counter()
+        channel_res = channel_importance(
+            head, fm_test, y_te, method=cfg.importance.channel_method, config=cfg.importance,
+            mesh=mesh,
+        )
+        # the per-feature view (notebook cell 28, ipynb:493-505): MDI for a
+        # forest, the per-feature permutation sweep otherwise
+        feature_method = "mdi" if isinstance(head, RandomForestHead) else "permutation_features"
+        feature_res = channel_importance(
+            head, fm_test, y_te, method=feature_method, config=cfg.importance, mesh=mesh,
+        )
+        timings["importance_s"] = time.perf_counter() - t0
 
     return PipelineResult(
         features=fm,

@@ -10,6 +10,16 @@ between stages, and untimed runs for the throughput.
 :func:`trace` names a region for ``torch.profiler`` (and for NVTX tools on a
 CUDA build), :func:`capture_trace` records a Chrome trace of what runs
 inside it, and :class:`ThroughputMeter` counts items per second per stage.
+
+The program opens its own spans with :func:`trace`, at each layer boundary
+of a ``run_pipeline`` call, so a profiled call splits on the profiler's
+clock without being synchronised: ``run_pipeline`` (one a call), one span a
+stage, named as the ``StageTimer`` stage (a stage's span exits where the
+timer stamps it, see :func:`stage`), ``adam`` (the head's Adam loop) and
+``sweep`` (one permutation sweep). :data:`COUNTERS` counts the head's work
+where it is done: ``adam_steps`` (Adam steps, added once a loop) and
+``sweep_evals`` (evaluations of the head in the permutation sweeps, the
+baseline included); :func:`reset_counters` zeroes them.
 """
 
 from __future__ import annotations
@@ -20,6 +30,14 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+
+ROOT_SPAN = "run_pipeline"
+COUNTERS = {"adam_steps": 0, "sweep_evals": 0}
+
+
+def reset_counters() -> None:
+    for k in COUNTERS:
+        COUNTERS[k] = 0
 
 
 class StageTimer:
@@ -60,6 +78,17 @@ def trace(name: str):
     finally:
         if nvtx:
             torch.cuda.nvtx.range_pop()
+
+
+@contextlib.contextmanager
+def stage(name: str, timer: StageTimer | None = None):
+    """A stage of a ``run_pipeline`` call: a :func:`trace` span whose exit
+    closes the stage ``name`` on ``timer`` (a started :class:`StageTimer`,
+    or None)."""
+    with trace(name):
+        yield
+        if timer is not None:
+            timer.stamp(name)
 
 
 @contextlib.contextmanager
