@@ -18,7 +18,9 @@ installed, without the JAX harness in conftest.py:
 Tolerances: kernel vs plain version, integer fields bit-equal and
 ``dstats[3]`` (two float64 sums in another order, rounded to f32) to rel
 1e-6; card vs CPU slice features 1e-5 max abs (f32 wire words summed in
-another order).
+another order). The heads' Adam fits replayed from a CUDA graph are held to
+the eager loop within limits their tests derive from measured gaps, and
+bit for bit to the same optimizer stepped eagerly.
 """
 
 import numpy as np
@@ -750,3 +752,187 @@ def test_bench_torch_on_the_card():
     for line in lines:
         assert line["measured_on"] == "cuda" and line_failures(line) == [], line_failures(line)
         assert line["glcm_profiled_launches"] == line["metrics"]["glcm_launches"]["value"]
+
+
+# ---- the head's Adam fit as a CUDA graph (models/heads.py) -------------------
+
+# (train rows, feature columns, classes, Adam steps) of the benchmark cells' heads
+HEAD_SHAPES = {"mednist": (9000, 69, 6, 300), "classic": (1536, 276, 3, 500)}
+
+
+def _head_problem(cell, seed, dev):
+    """MinMax-scaled features in [0, 1], the class shifting the first eight
+    columns, and the labels one-hot, at the cell's head shape."""
+    n, f, k, _ = HEAD_SHAPES[cell]
+    g = torch.Generator().manual_seed(seed)
+    y = torch.randint(0, k, (n,), generator=g)
+    X = torch.rand((n, f), generator=g)
+    X[:, :8] += 0.3 * y[:, None].float() / k
+    X = (X - X.amin(0)) / (X.amax(0) - X.amin(0))
+    return X.to(dev), torch.nn.functional.one_hot(y, k).float().to(dev)
+
+
+def _logistic_fits(cell, seed, dev):
+    """(graphed ``_fit_logistic``, the eager loop) from the same start."""
+    from tpumcia_torch.models import heads
+
+    X, Y = _head_problem(cell, seed, dev)
+    steps = HEAD_SHAPES[cell][3]
+    w0 = heads.init_weights(X.shape[1], Y.shape[1], seed=seed, device=dev)
+    b0 = torch.zeros(Y.shape[1], device=dev)
+    got = heads._fit_logistic(X, Y, w0, b0, num_steps=steps, lr=0.05, l2=1e-4)
+    w, b = heads._eager_adam([w0, b0], heads._logistic_loss(X, Y, 1e-4), num_steps=steps, lr=0.05)
+    return X, got, {"w": w, "b": b}
+
+
+@pytest.mark.parametrize("cell", sorted(HEAD_SHAPES))
+def test_graphed_logistic_fit_matches_the_eager_loop(cell):
+    """The graphed fit (fused capturable Adam, one eager step, the rest
+    replayed) against the eager loop (foreach Adam) on the card, at each
+    cell's head shape and step count. Measured on the H100 over 10 seeds a
+    shape: weights at most 7.9e-6 (MedNIST) and 8.9e-5 (classic) apart,
+    probabilities 1.5e-6 and 5.7e-6. The two optimizers round the same
+    float32 update in another order; the loss is convex, so the
+    probabilities stay at rounding, but Adam scales each update by its own
+    gradient's size, so a weight whose column carries no signal moves by
+    rounding-sized gradients and its gap grows past them. The limits are
+    5.6x and 8.7x the largest readings: 5e-4 on the weights, 5e-5 on the
+    probabilities."""
+    from tpumcia_torch.models import heads
+
+    dev = require_cuda()
+    for seed in range(3):
+        X, got, want = _logistic_fits(cell, seed, dev)
+        for name in ("w", "b"):
+            torch.testing.assert_close(got[name], want[name], rtol=0, atol=5e-4)
+        torch.testing.assert_close(torch.softmax(heads.logistic_predict_logits(got, X), -1),
+                                   torch.softmax(heads.logistic_predict_logits(want, X), -1),
+                                   rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("cell", sorted(HEAD_SHAPES))
+def test_graphed_mlp_fit_matches_the_eager_loop(cell):
+    """``_fit_mlp`` graphed against the eager loop at each cell's head shape
+    (64 hidden units), over 10 steps: the graph still replays 9. At the
+    cells' 300 and 500 steps no limit can hold: the eager fit alone moves
+    its weights by 0.27 to 7.4 when its starting weights move by one ulp
+    (measured on the H100), as Adam at lr 0.05 through ReLU units amplifies
+    any rounding; the next test holds the full-length replays bit for bit.
+    Measured over 10 steps, 8 seeds a shape: weights 1.9e-4 (MedNIST) and
+    6.9e-5 (classic) apart at most, probabilities 1.8e-5 and 4.9e-5; the
+    limits are about 5x those: 1e-3 on the weights, 2.5e-4 on the
+    probabilities."""
+    from tpumcia_torch.models import heads
+
+    dev = require_cuda()
+    for seed in range(3):
+        X, Y = _head_problem(cell, seed, dev)
+        p0 = heads.init_mlp_params([X.shape[1], 64, Y.shape[1]], seed=seed, device=dev)
+        got = heads._fit_mlp(X, Y, p0, num_steps=10, lr=0.05, l2=1e-4)
+        want = heads._unflatten(heads._eager_adam(heads._flatten(p0), heads._mlp_loss(X, Y, 1e-4),
+                                                  num_steps=10, lr=0.05))
+        for g, w in zip(heads._flatten(got), heads._flatten(want)):
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
+        torch.testing.assert_close(torch.softmax(heads.mlp_predict_logits(got, X), -1),
+                                   torch.softmax(heads.mlp_predict_logits(want, X), -1),
+                                   rtol=0, atol=2.5e-4)
+
+
+@pytest.mark.parametrize("kind", ["logistic", "mlp"])
+@pytest.mark.parametrize("cell", sorted(HEAD_SHAPES))
+def test_graph_replays_equal_the_same_steps_run_eagerly(cell, kind):
+    """At each cell's shape and full step count, the graphed fit equals bit
+    for bit the same fused capturable Adam stepped eagerly on the same
+    stream: a replay does what the captured step did (0 apart in all 128
+    fits measured on the H100, both heads, 10 to 500 steps)."""
+    import warnings
+
+    from tpumcia_torch.models import heads
+
+    dev = require_cuda()
+    X, Y = _head_problem(cell, 5, dev)
+    steps = HEAD_SHAPES[cell][3]
+    if kind == "logistic":
+        t0 = [heads.init_weights(X.shape[1], Y.shape[1], seed=5, device=dev), torch.zeros(Y.shape[1], device=dev)]
+        loss = heads._logistic_loss(X, Y, 1e-4)
+    else:
+        t0 = heads._flatten(heads.init_mlp_params([X.shape[1], 64, Y.shape[1]], seed=5, device=dev))
+        loss = heads._mlp_loss(X, Y, 1e-4)
+    got = heads._adam(t0, loss, num_steps=steps, lr=0.05)
+    params = heads._leaves(t0)
+    opt = torch.optim.Adam(params, lr=0.05, betas=heads.BETAS, eps=heads.EPS, fused=True, capturable=True)
+    side = heads._side_stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side), torch.enable_grad(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        heads._steps(opt, params, loss, steps)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    for g, w in zip(got, params):
+        assert torch.equal(g, w.detach())
+
+
+def test_graph_replays_every_step_past_the_warm_up():
+    """``COUNTERS``: a fit adds all its steps to ``adam_steps`` and all but
+    the eager warm-up's to ``adam_graph_steps``."""
+    from tpumcia_torch.models import heads
+    from tpumcia_torch.utils import profiling
+
+    dev = require_cuda()
+    X, Y = _head_problem("classic", 0, dev)
+    steps = HEAD_SHAPES["classic"][3]
+    profiling.reset_counters()
+    heads._fit_logistic(X, Y, heads.init_weights(X.shape[1], 3, seed=0, device=dev),
+                        torch.zeros(3, device=dev), num_steps=steps, lr=0.05, l2=1e-4)
+    assert profiling.COUNTERS["adam_steps"] == steps
+    assert profiling.COUNTERS["adam_graph_steps"] == steps - heads.GRAPH_WARMUP_STEPS
+
+
+def test_graphed_fit_neither_synchronises_nor_empties_the_cache(monkeypatch):
+    """An untimed fit calls neither ``torch.cuda.synchronize`` nor
+    ``torch.cuda.empty_cache`` (what ``torch.cuda.graph`` would call), and
+    leaves no memory allocated behind it: no graph, pool or cuBLAS
+    workspace outlives the fit."""
+    from tpumcia_torch.models import heads
+
+    dev = require_cuda()
+    X, Y = _head_problem("mednist", 1, dev)
+    w0 = heads.init_weights(X.shape[1], Y.shape[1], seed=1, device=dev)
+    b0 = torch.zeros(Y.shape[1], device=dev)
+    heads._fit_logistic(X, Y, w0, b0, num_steps=50, lr=0.05, l2=1e-4)  # warm
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    seen = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: seen.append("synchronize"))
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: seen.append("empty_cache"))
+    fitted = heads._fit_logistic(X, Y, w0, b0, num_steps=300, lr=0.05, l2=1e-4)
+    monkeypatch.undo()
+    assert seen == []
+    assert bool(torch.isfinite(fitted["w"]).all())
+    del fitted
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) <= before
+
+
+def test_a_loss_that_synchronises_fails_the_capture_loudly():
+    """A loss that reads a value back to the host cannot be captured: the fit
+    raises the capture's error (no silent eager fallback), and the next fit
+    on the same device runs and replays as before."""
+    from tpumcia_torch.models import heads
+    from tpumcia_torch.utils import profiling
+
+    dev = require_cuda()
+    X, Y = _head_problem("classic", 2, dev)
+    loss = heads._logistic_loss(X, Y, 1e-4)
+
+    def syncing(p):
+        out = loss(p)
+        return out * 2 if out.item() > 1e9 else out
+
+    w0 = heads.init_weights(X.shape[1], 3, seed=2, device=dev)
+    b0 = torch.zeros(3, device=dev)
+    with pytest.raises(RuntimeError, match="captur"):
+        heads._adam([w0, b0], syncing, num_steps=50, lr=0.05)
+    profiling.reset_counters()
+    _, got, want = _logistic_fits("classic", 2, dev)
+    assert profiling.COUNTERS["adam_graph_steps"] == HEAD_SHAPES["classic"][3] - heads.GRAPH_WARMUP_STEPS
+    torch.testing.assert_close(got["w"], want["w"], rtol=0, atol=1e-4)

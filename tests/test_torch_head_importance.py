@@ -8,6 +8,10 @@ handed to the port. Tolerances:
 - sweep baseline and drops: at most 1/N_test per entry, from f32 argmax
   near-ties (one test row flipping its predicted class);
 - MinMax statistics: exact (min and max of the same f32 values).
+
+The split of a fit's Adam steps between eager steps and CUDA graph replays
+is checked here as arithmetic; the replays themselves only on the card
+(``tests/test_torch_cuda.py``).
 """
 
 import jax
@@ -24,7 +28,7 @@ from tpumcia.models import fused as jfused
 from tpumcia.models import heads as jheads
 from tpumcia_torch.importance import channels
 from tpumcia_torch.importance import permutation as perm
-from tpumcia_torch.models import fused
+from tpumcia_torch.models import fused, heads
 from tpumcia_torch.models.heads import LogisticHead, _fit_logistic
 from tpumcia_torch.models.scaler import MinMaxScaler
 
@@ -57,6 +61,23 @@ def test_fit_logistic_matches_optax_adam():
     )
     np.testing.assert_allclose(got["w"].numpy(), np.asarray(want["w"]), rtol=0, atol=PARAM_ATOL)
     np.testing.assert_allclose(got["b"].numpy(), np.asarray(want["b"]), rtol=0, atol=PARAM_ATOL)
+
+
+W = heads.GRAPH_WARMUP_STEPS
+
+
+@pytest.mark.parametrize("device_type", ["cpu", "cuda"])
+@pytest.mark.parametrize("num_steps", sorted({0, 1, W, W + 1, 500}))
+def test_adam_step_split(num_steps, device_type):
+    """(eager steps, graph replays): every step eager on the CPU and on the
+    card up to the warm-up; past it, the warm-up eager and the rest
+    replayed. Pure arithmetic, no device work."""
+    eager, replays = heads._step_split(num_steps, device_type)
+    assert eager + replays == num_steps
+    if device_type == "cuda" and num_steps > W:
+        assert (eager, replays) == (W, num_steps - W)
+    else:
+        assert (eager, replays) == (num_steps, 0)
 
 
 def test_minmax_scaler_zero_range_rule():

@@ -5,8 +5,9 @@ CPU at a tiny size, on the fused path and on the classic path.
 Each call is one ``run_pipeline`` span; inside it the stage spans, named as
 ``StageTimer``'s stages and in their order (the fused path's first four once
 a batch); ``adam`` inside the head's stage and ``sweep`` inside the stage
-that runs the sweeps. ``COUNTERS`` counts the head's Adam steps and the
-sweeps' evaluations a call. No span synchronises the device. This file
+that runs the sweeps. ``COUNTERS`` counts the head's Adam steps (none of
+them replayed from a CUDA graph on the CPU) and the sweeps' evaluations a
+call. No span synchronises the device. This file
 imports no jax.
 """
 
@@ -144,6 +145,12 @@ def test_adam_steps_a_call_are_the_head_steps(traced, path):
 
 
 @pytest.mark.parametrize("path", sorted(TIMER_STAGES))
+def test_a_cpu_fit_replays_no_graph(traced, path):
+    """On the CPU every Adam step runs eagerly: no step is a graph replay."""
+    assert [c["adam_graph_steps"] for c in traced[path]["counters"]] == [0] * CALLS
+
+
+@pytest.mark.parametrize("path", sorted(TIMER_STAGES))
 def test_sweep_evals_a_call_follow_the_configuration(traced, path):
     """The channel sweep and the per-feature sweep: each permuted copy
     (groups x repeats) and the baseline, the same on every call."""
@@ -154,7 +161,7 @@ def test_sweep_evals_a_call_follow_the_configuration(traced, path):
 def test_reset_counters_zeroes_every_counter():
     profiling.COUNTERS["adam_steps"] += 3
     profiling.reset_counters()
-    assert profiling.COUNTERS == {"adam_steps": 0, "sweep_evals": 0}
+    assert profiling.COUNTERS == {"adam_steps": 0, "adam_graph_steps": 0, "sweep_evals": 0}
 
 
 @pytest.mark.parametrize("timed", [False, True])

@@ -17,13 +17,23 @@ the entry (scale, then fit). Their checkpoints are tpumcia's npz layout, so
 either package loads the other's; the forest's is an npz of its tree arrays
 (tpumcia pickles an sklearn object, which needs sklearn to load), and
 ``RandomForestHead.from_sklearn`` carries a fitted sklearn forest across.
+
+On a CUDA device a fit of more than :data:`GRAPH_WARMUP_STEPS` steps runs
+that many steps eagerly, captures one step as a CUDA graph and replays it
+for the rest, so the card and not the host's launches pace the fit; on the
+CPU, or with fewer steps, every step runs eagerly. The graph lives for one
+fit: collections differ in size from call to call, and a pool kept between
+calls would sit on top of the next extraction's peak.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -66,19 +76,115 @@ def init_mlp_params(dims, *, seed: int, device) -> dict:
     return {"hidden": tuple(layers[:-1]), "out": layers[-1]}
 
 
-def _adam(tensors: list[torch.Tensor], loss_fn, *, num_steps: int, lr: float) -> list[torch.Tensor]:
-    """``num_steps`` full-batch Adam steps on copies of ``tensors``; returns
-    the fitted copies, detached. The loop is the ``adam`` span and adds its
-    steps to ``COUNTERS["adam_steps"]``."""
-    params = [t.detach().clone().requires_grad_(True) for t in tensors]
-    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    with trace("adam"), torch.enable_grad():
-        for _ in range(num_steps):
-            opt.zero_grad(set_to_none=True)
+# torch.optim.Adam's settings, optax.adam's defaults
+BETAS, EPS = (0.9, 0.999), 1e-8
+# eager steps before the capture: the first step allocates the optimizer's
+# state, the autograd buffers and the side stream's cuBLAS workspace, none
+# of which the captured step may allocate
+GRAPH_WARMUP_STEPS = 1
+
+
+def _step_split(num_steps: int, device_type: str) -> tuple[int, int]:
+    """(eager steps, graph replays) of a fit of ``num_steps`` steps on a
+    ``device_type`` device: past the warm-up on ``cuda``, the warm-up
+    eagerly and the rest by replay; otherwise every step eagerly."""
+    if device_type == "cuda" and num_steps > GRAPH_WARMUP_STEPS:
+        return GRAPH_WARMUP_STEPS, num_steps - GRAPH_WARMUP_STEPS
+    return num_steps, 0
+
+
+def _leaves(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    return [t.detach().clone().requires_grad_(True) for t in tensors]
+
+
+def _steps(opt, params, loss_fn, num_steps: int) -> None:
+    for _ in range(num_steps):
+        opt.zero_grad(set_to_none=True)
+        loss_fn(params).backward()
+        opt.step()
+
+
+def _eager_adam(tensors, loss_fn, *, num_steps: int, lr: float) -> list[torch.Tensor]:
+    """``num_steps`` eager full-batch Adam steps (``torch.optim.Adam``'s
+    default implementation) on copies of ``tensors``; returns the fitted
+    copies, detached."""
+    params = _leaves(tensors)
+    _steps(torch.optim.Adam(params, lr=lr, betas=BETAS, eps=EPS), params, loss_fn, num_steps)
+    return [p.detach() for p in params]
+
+
+@functools.cache
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream a device's fits are captured on (a capture cannot run on
+    the default stream). One a device, so that the allocator's blocks freed
+    on it serve the next fit; it holds no memory of its own. Fits on one
+    device share it, so they run one at a time, as the port calls them."""
+    return torch.cuda.Stream(device)
+
+
+def _graphed_adam(tensors, loss_fn, *, warmup: int, replays: int, lr: float) -> list[torch.Tensor]:
+    """``warmup`` eager steps, then one step captured as a CUDA graph and
+    replayed ``replays`` times, with the fused capturable Adam (its step
+    count on the card, its bias corrections in double as the eager loop's),
+    on the side stream, which the caller's stream then waits for; returns
+    the fitted copies of ``tensors``, detached. The graph goes when this
+    returns, and its pool, with the grads in it, goes back to the allocator
+    (which frees the pool's segment when it next runs short). A loss that
+    synchronises fails the capture."""
+    params = _leaves(tensors)
+    opt = torch.optim.Adam(params, lr=lr, betas=BETAS, eps=EPS, fused=True, capturable=True)
+    device = params[0].device
+    caller = torch.cuda.current_stream(device)
+    side = _side_stream(device)
+    side.wait_stream(caller)
+    with torch.cuda.stream(side):
+        with warnings.catch_warnings():  # capturable steps run uncaptured on purpose
+            warnings.filterwarnings("ignore", "This instance was constructed with capturable=True")
+            _steps(opt, params, loss_fn, warmup)
+        # the captured backward then writes fresh grads in the graph's pool,
+        # which each replay overwrites, and does not accumulate into old ones
+        opt.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        # not torch.cuda.graph(): it synchronises and empties the allocator's cache
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
             loss_fn(params).backward()
             opt.step()
-    COUNTERS["adam_steps"] += num_steps
+        except Exception:
+            with contextlib.suppress(RuntimeError):  # the capture is void: raise its cause
+                graph.capture_end()
+            raise
+        graph.capture_end()
+        for _ in range(replays):
+            graph.replay()
+    caller.wait_stream(side)
+    # cuBLAS and cuBLASLt keep a workspace (32 MiB each on the H100)
+    # allocated for every stream they have run on: the side stream's would
+    # sit on top of the next extraction's peak. Dropped here, every stream's
+    # goes back to the allocator's cache, each stream's to its own, and the
+    # next matmul on a stream takes it back from there.
+    torch._C._cuda_clearCublasWorkspaces()
     return [p.detach() for p in params]
+
+
+def _adam(tensors: list[torch.Tensor], loss_fn, *, num_steps: int, lr: float) -> list[torch.Tensor]:
+    """``num_steps`` full-batch Adam steps on copies of ``tensors``; returns
+    the fitted copies, detached. ``loss_fn(params)`` must not synchronise.
+    Split by :func:`_step_split`: on a CUDA device the warm-up's steps run
+    eagerly and the rest replay one captured step (:func:`_graphed_adam`),
+    captured anew every fit (no graph is kept between calls); elsewhere
+    :func:`_eager_adam`. The fit is the ``adam`` span and adds its steps to
+    ``COUNTERS["adam_steps"]``, the replayed ones to
+    ``COUNTERS["adam_graph_steps"]``."""
+    eager, replays = _step_split(num_steps, tensors[0].device.type)
+    with trace("adam"), torch.enable_grad():
+        if replays:
+            fitted = _graphed_adam(tensors, loss_fn, warmup=eager, replays=replays, lr=lr)
+        else:
+            fitted = _eager_adam(tensors, loss_fn, num_steps=num_steps, lr=lr)
+    COUNTERS["adam_steps"] += num_steps
+    COUNTERS["adam_graph_steps"] += replays
+    return fitted
 
 
 def _softmax_ce(logits: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
@@ -91,12 +197,18 @@ def _fit_logistic(
 ) -> dict[str, torch.Tensor]:
     """``num_steps`` full-batch Adam steps from (w0, b0); returns the fitted
     ``{"w": (F, k), "b": (k,)}``."""
+    w, b = _adam([w0, b0], _logistic_loss(X, y_onehot, l2), num_steps=num_steps, lr=lr)
+    return {"w": w, "b": b}
+
+
+def _logistic_loss(X: torch.Tensor, y_onehot: torch.Tensor, l2: float):
+    """The logistic head's loss of ``[w, b]``: softmax cross-entropy plus
+    ``l2 * sum(w^2)``."""
     def loss(p):
         w, b = p
         return _softmax_ce(X @ w + b, y_onehot) + l2 * (w * w).sum()
 
-    w, b = _adam([w0, b0], loss, num_steps=num_steps, lr=lr)
-    return {"w": w, "b": b}
+    return loss
 
 
 def logistic_predict_logits(params: dict[str, torch.Tensor], X: torch.Tensor) -> torch.Tensor:
@@ -121,17 +233,28 @@ def _fit_mlp(
 ) -> dict:
     """``num_steps`` full-batch Adam steps from ``params0``; returns the
     fitted params in the same layout."""
-    flat0 = [t for layer in _layers(params0) for t in (layer["w"], layer["b"])]
+    return _unflatten(_adam(_flatten(params0), _mlp_loss(X, y_onehot, l2),
+                            num_steps=num_steps, lr=lr))
 
-    def unflatten(flat):
-        layers = [{"w": flat[i], "b": flat[i + 1]} for i in range(0, len(flat), 2)]
-        return {"hidden": tuple(layers[:-1]), "out": layers[-1]}
 
+def _flatten(params: dict) -> list[torch.Tensor]:
+    """The MLP's params as ``[w0, b0, w1, b1, ...]``, the readout last."""
+    return [t for layer in _layers(params) for t in (layer["w"], layer["b"])]
+
+
+def _unflatten(flat: list[torch.Tensor]) -> dict:
+    layers = [{"w": flat[i], "b": flat[i + 1]} for i in range(0, len(flat), 2)]
+    return {"hidden": tuple(layers[:-1]), "out": layers[-1]}
+
+
+def _mlp_loss(X: torch.Tensor, y_onehot: torch.Tensor, l2: float):
+    """The MLP head's loss of its params as :func:`_flatten` lists them:
+    softmax cross-entropy plus ``l2`` times the weight matrices' squared sum."""
     def loss(flat):
         reg = sum((w * w).sum() for w in flat[0::2])
-        return _softmax_ce(mlp_predict_logits(unflatten(flat), X), y_onehot) + l2 * reg
+        return _softmax_ce(mlp_predict_logits(_unflatten(flat), X), y_onehot) + l2 * reg
 
-    return unflatten(_adam(flat0, loss, num_steps=num_steps, lr=lr))
+    return loss
 
 
 def _config_from_npz(z) -> HeadConfig:
