@@ -1,6 +1,8 @@
 """The comparison that decides ``correct``: what the timed calls produced
-against the plain reference (``reference.py``), number by number, each
-against the limit its cell's traffic file gives (``limits``).
+against the plain reference, number by number, each against the limit its
+cell's traffic file gives (``limits``). :func:`judge` takes the numbers an
+entry names (``entries/<entry>.py``'s ``NUMBERS``); :func:`readings` reads
+the six of the ``pipeline`` entry against ``reference.py``:
 
 - ``split_rows``: rows on the other side of the train/test split (exact);
 - ``features_gap``: the widest gap of the feature matrix, each column's gap
@@ -60,7 +62,8 @@ def readings(prog: dict, ref: dict, limits: dict) -> dict:
     split_rows = int((side_p != side_r).sum()) + abs(len(prog["features"]) - n)
     same_split = split_rows == 0
     rows = len(ref["test_idx"]) * ref["repeats"]  # a drop's unit is 1 / rows
-    apart = (2 * limits["channel_rows"] + 0.5) / rows
+    # without a limit for channel_rows (then not correct) pairs count half a row apart
+    apart = (2 * limits.get("channel_rows", 0) + 0.5) / rows
     ch_p, ch_r = np.asarray(prog["channel"]), np.asarray(ref["channel"])
     swaps = 0
     if ch_p.shape == ch_r.shape:
@@ -81,10 +84,16 @@ def readings(prog: dict, ref: dict, limits: dict) -> dict:
     }
 
 
-def judge(numbers: dict, limits: dict) -> tuple[bool, dict]:
-    """(every number within its limit, {name: {"value", "limit"}}); a
-    reading that is not finite (shapes that differ) is written as null."""
-    ok = all(np.isfinite(numbers[k]) and numbers[k] <= limits[k] for k in NUMBERS)
-    checks = {k: {"value": numbers[k] if np.isfinite(numbers[k]) else None, "limit": limits[k]}
-              for k in NUMBERS}
+def judge(numbers: dict, limits: dict, names) -> tuple[bool, dict]:
+    """(each of ``names`` read and within its limit, {name: {"value",
+    "limit"}}); a reading that is missing or not finite (shapes that differ)
+    is written as null, and so is a limit the traffic file does not give:
+    either is not correct."""
+    def value(k):
+        v = numbers.get(k)
+        return v if v is not None and np.isfinite(v) else None
+
+    checks = {k: {"value": value(k), "limit": limits.get(k)} for k in names}
+    ok = bool(names) and all(c["value"] is not None and c["limit"] is not None
+                             and c["value"] <= c["limit"] for c in checks.values())
     return ok, checks

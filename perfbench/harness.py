@@ -4,11 +4,19 @@ Everything that belongs to a configuration, a traffic mix or a per-layer
 metric is a file found by its name in ``BENCHMARK.json``:
 
 - ``configs/<config>.json``: the collection's generator (``generators/<name>.py``)
-  and its parameters, and the pipeline settings as ``PipelineConfig.from_dict``
-  reads them;
+  and its parameters, the program's settings (``pipeline``), and the entry
+  that runs them (``entry``, ``entries/<entry>.py``; ``pipeline`` where the
+  key is left out);
+- ``entries/<entry>.py``: one call of the program's public entry (``call``),
+  what the judged call produced (``program_outputs``), the same worked out by
+  the entry's plain reference (``reference_outputs``, the module named by
+  ``REFERENCE``, with the ``CONTROLS`` it can compute one precision step
+  down), the numbers that decide ``correct`` (``NUMBERS``, ``readings``), the
+  shapes the metric readers count from (``shape``) and the hand-written
+  kernels a whole traced window launches (``expected_kernels``);
 - ``workloads/<traffic>.json``: what the cell changes of those (``objects``,
   ``levels`` and ``pipeline`` settings, merged over the configuration's)
-  and the limits of ``correct.py``'s numbers;
+  and the limits of the entry's numbers;
 - ``metrics/<metric>.py``: ``read(ctx)`` returns the metric's number from the
   traced run, or None where it finds nothing to read.
 """
@@ -18,15 +26,13 @@ from __future__ import annotations
 import copy
 import importlib.util
 import json
-import math
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
-from perfbench import correct, reference, trace
+from perfbench import correct, trace
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent
@@ -34,6 +40,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "tpumcia")  # top-level module names
 WARMUP_CALLS = 2  # calls before the window; the first builds and warms every shape
 TRACED_CALLS = 2  # calls in the traced window
 PROFILE_TRIES = 5  # profiles taken before a run with kernels missing gives up
+DEFAULT_ENTRY = "pipeline"  # the entry of a configuration that names none
 
 
 def _merge(base: dict, over: dict) -> dict:
@@ -46,7 +53,8 @@ def _merge(base: dict, over: dict) -> dict:
 def load_cell(name: str) -> dict:
     """The cell's entry of ``BENCHMARK.json`` with its configuration and
     traffic files merged: ``data`` (the generator's parameters), ``pipeline``
-    (the ``PipelineConfig`` dict) and the rest of the traffic file."""
+    (the program's settings), ``entry`` (its module's name) and the rest of
+    the traffic file."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -58,7 +66,7 @@ def load_cell(name: str) -> dict:
     data = {**config["data"], **{k: traffic[k] for k in ("objects", "levels") if k in traffic}}
     pipeline = _merge(config["pipeline"], traffic.get("pipeline", {}))
     return {"bench": bench, "cell": cell, "generator": config["generator"], "data": data,
-            "pipeline": pipeline, "traffic": traffic}
+            "pipeline": pipeline, "entry": config.get("entry", DEFAULT_ENTRY), "traffic": traffic}
 
 
 def _module(path: Path):
@@ -73,70 +81,14 @@ def cell_metrics(bench: dict, cell: str, kind: str) -> list[dict]:
     return [m for m in bench[kind] if cell in m.get("workloads", [cell])]
 
 
-def reference_settings(pipeline: dict) -> dict:
-    """What the reference takes of the configuration, as its files state it
-    (every key the reference reads is written out there)."""
-    glcm = pipeline["features"]["glcm"]
-    angle, dist = glcm["angle"], glcm["distance"]
-    return {
-        "levels": glcm["levels"],
-        "offset": (int(round(math.sin(angle) * dist)), int(round(math.cos(angle) * dist))),
-        "split": pipeline["split"], "head": pipeline["head"],
-        "importance": pipeline["importance"], "synth": pipeline["synth"],
-        "batch_size": pipeline["batch_size"],
-    }
+def load_entry(spec: dict):
+    """The module of the cell's entry, ``entries/<entry>.py``."""
+    return _module(HERE / "entries" / f"{spec['entry']}.py")
 
 
-def program_outputs(result) -> dict:
-    """What the judged call produced, in the reference's terms: the host
-    feature matrix, the split, the head's class probabilities on the test
-    rows (its scaler and weights applied to the matrix it was fitted on) and
-    both sweeps' mean drops."""
-    fm = result.features
-    X = fm.device_values
-    if X is None:
-        X = torch.from_numpy(np.nan_to_num(np.asarray(fm.values, dtype=np.float32)))
-    te = torch.as_tensor(result.test_idx)
-    with torch.no_grad():
-        proba = result.head.predict_proba(X[te.to(X.device)])
-    return {
-        "features": np.asarray(fm.values, dtype=np.float64),
-        "train_idx": np.asarray(result.train_idx), "test_idx": np.asarray(result.test_idx),
-        "proba": proba.double().cpu().numpy(),
-        "channel": np.asarray(result.channel_result.total, dtype=np.float64),
-        "column": np.asarray(result.feature_result.feature_importances, dtype=np.float64),
-    }
-
-
-def reference_outputs(spec: dict, inputs: dict, device, *, control=None) -> dict:
-    """The plain reference over the same inputs (``control``: as
-    ``reference.analyze`` takes it)."""
-    st = reference_settings(spec["pipeline"])
-    images = inputs["images"]
-    if st["synth"]["noise_channels"] > 0:
-        levels = reference.noise_stack(images, num_noise=st["synth"]["noise_channels"],
-                                       var=st["synth"]["var"], seed=st["synth"]["seed"],
-                                       batch=st["batch_size"])
-    else:
-        levels = images.permute(0, 3, 1, 2)
-    return reference.analyze(levels, inputs["mask"], inputs["labels"], inputs["groups"],
-                             pipeline=st, control=control)
-
-
-def shape_of(spec: dict, result, labels) -> dict:
-    """The cell's shapes, for the frozen counts."""
-    d, p = spec["data"], reference_settings(spec["pipeline"])
-    channels = d.get("channels", 1 + p["synth"]["noise_channels"])
-    feats = 23 * channels
-    return {
-        "objects": d["objects"], "batch": p["batch_size"], "channels": channels, "hw": d["hw"],
-        "levels": p["levels"], "mask_channels": d["mask_channels"],
-        "need_diff": spec["traffic"]["glcm_need_diff"], "features": feats,
-        "n_train": len(result.train_idx), "n_test": len(result.test_idx),
-        "classes": len(np.unique(labels[result.train_idx])),
-        "repeats": p["importance"]["n_repeats"], "steps": p["head"]["num_steps"],
-        "head_kind": p["head"]["kind"],
-    }
+def kernel_counts(kernels, want: dict) -> dict:
+    """Launches among ``kernels`` of each name substring in ``want``."""
+    return {k: sum(k in name for name, _, _ in kernels) for k in want}
 
 
 def make_inputs(spec: dict, seed: int, device) -> dict:
@@ -149,28 +101,22 @@ def forbidden_modules() -> list[str]:
 
 
 def run(args, t_start: float) -> int:
-    import tpumcia_torch as tt
     from tpumcia_torch.utils.profiling import StageTimer
 
-    marks = {"imports": time.perf_counter() - t_start}
     spec = load_cell(args.workload)
+    entry = load_entry(spec)
+    marks = {"imports": time.perf_counter() - t_start}
     on_card = args.device == "cuda"
     device = torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")
     if args.objects:
         spec["data"]["objects"] = args.objects
     inputs = make_inputs(spec, args.seed, device)
     marks["inputs"] = time.perf_counter() - t_start
-    cfg = tt.PipelineConfig.from_dict(spec["pipeline"])
-    kw = {} if on_card else {"device": "cpu"}
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize(device)
 
     def call(timer=None):
-        out = tt.run_pipeline(inputs["images"], inputs["labels"], mask=inputs["mask"],
-                              groups=inputs["groups"], config=cfg, timer=timer, **kw)
-        sync()
+        out = entry.call(inputs, spec["pipeline"], device, timer)
+        if on_card:
+            torch.cuda.synchronize(device)
         return out
 
     first = StageTimer(device)  # where the first call's one-time work lies
@@ -203,14 +149,15 @@ def run(args, t_start: float) -> int:
     else:
         calls = TRACED_CALLS
         prof = None
-        want = calls * -(-n // min(cfg.batch_size, n))
+        want = entry.expected_kernels(spec, calls)
         for attempt in range(PROFILE_TRIES):
             prof = trace.profile_calls(call, calls)
             if prof is None:
                 break
-            glcm = sum(trace.GLCM_KERNEL in k[0] for k in prof["kernels"])
-            print(f"profile attempt {attempt}: {glcm} GLCM launches of {want}", file=sys.stderr)
-            if glcm == want:
+            got = kernel_counts(prof["kernels"], want)
+            print(f"profile attempt {attempt}: launches {json.dumps(got)} of {json.dumps(want)}",
+                  file=sys.stderr)
+            if got == want:
                 break
         else:
             # the profiler dropped kernels in every try: a share or count read
@@ -225,7 +172,8 @@ def run(args, t_start: float) -> int:
         call(timer)
         tl = trace.timeline(prof["kernels"], prof["window"]) if prof["kernels"] else None
         ctx = {"kernels": prof["kernels"], "calls": calls, "timeline": tl, "stages": timer.totals,
-               "shape": shape_of(spec, result, inputs["labels"]), "tf32": torch.backends.cuda.matmul.allow_tf32}
+               "shape": entry.shape(spec, result, inputs["labels"]),
+               "tf32": torch.backends.cuda.matmul.allow_tf32}
         for m in cell_metrics(spec["bench"], args.workload, "per_layer"):
             value = _module(HERE / "metrics" / f"{m['name']}.py").read(ctx)
             if value is not None:
@@ -238,15 +186,15 @@ def run(args, t_start: float) -> int:
 
     # the judged call's outputs, then the program's state freed before the
     # reference runs
-    prog = program_outputs(result)
+    prog = entry.program_outputs(result)
     del result
     if on_card:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    ref = reference_outputs(spec, inputs, device)
+    ref = entry.reference_outputs(spec, inputs, device)
     print(f"reference (s): {time.perf_counter() - t_ref!r}", file=sys.stderr)
-    limits = spec["traffic"]["limits"]
-    ok, checks = correct.judge(correct.readings(prog, ref, limits), limits)
+    limits = spec["traffic"].get("limits", {})
+    ok, checks = correct.judge(entry.readings(prog, ref, limits), limits, entry.NUMBERS)
     for name, c in checks.items():
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r})", file=sys.stderr)
 

@@ -1,8 +1,9 @@
-"""The readings the limits of ``correct.py`` are set from: on each of many
+"""The readings the limits of a cell's numbers are set from: on each of many
 seeds, the program's one call at the cell's own size against the plain
-reference, and on the first few seeds the controls (the reference below
-the configuration's precision, ``reference.py``: ``bf16`` and
-``tf32_head``) against the reference.
+reference, and on the first few seeds each of the entry's controls (its
+reference one precision step down; for ``pipeline``, ``reference.py``'s
+``bf16`` and ``tf32_head``) against the reference. The call, the reference
+and the numbers are the cell's entry's (``entries/<entry>.py``), as in a run.
 
     python3 perfbench/readings.py --workload <cell> --seeds 12 --controls 3 [--first 2200000000]
 
@@ -21,30 +22,25 @@ import json  # noqa: E402
 
 import torch  # noqa: E402
 
-from perfbench import correct, harness  # noqa: E402
-
-CONTROLS = ("bf16", "tf32_head")
+from perfbench import harness  # noqa: E402
 
 
-def seed_readings(spec, seed, device, *, control: bool, kw) -> list[dict]:
+def seed_readings(spec, seed, device, *, control: bool) -> list[dict]:
     """[program vs reference] (and each control vs reference) on one seed."""
-    import tpumcia_torch as tt
-
+    entry = harness.load_entry(spec)
     inputs = harness.make_inputs(spec, seed, device)
-    cfg = tt.PipelineConfig.from_dict(spec["pipeline"])
-    result = tt.run_pipeline(inputs["images"], inputs["labels"], mask=inputs["mask"],
-                             groups=inputs["groups"], config=cfg, **kw)
-    prog = harness.program_outputs(result)
+    result = entry.call(inputs, spec["pipeline"], device)
+    prog = entry.program_outputs(result)
     del result
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    ref = harness.reference_outputs(spec, inputs, device)
-    limits = spec["traffic"]["limits"]
-    out = [{"seed": seed, "side": "program", **correct.readings(prog, ref, limits)}]
+    ref = entry.reference_outputs(spec, inputs, device)
+    limits = spec["traffic"].get("limits", {})
+    out = [{"seed": seed, "side": "program", **entry.readings(prog, ref, limits)}]
     if control:
-        for mode in CONTROLS:
-            ctrl = harness.reference_outputs(spec, inputs, device, control=mode)
-            out.append({"seed": seed, "side": f"control_{mode}", **correct.readings(ctrl, ref, limits)})
+        for mode in entry.CONTROLS:
+            ctrl = entry.reference_outputs(spec, inputs, device, control=mode)
+            out.append({"seed": seed, "side": f"control_{mode}", **entry.readings(ctrl, ref, limits)})
     return out
 
 
@@ -62,9 +58,8 @@ def main(argv=None) -> int:
     if args.objects:
         spec["data"]["objects"] = args.objects
     device = torch.device(args.device)
-    kw = {} if args.device == "cuda" else {"device": "cpu"}
     for i in range(args.seeds):
-        for line in seed_readings(spec, args.first + 7919 * i, device, control=i < args.controls, kw=kw):
+        for line in seed_readings(spec, args.first + 7919 * i, device, control=i < args.controls):
             print(json.dumps({"workload": args.workload, **line}), flush=True)
     return 0
 

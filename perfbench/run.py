@@ -4,12 +4,13 @@
 
 Run from the root of a checkout that holds ``BENCHMARK.json``, ``perfbench/``
 and the ``tpumcia_torch`` package. The cell's inputs are made on the card
-from ``--seed``; after a warm-up, ``--trace 0`` calls ``run_pipeline`` back
-to back for ``--seconds`` seconds and reports the cell's end-to-end
-metrics, ``--trace 1`` calls it under ``torch.profiler`` for
+from ``--seed``; after a warm-up, ``--trace 0`` calls the program's entry
+that the cell's configuration names (``entries/<entry>.py``; ``run_pipeline``
+by default) back to back for ``--seconds`` seconds and reports the cell's
+end-to-end metrics, ``--trace 1`` calls it under ``torch.profiler`` for
 ``harness.TRACED_CALLS`` calls and reports its per-layer metrics. Either way the
-judged call's outputs are then compared with the plain reference
-(``reference.py``), and the last line of standard output is one JSON
+judged call's outputs are then compared with the entry's plain reference
+(``reference.py`` by default), and the last line of standard output is one JSON
 object: ``correct``, ``attempted``, ``failed``, ``metrics``, ``device``
 (``breakdown`` with ``--trace 1``) and ``checks``, each number compared
 beside its limit. Without a card, or with fewer than the cell asks for, it

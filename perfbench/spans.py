@@ -8,15 +8,14 @@ spans open when they began.
 
 runs a cell as ``run.py --trace 1`` does (the same collection, warm-up
 calls, ``harness.TRACED_CALLS`` calls in the profiled window, and a profile
-short of GLCM launches retaken up to ``harness.PROFILE_TRIES`` times, then
-exit 5) on one card and prints one JSON line of these readings; it judges
-nothing. The runner (:func:`main`, :func:`profile_calls`) is a stopgap
-beside ``harness.run`` and ``trace.profile_calls`` until those pass the
-program's ranges and runtime calls to the metrics: then it goes, and
-``trace.py`` keeps the one kernel filter. The readers below take plain
-lists, so a
-profile of another program (one that opens none of these spans) reads
-None, never an error:
+short of the entry's ``expected_kernels`` retaken up to
+``harness.PROFILE_TRIES`` times, then exit 5) on one card and prints one
+JSON line of these readings; it judges nothing. The runner (:func:`main`,
+:func:`profile_calls`) is a stopgap beside ``harness.run`` and
+``trace.profile_calls`` until those pass the program's ranges and runtime
+calls to the metrics: then it goes, and ``trace.py`` keeps the one kernel
+filter. The readers below take plain lists, so a profile of another
+program (one that opens none of these spans) reads None, never an error:
 
 - ``kernels``: [(name, start_us, end_us)] of the device's kernels;
 - ``ranges``: [(name, start_us, end_us)] of the program's spans (CPU
@@ -246,14 +245,6 @@ def _counters():
     return COUNTERS
 
 
-def glcm_launches(kernels) -> int:
-    """The GLCM statistics kernels among ``kernels``, as ``harness.run``
-    counts them to tell a whole profile from one that dropped kernels."""
-    from perfbench import trace
-
-    return sum(trace.GLCM_KERNEL in name for name, _, _ in kernels)
-
-
 def profile_calls(call, calls: int) -> dict:
     """``trace.profile_calls``'s window (one dropped call, then ``calls``
     calls inside one range), keeping the host's side as well, with what the
@@ -293,20 +284,18 @@ def main(argv=None) -> int:
     import torch
 
     torch.set_num_threads(1)
-    import tpumcia_torch as tt
     from perfbench import harness
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 3
     spec = harness.load_cell(args.workload)
+    entry = harness.load_entry(spec)
     device = torch.device("cuda", torch.cuda.current_device())
     inputs = harness.make_inputs(spec, args.seed, device)
-    cfg = tt.PipelineConfig.from_dict(spec["pipeline"])
 
     def call():
-        out = tt.run_pipeline(inputs["images"], inputs["labels"], mask=inputs["mask"],
-                              groups=inputs["groups"], config=cfg)
+        out = entry.call(inputs, spec["pipeline"], device)
         torch.cuda.synchronize(device)
         return out
 
@@ -318,13 +307,13 @@ def main(argv=None) -> int:
         call()
         untimed.append(time.perf_counter() - t0)
     calls = harness.TRACED_CALLS
-    n = spec["data"]["objects"]
-    want = calls * -(-n // min(cfg.batch_size, n))  # as harness.run
+    want = entry.expected_kernels(spec, calls)
     for attempt in range(harness.PROFILE_TRIES):
         prof = profile_calls(call, calls)
-        glcm = glcm_launches(prof["host"]["kernels"])
-        print(f"profile attempt {attempt}: {glcm} GLCM launches of {want}", file=sys.stderr)
-        if glcm == want:
+        got = harness.kernel_counts(prof["host"]["kernels"], want)
+        print(f"profile attempt {attempt}: launches {json.dumps(got)} of {json.dumps(want)}",
+              file=sys.stderr)
+        if got == want:
             break
     else:
         print(f"refused: every one of {harness.PROFILE_TRIES} profiles lacks kernels",
@@ -334,7 +323,7 @@ def main(argv=None) -> int:
     per_call = {k: (prof[k] / calls if prof[k] is not None else None)
                 for k in ("adam_steps", "sweep_evals")}
     line.update(workload=args.workload, seed=args.seed, calls=calls,
-                glcm_launches=glcm, profile_attempts=attempt + 1,
+                launches=got, profile_attempts=attempt + 1,
                 adam_steps_per_call=per_call["adam_steps"],
                 sweep_evals_per_call=per_call["sweep_evals"],
                 traced_call_s=prof["host_s"] / calls,

@@ -82,12 +82,11 @@ def test_control_is_not_correct(cell):
     head-only control reads as float32 here.)"""
     spec = harness.load_cell(cell)
     spec["data"]["objects"] = TINY[cell]
-    lines = readings.seed_readings(spec, 2_300_000_101, torch.device("cpu"), control=True,
-                                   kw={"device": "cpu"})
-    limits = spec["traffic"]["limits"]
+    lines = readings.seed_readings(spec, 2_300_000_101, torch.device("cpu"), control=True)
+    limits, names = spec["traffic"]["limits"], harness.load_entry(spec).NUMBERS
     program, control, _ = lines
-    assert correct.judge(program, limits)[0], program
-    assert not correct.judge(control, limits)[0], control
+    assert correct.judge(program, limits, names)[0], program
+    assert not correct.judge(control, limits, names)[0], control
 
 
 # ---- faults planted under the timed path -----------------------------------
@@ -138,17 +137,18 @@ def test_fault_is_not_correct(cell, fault, monkeypatch, capsys):
 
 
 @pytest.mark.cuda
-def test_control_on_the_card():
-    """The controls at the MedNIST cell's own size on the card, on three
-    seeds: the bf16 control and the TF32-head control not correct on each,
-    and the program correct."""
+@pytest.mark.parametrize("cell", sorted(TINY))
+def test_control_on_the_card(cell):
+    """The controls at the cell's own size on the card, on three seeds: the
+    bf16 control and the TF32-head control not correct on each, and the
+    program correct."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    spec = harness.load_cell("mednist_fused_logistic")
-    limits = spec["traffic"]["limits"]
+    spec = harness.load_cell(cell)
+    limits, names = spec["traffic"]["limits"], harness.load_entry(spec).NUMBERS
     for i in range(3):
         program, control, tf32_head = readings.seed_readings(
-            spec, 2_400_000_000 + i, torch.device("cuda"), control=True, kw={})
-        assert correct.judge(program, limits)[0], program
-        assert not correct.judge(control, limits)[0], control
-        assert not correct.judge(tf32_head, limits)[0], tf32_head
+            spec, 2_400_000_000 + i, torch.device("cuda"), control=True)
+        assert correct.judge(program, limits, names)[0], program
+        assert not correct.judge(control, limits, names)[0], control
+        assert not correct.judge(tf32_head, limits, names)[0], tf32_head

@@ -82,13 +82,6 @@ def test_sweep_launches_counted_over_the_sweep_evaluations():
     assert spans.launches_per_sweep_eval(runtime, [r for r in RANGES if r[0] != "sweep"], 6) is None
 
 
-def test_glcm_launches_counted_by_the_harness_rule():
-    kernels = [("glcm_stats_kernel<false, false>", 0, 1), ("glcm_stats_level_bands_kernel", 2, 3),
-               ("void at::native::reduce_kernel", 4, 5)]
-    assert spans.glcm_launches(kernels) == 2
-    assert spans.glcm_launches([]) == 0
-
-
 def test_counts_call_by_call():
     """Each call's own count, so two calls can be held equal."""
     second = [(n, s + 1000, e + 1000) for n, s, e in RANGES]

@@ -20,6 +20,11 @@ from perfbench import counts, harness
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
+ENTRY_FUNCTIONS = ("call", "program_outputs", "reference_outputs", "readings", "shape",
+                   "expected_kernels")
+# cells of the pipeline entry, whose settings the tests below hold against the program
+PIPELINE_CELLS = [c for c in CELLS if harness.load_cell(c)["entry"] == "pipeline"]
+ENTRIES = sorted(p.stem for p in (ROOT / "perfbench" / "entries").glob("*.py"))
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 FORBIDDEN = {"jax", "jaxlib", "flax", "tpumcia"}
 
@@ -71,8 +76,21 @@ def test_cell_files_found_by_name(cell):
     assert (harness.HERE / "generators" / f"{spec['generator']}.py").exists()
     for m in harness.cell_metrics(BENCH, cell, "per_layer"):
         assert (harness.HERE / "metrics" / f"{m['name']}.py").exists(), m["name"]
-    for key in ("limits", "glcm_need_diff"):
-        assert key in spec["traffic"], key
+    assert (harness.HERE / "entries" / f"{spec['entry']}.py").exists(), spec["entry"]
+    entry = harness.load_entry(spec)
+    for name in ENTRY_FUNCTIONS:
+        assert callable(getattr(entry, name)), name
+    assert entry.NUMBERS and set(entry.NUMBERS) <= set(spec["traffic"]["limits"])
+    if spec["entry"] == "pipeline":
+        assert "glcm_need_diff" in spec["traffic"]
+
+
+def test_a_configuration_without_an_entry_runs_the_pipeline():
+    for c in BENCH["configs"]:
+        config = json.loads((ROOT / c["file"]).read_text())
+        assert config.get("entry", "pipeline") == harness.load_cell(
+            next(w["name"] for w in BENCH["workloads"] if w["config"] == c["name"]))["entry"]
+    assert harness.DEFAULT_ENTRY == "pipeline"
 
 
 def test_configs_files_under_paths():
@@ -84,7 +102,7 @@ def test_configs_files_under_paths():
     assert used == {c["name"] for c in BENCH["configs"]}
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", PIPELINE_CELLS)
 def test_pipeline_settings_are_the_program_config(cell):
     """The configuration files state every setting the reference reads, and
     the program reads the same values from them."""
@@ -92,7 +110,7 @@ def test_pipeline_settings_are_the_program_config(cell):
 
     spec = harness.load_cell(cell)
     cfg = tt.PipelineConfig.from_dict(spec["pipeline"]).to_dict()
-    st = harness.reference_settings(spec["pipeline"])
+    st = harness.load_entry(spec).settings(spec["pipeline"])
     assert cfg["features"]["glcm"]["levels"] == st["levels"]
     assert tuple(tt.GLCMConfig(**spec["pipeline"]["features"]["glcm"]).offsets[0]) == st["offset"]
     for key in ("split", "head", "importance", "synth"):
@@ -103,14 +121,14 @@ def test_pipeline_settings_are_the_program_config(cell):
 
 # ---- the frozen counts -----------------------------------------------------
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", PIPELINE_CELLS)
 def test_glcm_bytes_equal_the_port_rule(cell):
     """The frozen byte rule equals the kernel wrapper's ``traffic_bytes`` at
     each of the cell's launch shapes."""
     from tpumcia_torch.features.cuda_glcm import traffic_bytes
 
     spec = harness.load_cell(cell)
-    d, st = spec["data"], harness.reference_settings(spec["pipeline"])
+    d, st = spec["data"], harness.load_entry(spec).settings(spec["pipeline"])
     channels = d.get("channels", 1 + st["synth"]["noise_channels"])
     n, batch = d["objects"], min(st["batch_size"], d["objects"])
     mask_channels, need_diff = d["mask_channels"], spec["traffic"]["glcm_need_diff"]
@@ -124,9 +142,9 @@ def test_glcm_bytes_equal_the_port_rule(cell):
 
 def test_need_diff_follows_the_form():
     """Past 256 levels the classic path asks for the difference histogram."""
-    for cell in CELLS:
+    for cell in PIPELINE_CELLS:
         spec = harness.load_cell(cell)
-        st = harness.reference_settings(spec["pipeline"])
+        st = harness.load_entry(spec).settings(spec["pipeline"])
         assert spec["traffic"]["glcm_need_diff"] == (st["levels"] > 256), cell
 
 
@@ -199,9 +217,18 @@ def test_no_jax_or_jax_package(path):
             assert name not in text, (name, text)
 
 
-def test_reference_imports_nothing_of_the_program():
-    for name in ("reference.py", "correct.py", "counts.py"):
-        assert "tpumcia_torch" not in _imported_roots(ROOT / "perfbench" / name), name
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_reference_imports_nothing_of_the_program(entry):
+    """Each entry's plain reference, and the yardstick's own modules, import
+    nothing of the program (nor of the harness, which does)."""
+    ref = harness._module(ROOT / "perfbench" / "entries" / f"{entry}.py").REFERENCE
+    for name in (f"{ref}.py", "correct.py", "counts.py"):
+        roots = _imported_roots(ROOT / "perfbench" / name)
+        assert "tpumcia_torch" not in roots, name
+        tree = ast.parse((ROOT / "perfbench" / name).read_text())
+        local = {a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+                 and n.module == "perfbench" for a in n.names}
+        assert local <= {"correct", "counts", ref}, (name, local)
 
 
 def test_forbidden_names_are_whole(monkeypatch):
