@@ -7,7 +7,10 @@ Each call is one ``run_pipeline`` span; inside it the stage spans, named as
 a batch); ``adam`` inside the head's stage and ``sweep`` inside the stage
 that runs the sweeps. ``COUNTERS`` counts the head's Adam steps (none of
 them replayed from a CUDA graph on the CPU) and the sweeps' evaluations a
-call. No span synchronises the device. This file
+call. No span synchronises the device. A forest head's classic call stamps
+the classic stages and adds the spans ``forest_level`` and
+``forest_layout`` (inside ``head``) and ``forest_apply``, and counters of
+the levels and nodes grown and the (tree, row) pairs scored. This file
 imports no jax.
 """
 
@@ -17,6 +20,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from tpumcia_torch.io.synthetic import synthetic_mednist
+from tpumcia_torch.models import forest_fit
 from tpumcia_torch.pipeline.run import run_pipeline
 from tpumcia_torch.utils import profiling
 
@@ -160,8 +164,10 @@ def test_sweep_evals_a_call_follow_the_configuration(traced, path):
 
 def test_reset_counters_zeroes_every_counter():
     profiling.COUNTERS["adam_steps"] += 3
+    profiling.COUNTERS["forest_lanes"] += 5
     profiling.reset_counters()
-    assert profiling.COUNTERS == {"adam_steps": 0, "adam_graph_steps": 0, "sweep_evals": 0}
+    assert profiling.COUNTERS == {"adam_steps": 0, "adam_graph_steps": 0, "sweep_evals": 0,
+                                  "forest_levels": 0, "forest_nodes": 0, "forest_lanes": 0}
 
 
 @pytest.mark.parametrize("timed", [False, True])
@@ -193,3 +199,70 @@ def test_stage_closes_its_timer_at_exit():
         raise RuntimeError("no stamp on the way out of an error")
     assert list(timer.totals) == ["inputs"]
 
+
+
+# ---- the forest head on the classic path ------------------------------------
+
+FOREST_TREES = 4
+FOREST_STAGES = TIMER_STAGES["classic"]
+FOREST_SPANS = set(FOREST_STAGES) | {"forest_level", "forest_layout", "forest_apply", "sweep"}
+
+
+def _forest_call(gray, timer=None):
+    images, labels = gray
+    config = {**_config("classic"),
+              "head": {"kind": "random_forest", "n_estimators": FOREST_TREES, "seed": 0},
+              "importance": {"n_repeats": REPEATS, "channel_method": "permutation_features"}}
+    return run_pipeline(images, labels, config=config, device="cpu", timer=timer)
+
+
+@pytest.fixture(scope="module")
+def forest_traced(gray):
+    """One profiled forest call: its spans (name, start_us, end_us) by start,
+    its counters and its result."""
+    _forest_call(gray)  # warm
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        profiling.reset_counters()
+        result = _forest_call(gray)
+        counters = dict(profiling.COUNTERS)
+    spans = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.device_type == DeviceType.CPU and e.name in FOREST_SPANS),
+                   key=lambda s: (s[1], -s[2]))
+    return {"spans": spans, "counters": counters, "result": result}
+
+
+def test_a_forest_call_stamps_its_stages(gray):
+    """The classic stages, as a logistic classic call stamps them."""
+    timer = profiling.StageTimer("cpu")
+    _forest_call(gray, timer)
+    assert list(timer.totals) == FOREST_STAGES
+    assert all(t > 0 for t in timer.totals.values())
+
+
+def test_forest_counters_follow_its_trees(forest_traced):
+    """Levels: each chunk of trees its deepest tree's depth + 1; nodes: the
+    trees' nodes; lanes: the trees times the rows scored (the test rows'
+    prediction, the sweep's baseline and each column's repeats)."""
+    res = forest_traced["result"]
+    trees = res.head.trees
+    n_train, n_test = len(res.train_idx), len(res.test_idx)
+    per = max(1, forest_fit.CHUNK_ELEMS // (FEATURES * n_train))
+    levels = sum(max(t.max_depth for t in trees[i:i + per]) + 1 for i in range(0, len(trees), per))
+    c = forest_traced["counters"]
+    assert c["forest_levels"] == levels > 1
+    assert c["forest_nodes"] == sum(t.node_count for t in trees)
+    assert c["forest_lanes"] == FOREST_TREES * n_test * (2 + FEATURES * REPEATS)
+    assert c["sweep_evals"] == FEATURES * REPEATS + 1 and c["adam_steps"] == 0
+
+
+def test_forest_spans_sit_under_their_stages(forest_traced):
+    spans = forest_traced["spans"]
+    names = [s[0] for s in spans]
+    assert names.count("forest_level") == forest_traced["counters"]["forest_levels"]
+    assert names.count("forest_layout") == 1
+    want = {"forest_level": "head", "forest_layout": "head", "sweep": "importance"}
+    for span in spans:
+        if span[0] in want:
+            assert _parent(spans, span)[0] == want[span[0]], span
+    applies = [_parent(spans, s)[0] for s in spans if s[0] == "forest_apply"]
+    assert applies[0] == "head" and set(applies[1:]) == {"sweep"}

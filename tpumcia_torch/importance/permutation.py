@@ -54,6 +54,11 @@ class PermutationResult:
     importances_mean: np.ndarray  # (F,)
     importances_std: np.ndarray  # (F,)
     baseline_score: float
+    # a forest's sweep only: (F, R) drops of the rows' mean share of their
+    # true class (0 for a label never seen in training), and that mean
+    # share unpermuted
+    share_importances: np.ndarray | None = None
+    baseline_share: float | None = None
 
     def ranking(self) -> np.ndarray:
         """Feature indices sorted by mean importance, descending."""
@@ -119,29 +124,40 @@ def draw_permutations(
     return torch.argsort(u, dim=1)
 
 
-def _perm_sweep(X, y_idx, masks, perms, apply_fn):
+def _perm_sweep(X, y_idx, masks, perms, apply_fn, *, shares=False):
     """X (N, F); y_idx (N,) class indices; masks (G, F) 0/1 columns permuted
     jointly per group; perms (G, R, N) row permutations. Returns
-    (baseline accuracy, (G, R) accuracy drops). The sweep is one ``sweep``
-    span and adds its G*R + 1 evaluations to ``COUNTERS["sweep_evals"]``."""
+    (baseline accuracy, (G, R) accuracy drops); with ``shares`` (``apply_fn``
+    gives class probabilities, as a forest's does) also (the baseline's mean
+    share of the true class, (G, R) drops of that share). The sweep is one
+    ``sweep`` span and adds its G*R + 1 evaluations to
+    ``COUNTERS["sweep_evals"]``."""
     N, F = X.shape
     G, R, _ = perms.shape
 
-    def accuracy(logits):  # (..., N, k) -> (...)
-        return (torch.argmax(logits, dim=-1) == y_idx).to(torch.float32).mean(-1)
+    def score(out):  # (..., N, k) -> (...) accuracy, or (..., 2) with the true class's share
+        acc = (torch.argmax(out, dim=-1) == y_idx).to(torch.float32).mean(-1)
+        if not shares:
+            return acc
+        true = torch.gather(out, -1, y_idx.clamp(min=0).expand(out.shape[:-1])[..., None])
+        share = torch.where(y_idx >= 0, true[..., 0], 0.0).mean(-1)
+        return torch.stack([acc, share], -1)
 
     with trace("sweep"):
-        baseline = accuracy(apply_fn(X))
+        baseline = score(apply_fn(X))
         flat = perms.reshape(G * R, N)
         group_of = torch.arange(G, device=X.device).repeat_interleave(R)
         permuted = masks[group_of].to(torch.bool)[:, None, :]  # (G*R, 1, F)
         step = max(1, _SWEEP_CHUNK_ELEMS // max(1, N * F))
-        scores = torch.cat([X.new_zeros(0)] + [
-            accuracy(apply_fn(torch.where(permuted[s:s + step], X[flat[s:s + step]], X)))
+        scores = torch.cat([X.new_zeros((0, *baseline.shape))] + [
+            score(apply_fn(torch.where(permuted[s:s + step], X[flat[s:s + step]], X)))
             for s in range(0, G * R, step)
         ])
     COUNTERS["sweep_evals"] += G * R + 1
-    return baseline, baseline - scores.reshape(G, R)
+    drops = baseline - scores.reshape(G, R, *baseline.shape)
+    if shares:
+        return baseline[0], drops[..., 0], baseline[1], drops[..., 1]
+    return baseline, drops
 
 
 def _run_sweep(head, X, y, masks, *, n_repeats, seed) -> PermutationResult:
@@ -152,9 +168,10 @@ def _run_sweep(head, X, y, masks, *, n_repeats, seed) -> PermutationResult:
     y_idx = torch.as_tensor(labels_to_class_idx(y, classes), dtype=torch.int64, device=dev)
     G, N = masks.shape[0], X.shape[0]
     perms = draw_permutations(G * R, N, seed=seed, device=dev).reshape(G, R, N)
+    forest = apply_fn.func is _scaled_forest_apply  # scores class probabilities
     with torch.no_grad():
-        baseline, drops = _perm_sweep(
-            X, y_idx, torch.as_tensor(masks, device=dev), perms, apply_fn
+        baseline, drops, *share = _perm_sweep(
+            X, y_idx, torch.as_tensor(masks, device=dev), perms, apply_fn, shares=forest
         )
     imp = drops.cpu().numpy().astype(np.float64)
     return PermutationResult(
@@ -162,6 +179,8 @@ def _run_sweep(head, X, y, masks, *, n_repeats, seed) -> PermutationResult:
         importances_mean=imp.mean(axis=1),
         importances_std=imp.std(axis=1),
         baseline_score=float(baseline),
+        share_importances=share[1].cpu().numpy().astype(np.float64) if share else None,
+        baseline_share=float(share[0]) if share else None,
     )
 
 

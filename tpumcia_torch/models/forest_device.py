@@ -31,6 +31,7 @@ import torch
 from tpumcia_torch.models.forest_fit import Tree
 from tpumcia_torch.models.scaler import MinMaxScaler
 from tpumcia_torch.utils.device import require_device
+from tpumcia_torch.utils.profiling import COUNTERS, trace
 
 # the largest padded (leaves x internal nodes) per tree of the GEMM form;
 # above it the dense path matrix costs more than the lock-step gathers
@@ -172,10 +173,11 @@ class DeviceForest:
     gemm: tuple | None = None
 
     @classmethod
+    @trace("forest_layout")
     def from_arrays(cls, trees, classes, scaler: MinMaxScaler | None = None, *,
                     device="cuda") -> "DeviceForest":
         """Lay out fitted trees (:class:`Tree` or sklearn ``tree_`` objects,
-        read by duck typing) on ``device``."""
+        read by duck typing) on ``device``, in one ``forest_layout`` span."""
         require_device(device, "DeviceForest.from_arrays")
         T = len(trees)
         N = max(len(t.feature) for t in trees)
@@ -232,11 +234,14 @@ class DeviceForest:
         probabilities (:meth:`apply`)."""
         return self.apply
 
+    @trace("forest_apply")
     def apply(self, X: torch.Tensor, *, form: str | None = None) -> torch.Tensor:
         """(..., F) scaled f32 features -> (..., K) mean class probabilities,
-        by the forest's form (or ``form``)."""
+        by the forest's form (or ``form``): one ``forest_apply`` span, its
+        (tree, row) pairs added to ``COUNTERS["forest_lanes"]``."""
         lead = X.shape[:-1]
         x = X.reshape(-1, X.shape[-1])
+        COUNTERS["forest_lanes"] += self.feature.shape[0] * x.shape[0]
         if (form or self.form) == "gemm":
             p = _apply_gemm(x, *self.gemm)
         else:

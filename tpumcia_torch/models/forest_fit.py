@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from tpumcia_torch.preprocess.synth import synth_batch_seed
+from tpumcia_torch.utils.profiling import COUNTERS, trace
 
 FEATURE_THRESHOLD = 1e-7  # sklearn's tie tolerance, a float32 constant there
 EPSILON = float(np.finfo(np.float64).eps)
@@ -164,7 +165,9 @@ def grow_trees(
 def _grow_chunk(X, si, y, K, w, *, first_tree, max_depth, max_features, feature_orders):
     """Grow a chunk of trees level by level; returns each level's node
     records on the host (numpy), nodes ordered by tree, then left to right.
-    ``si``: the rows of each column of X in sorted order."""
+    ``si``: the rows of each column of X in sorted order. Each level is one
+    ``forest_level`` span and adds 1 to ``COUNTERS["forest_levels"]`` and
+    its nodes to ``COUNTERS["forest_nodes"]``."""
     dev = X.device
     Tc, N = w.shape
     F = X.shape[1]
@@ -177,7 +180,9 @@ def _grow_chunk(X, si, y, K, w, *, first_tree, max_depth, max_features, feature_
     nid = torch.where(w > 0, tree_of[:, None], S)
     row_s = _regroup(nid, si.expand(Tc, F, N), S)
     levels, depth = [], 0
-    while S:
+
+    @trace("forest_level")
+    def grow_level(S, depth, nid, tree_of, row_s):
         # per node: rows, class totals, weight, impurity (node_impurity)
         cnt = torch.bincount(nid.flatten(), minlength=S + 1)[:S]
         tot = torch.zeros((S + 1) * K, dtype=f64, device=dev)
@@ -282,8 +287,14 @@ def _grow_chunk(X, si, y, K, w, *, first_tree, max_depth, max_features, feature_
         go_right = ~(xv.to(f64) <= thr[node])
         nid = torch.where(active & split[node], 2 * j[node] + go_right, S_next)
         tree_of = torch.repeat_interleave(tree_of[split], 2)
+        COUNTERS["forest_levels"] += 1
+        COUNTERS["forest_nodes"] += S
         S, depth = S_next, depth + 1
         row_s = _regroup(nid, row_s, S)
+        return S, depth, nid, tree_of, row_s
+
+    while S:
+        S, depth, nid, tree_of, row_s = grow_level(S, depth, nid, tree_of, row_s)
     return levels
 
 

@@ -15,12 +15,17 @@ The program opens its own spans with :func:`trace`, at each layer boundary
 of a ``run_pipeline`` call, so a profiled call splits on the profiler's
 clock without being synchronised: ``run_pipeline`` (one a call), one span a
 stage, named as the ``StageTimer`` stage (a stage's span exits where the
-timer stamps it, see :func:`stage`), ``adam`` (the head's Adam fit) and
-``sweep`` (one permutation sweep). :data:`COUNTERS` counts the head's work
-where it is done: ``adam_steps`` (Adam steps, added once a fit),
-``adam_graph_steps`` (those of them run by replaying a captured CUDA graph)
-and ``sweep_evals`` (evaluations of the head in the permutation sweeps, the
-baseline included); :func:`reset_counters` zeroes them.
+timer stamps it, see :func:`stage`), ``adam`` (the head's Adam fit),
+``sweep`` (one permutation sweep), ``forest_level`` (one level of the
+forest fit), ``forest_layout`` (a fitted forest laid out for inference) and
+``forest_apply`` (one scoring of rows by the forest). :data:`COUNTERS`
+counts the head's work where it is done: ``adam_steps`` (Adam steps, added
+once a fit), ``adam_graph_steps`` (those of them run by replaying a
+captured CUDA graph), ``sweep_evals`` (evaluations of the head in the
+permutation sweeps, the baseline included), ``forest_levels`` (levels
+grown, each chunk of trees counting its own), ``forest_nodes`` (tree nodes
+grown) and ``forest_lanes`` ((tree, row) pairs the forest scored);
+:func:`reset_counters` zeroes them.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ from dataclasses import dataclass, field
 import torch
 
 ROOT_SPAN = "run_pipeline"
-COUNTERS = {"adam_steps": 0, "adam_graph_steps": 0, "sweep_evals": 0}
+COUNTERS = {"adam_steps": 0, "adam_graph_steps": 0, "sweep_evals": 0, "forest_levels": 0,
+            "forest_nodes": 0, "forest_lanes": 0}
 
 
 def reset_counters() -> None:
