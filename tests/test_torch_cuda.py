@@ -3,7 +3,8 @@ maskless, B1b masked, B1c with the difference histogram, B2 several
 offsets, B1d at 65536 pixels or more than 256 levels, B1e past 4096 levels)
 against its plain version, the wrapper's checks, and the slice and
 ``extract_features`` on the card against the same calls on the CPU, the
-forest fitted on the card against the CPU fit and the morphology block;
+forest fitted on the card against the CPU fit, the forest walk kernel
+against its plain version and the GEMM form, and the morphology block;
 offset lists past the kernel's 16, the refusals past the kernel's bounds
 (2^24 pixels, 32768 levels) and of ``use_pallas='never'``, per-batch uploads with ``in_flight`` and ``stream_extract`` with staged uploads,
 tpumcia's stats-level call with no ``device=``, and ``bench_torch.py``
@@ -27,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import require_cuda
+from torch_parity import WALK_CASES, WALK_FEATURES, WALK_REPEATS, WALK_ROWS, random_tree, require_cuda, walk_case
 from tpumcia_torch.features import cuda_glcm
 
 pytestmark = pytest.mark.cuda
@@ -936,3 +937,181 @@ def test_a_loss_that_synchronises_fails_the_capture_loudly():
     _, got, want = _logistic_fits("classic", 2, dev)
     assert profiling.COUNTERS["adam_graph_steps"] == HEAD_SHAPES["classic"][3] - heads.GRAPH_WARMUP_STEPS
     torch.testing.assert_close(got["w"], want["w"], rtol=0, atol=1e-4)
+
+
+# ---- the forest walk kernel (models/forest_device.py, csrc/forest_apply.cu) --
+
+
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_forest_kernel_matches_plain_and_gemm_on_card(case):
+    """The walk kernel against its plain version on the card, bit for bit
+    (the same float32 sums in tree order, the same division by T), and
+    against each draw's permuted copy scored by the GEMM form: equal with
+    pure leaves; with impure ones within 1e-6 (the trees summed in another
+    order) and the argmax equal where the top two shares lie more than 1e-5
+    apart. Two runs are bit-equal and every lane is counted."""
+    from tpumcia_torch.importance.permutation import draw_permutations
+    from tpumcia_torch.models import forest_device
+    from tpumcia_torch.utils.profiling import COUNTERS
+
+    dev = require_cuda()
+    trees, X, masks = walk_case(case)
+    classes, pure = WALK_CASES[case][:2]
+    f = forest_device.DeviceForest.from_arrays(trees, np.arange(classes), device=dev)
+    assert f.form == "kernel"
+    X, masks = X.to(dev), masks.to(dev)
+    G, T = masks.shape[0], len(trees)
+    D = G * WALK_REPEATS
+    perms = draw_permutations(D, WALK_ROWS, seed=3, device=dev)
+    before = COUNTERS["forest_kernel_lanes"]
+    got = f.apply_permuted(X, perms, masks, WALK_REPEATS)
+    again = f.apply_permuted(X, perms, masks, WALK_REPEATS)
+    base = f.apply(X)
+    torch.cuda.synchronize()
+    assert COUNTERS["forest_kernel_lanes"] - before == T * (2 * D + 1) * WALK_ROWS
+    assert torch.equal(got, again)
+    assert torch.equal(got, forest_device._apply_walk(X, *f.walk[:3], perms, masks, WALK_REPEATS))
+    assert torch.equal(base, forest_device._apply_walk(X, *f.walk[:3])[0])
+    group_of = torch.arange(G, device=dev).repeat_interleave(WALK_REPEATS)
+    copies = torch.where(masks[group_of].bool()[:, None, :], X[perms], X)
+    for walked, rows in ((got, copies), (base, X)):
+        gemm = f.apply(rows, form="gemm")
+        if pure:
+            assert torch.equal(walked, gemm)
+        else:
+            torch.testing.assert_close(walked, gemm, rtol=0, atol=1e-6)
+            top = gemm.topk(2, dim=-1).values
+            clear = top[..., 0] - top[..., 1] > 1e-5
+            assert torch.equal(walked.argmax(-1)[clear], gemm.argmax(-1)[clear])
+    info = f.kernel_launch_info(D * WALK_ROWS)
+    assert info["forest_in_smem"] and info["smem_bytes"] > 0 and info["blocks_per_sm"] >= 1
+
+
+def test_forest_kernel_reads_a_forest_too_large_for_shared_memory():
+    """12 trees of 4,001 nodes (768 KB of nodes) do not fit in shared
+    memory: the kernel reads the forest through L1/L2, bit-equal to its
+    plain version and within 1e-6 of the lock-step form (the GEMM form's
+    path matrix is past ``_GEMM_MAX_CELLS`` here)."""
+    from tpumcia_torch.importance.permutation import draw_permutations
+    from tpumcia_torch.models import forest_device
+
+    dev = require_cuda()
+    rng = np.random.default_rng(11)
+    trees = [random_tree(rng, splits=2000, features=WALK_FEATURES, classes=4, pure=True)
+             for _ in range(12)]
+    f = forest_device.DeviceForest.from_arrays(trees, np.arange(4), device=dev)
+    assert f.form == "kernel" and f.gemm is None
+    rows, repeats = 500, 3
+    X = torch.from_numpy(rng.normal(size=(rows, WALK_FEATURES)).astype(np.float32)).to(dev)
+    masks = torch.eye(WALK_FEATURES, device=dev)
+    perms = draw_permutations(WALK_FEATURES * repeats, rows, seed=4, device=dev)
+    info = f.kernel_launch_info(perms.numel())
+    assert not info["forest_in_smem"] and info["smem_bytes"] == 0 and info["blocks_per_sm"] >= 1
+    got = f.apply_permuted(X, perms, masks, repeats)
+    assert torch.equal(got, forest_device._apply_walk(X, *f.walk[:3], perms, masks, repeats))
+    group_of = torch.arange(WALK_FEATURES, device=dev).repeat_interleave(repeats)
+    copies = torch.where(masks[group_of].bool()[:, None, :], X[perms], X)
+    torch.testing.assert_close(got, f.apply(copies, form="lockstep"), rtol=0, atol=1e-6)
+
+
+def test_forest_kernel_runs_on_a_second_card():
+    """The kernel's shared-memory cap is an attribute of each device: a
+    forest of 96 KB (past the 48 KB a block gets without asking), launched
+    on the first card and then on the second, sits in shared memory on both
+    and scores alike; and a forest head's sweep over a mesh of the two
+    cards, each scoring its half, equals the sweep on one card."""
+    from tpumcia_torch.config import HeadConfig
+    from tpumcia_torch.importance.permutation import draw_permutations, permutation_importance
+    from tpumcia_torch.models import forest_device
+    from tpumcia_torch.models.heads import fit_head
+    from tpumcia_torch.parallel.mesh import make_mesh
+    from tpumcia_torch.parallel.sharding import permutation_importance_sharded
+    from tpumcia_torch.utils.profiling import COUNTERS
+
+    require_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    rng = np.random.default_rng(13)
+    trees = [random_tree(rng, splits=150, features=WALK_FEATURES, classes=6, pure=True)
+             for _ in range(20)]
+    X = torch.from_numpy(rng.normal(size=(WALK_ROWS, WALK_FEATURES)).astype(np.float32))
+    masks = torch.eye(WALK_FEATURES)
+    D = WALK_FEATURES * WALK_REPEATS
+    perms = draw_permutations(D, WALK_ROWS, seed=3, device="cpu")
+    got = []
+    for dev in cards:
+        f = forest_device.DeviceForest.from_arrays(trees, np.arange(6), device=dev)
+        info = f.kernel_launch_info(D * WALK_ROWS)
+        assert info["forest_in_smem"] and info["smem_bytes"] > 48 * 1024, info
+        got.append(f.apply_permuted(X.to(dev), perms.to(dev), masks.to(dev), WALK_REPEATS).cpu())
+    assert torch.equal(got[0], got[1])
+
+    Xh = rng.normal(size=(300, 10)).astype(np.float32)
+    y = (Xh[:, 0] > 0).astype(np.int64) + (Xh[:, 3] > 0.5)
+    head = fit_head(Xh, y, device=cards[0], config=HeadConfig(kind="random_forest", n_estimators=8, seed=0))
+    want = permutation_importance(head, Xh, y, n_repeats=3, seed=42)
+    before = COUNTERS["forest_kernel_launches"]
+    sharded = permutation_importance_sharded(head, Xh, y, mesh=make_mesh(data=2, devices=cards),
+                                             n_repeats=3, seed=42)
+    assert COUNTERS["forest_kernel_launches"] - before == 4  # a baseline and the draws on each card
+    np.testing.assert_array_equal(sharded.importances, want.importances)
+    assert sharded.baseline_score == want.baseline_score
+
+
+def _forest_call_config(head):
+    return {"head": head, "importance": {"n_repeats": 2, "channel_method": "permutation_features"},
+            "split": {"test_size": 0.25, "seed": 0, "stratify": True},
+            "synth": {"noise_channels": 2, "seed": 0}, "fast_path": "never", "batch_size": 64}
+
+
+def test_forest_kernel_scores_every_lane_of_a_forest_call():
+    """A forest ``run_pipeline`` call on the card (the classic path, the
+    per-feature sweep over 69 columns): every (tree, row) lane the forest
+    scores goes through the walk kernel."""
+    from tpumcia_torch.io.synthetic import synthetic_mednist
+    from tpumcia_torch.pipeline.run import run_pipeline
+    from tpumcia_torch.utils import profiling
+
+    dev = require_cuda()
+    images, labels, _ = synthetic_mednist(30, num_classes=6, seed=3)
+    config = _forest_call_config({"kind": "random_forest", "n_estimators": 8, "seed": 0})
+    profiling.reset_counters()
+    res = run_pipeline(images, labels, config=config, device=dev)
+    c = profiling.COUNTERS
+    assert c["forest_kernel_lanes"] == c["forest_lanes"] == 8 * len(res.test_idx) * (2 + 69 * 2)
+    assert c["forest_kernel_launches"] >= 3  # the prediction, the baseline, the draws
+
+
+def test_a_logistic_call_launches_as_without_the_forest_kernel_branch(monkeypatch):
+    """A logistic ``run_pipeline`` call on the card launches the same
+    kernels, by name and count, with the sweep's check for the walk kernel as
+    with that check taken out, and scores nothing with the walk kernel."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpumcia_torch.importance import permutation
+    from tpumcia_torch.io.synthetic import synthetic_mednist
+    from tpumcia_torch.pipeline.run import run_pipeline
+    from tpumcia_torch.utils import profiling
+
+    dev = require_cuda()
+    images, labels, _ = synthetic_mednist(30, num_classes=6, seed=3)
+    config = _forest_call_config({"kind": "logistic", "num_steps": 12})
+
+    def launches():
+        run_pipeline(images, labels, config=config, device=dev)  # warm
+        torch.cuda.synchronize()
+        profiling.reset_counters()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run_pipeline(images, labels, config=config, device=dev)
+            torch.cuda.synchronize()
+        return Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+    with_check = launches()
+    assert profiling.COUNTERS["forest_kernel_lanes"] == 0 and profiling.COUNTERS["sweep_evals"] > 0
+    assert sum(with_check.values()) > 0 and not any("forest" in k for k in with_check)
+    monkeypatch.setattr(permutation, "_kernel_forest", lambda apply_fn: None)
+    assert launches() == with_check

@@ -26,7 +26,7 @@ import pytest
 import torch
 from sklearn.tree import DecisionTreeClassifier
 
-from torch_parity import replay_jax_draws
+from torch_parity import WALK_CASES, WALK_REPEATS, WALK_ROWS, random_tree, replay_jax_draws, walk_case
 from tpumcia.config import HeadConfig as JHeadConfig
 from tpumcia.config import ImportanceConfig as JImportanceConfig
 from tpumcia.importance import channels as jchannels
@@ -206,6 +206,88 @@ def test_lockstep_form_is_taken_past_the_gemm_cells(sk_head, monkeypatch):
     np.testing.assert_allclose(port.predict_proba(X).numpy(),
                                head.model.predict_proba(np.asarray(head.scaler.transform(X))),
                                rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_walk_reads_permuted_columns_in_place(case):
+    """The walk kernel's plain version (``apply_permuted`` on the CPU)
+    against each draw's permuted copy ``torch.where(permuted, X[perm], X)``
+    scored by the GEMM and lock-step forms, and the unpermuted walk against
+    both forms: equal with pure leaves (integer sums over T), within 1e-6
+    with impure ones (the trees summed in another order)."""
+    trees, X, masks = walk_case(case)
+    classes, pure, _, extra = WALK_CASES[case]
+    f = DeviceForest.from_arrays(trees, np.arange(classes), device="cpu")
+    assert f.form == "gemm" and f.depth == max(t.max_depth for t in trees)
+    assert (f.depth > 19) == (extra == "chain") and bool(X.isnan().any()) == (extra == "nan")
+    G = masks.shape[0]
+    perms = perm.draw_permutations(G * WALK_REPEATS, WALK_ROWS, seed=3, device="cpu")
+    group_of = torch.arange(G).repeat_interleave(WALK_REPEATS)
+    copies = torch.where(masks[group_of].bool()[:, None, :], X[perms], X)
+    got = f.apply_permuted(X, perms, masks, WALK_REPEATS)
+    plain = forest_device._apply_walk(X, *f.walk[:3])
+    assert got.shape == (G * WALK_REPEATS, WALK_ROWS, classes) and plain.shape == (1, WALK_ROWS, classes)
+    for form in ("gemm", "lockstep"):
+        for walked, want in ((got, f.apply(copies, form=form)), (plain[0], f.apply(X, form=form))):
+            if pure:
+                assert torch.equal(walked, want), form
+            else:
+                torch.testing.assert_close(walked, want, rtol=0, atol=1e-6)
+
+
+def test_walk_layout_refuses_a_child_before_its_parent():
+    tree = random_tree(np.random.default_rng(0), splits=3, features=4, classes=2, pure=True)
+    f = DeviceForest.from_arrays([tree], np.arange(2), device="cpu")
+    nodes, roots, values, n_features = f.walk
+    assert nodes.shape == (7, 4) and roots.tolist() == [0] and values.shape[0] <= 2 and n_features <= 4
+    tree.children_left[0], tree.children_right[0] = 0, tree.children_right[0]
+    with pytest.raises(ValueError, match="not after its parent"):
+        DeviceForest.from_arrays([tree], np.arange(2), device="cpu")
+
+
+def test_sweep_hands_the_kernel_its_permutations_and_masks(sk_head, monkeypatch):
+    """The sweep's branch for a forest the walk kernel scores, run on the
+    CPU with the kernel's plain version in its place: the baseline, then one
+    launch per chunk of whole groups, and the drops and share drops of the
+    branch that scores permuted copies."""
+    head, X, y = sk_head
+    port = _port_of(head)
+    groups = registry.columns_by_channel_positional(3)
+    want = perm.permutation_importance(port, X[160:], y[160:], n_repeats=3, seed=5, groups=groups)
+    launches = []
+
+    def plain_kernel(X, perms, masks, repeats, nodes, roots, values, n_features):
+        launches.append(None if perms is None else (perms.shape[0], masks.shape[0], masks.dtype))
+        return forest_device._apply_walk(X, nodes, roots, values, perms, masks, repeats)
+
+    monkeypatch.setattr(forest_device, "_launch_walk", plain_kernel)
+    monkeypatch.setattr(DeviceForest, "form", property(lambda self: "kernel"))
+    monkeypatch.setattr(perm, "_SWEEP_CHUNK_ELEMS", 2 * 3 * 80 * 3)  # two groups a launch
+    got = perm.permutation_importance(port, X[160:], y[160:], n_repeats=3, seed=5, groups=groups)
+    assert launches == [None, (6, 2, torch.uint8), (3, 1, torch.uint8)]
+    assert got.baseline_score == want.baseline_score and got.baseline_share == want.baseline_share
+    np.testing.assert_array_equal(got.importances, want.importances)
+    np.testing.assert_array_equal(got.share_importances, want.share_importances)
+
+
+def test_a_logistic_sweep_takes_no_forest_branch(monkeypatch):
+    """``_perm_sweep`` over a logistic head scores its permuted copies as
+    before: the walk kernel's branch is never asked, even where every
+    forest would take it."""
+    X, y = _graded_matrix(120, 5)
+    lg = fit_head(X[:80], y[:80], device="cpu", config=HeadConfig(num_steps=10))
+    want = perm.permutation_importance(lg, X[80:], y[80:], n_repeats=2, seed=1)
+    assert perm._kernel_forest(perm._device_score_parts(lg)[0]) is None
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a logistic sweep reached the forest kernel's branch")
+
+    monkeypatch.setattr(DeviceForest, "form", property(lambda self: "kernel"))
+    monkeypatch.setattr(DeviceForest, "apply_permuted", refuse)
+    monkeypatch.setattr(forest_device, "_launch_walk", refuse)
+    got = perm.permutation_importance(lg, X[80:], y[80:], n_repeats=2, seed=1)
+    assert got.share_importances is None
+    np.testing.assert_array_equal(got.importances, want.importances)
 
 
 @pytest.mark.parametrize("grouped", [False, True])

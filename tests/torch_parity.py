@@ -9,6 +9,8 @@ numbers.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -128,3 +130,79 @@ def require_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; runs on the GPU with `python -m pytest -m cuda`")
     return torch.device("cuda", 0)
+
+
+def random_tree(rng, *, splits: int, features: int, classes: int, pure: bool, chain: bool = False):
+    """A tree in sklearn's ``tree_`` layout (read by duck typing) with
+    ``splits`` internal nodes: each split turns a leaf into an internal node
+    on a random feature and N(0, 1) threshold, its children appended after
+    it. ``chain`` splits the newest leaf, a right child, each time (depth =
+    splits) at thresholds near -2.5, so most N(0, 1) rows walk to the
+    bottom; else a random leaf. Leaf fractions are one-hot (``pure``) or
+    random."""
+    feature, threshold, left, right, depth = [-2], [-2.0], [-1], [-1], [0]
+    leaves = [0]
+    for _ in range(splits):
+        node = leaves.pop(-1 if chain else int(rng.integers(len(leaves))))
+        feature[node] = int(rng.integers(features))
+        threshold[node] = float(rng.normal(-2.5, 0.5) if chain else rng.normal())
+        for side in (left, right):
+            side[node] = len(feature)
+            leaves.append(len(feature))
+            feature.append(-2)
+            threshold.append(-2.0)
+            left.append(-1)
+            right.append(-1)
+            depth.append(depth[node] + 1)
+    n = len(feature)
+    if pure:
+        value = np.eye(classes)[rng.integers(classes, size=n)]
+    else:
+        value = rng.random((n, classes)) + 0.05
+        value /= value.sum(axis=1, keepdims=True)
+    return SimpleNamespace(
+        feature=np.array(feature, np.int64), threshold=np.array(threshold),
+        children_left=np.array(left, np.int64), children_right=np.array(right, np.int64),
+        value=value[:, None, :], max_depth=max(depth),
+    )
+
+
+# the walk kernel's cases: name -> (classes, pure leaves, grouped masks, what
+# else the forest or the rows hold)
+WALK_CASES = {
+    "pure_k6_per_feature": (6, True, False, None),
+    "impure_k6_grouped": (6, False, True, None),
+    "pure_k2_grouped": (2, True, True, None),
+    "impure_k2_per_feature": (2, False, False, None),
+    "impure_k12_grouped": (12, False, True, None),
+    "impure_k33_grouped": (33, False, True, None),  # two of the kernel's 32-class tiles
+    "root_only_tree": (3, True, False, "root_only"),
+    "nan_feature": (6, True, False, "nan"),
+    "deeper_than_19": (6, False, True, "chain"),
+}
+WALK_ROWS, WALK_FEATURES, WALK_REPEATS = 40, 7, 2
+
+
+def walk_case(case: str):
+    """(trees, X (WALK_ROWS, WALK_FEATURES) f32 CPU tensor, (G, F) f32 masks)
+    of a :data:`WALK_CASES` case: 9 random trees of 1-29 splits; a root-only
+    tree among them, a chain of 25 splits, or NaN in every third row of
+    feature 2; per-feature masks (the identity) or four column groups."""
+    classes, pure, grouped, extra = WALK_CASES[case]
+    rng = np.random.default_rng(sorted(WALK_CASES).index(case))
+    trees = [random_tree(rng, splits=int(rng.integers(1, 30)), features=WALK_FEATURES,
+                         classes=classes, pure=pure) for _ in range(9)]
+    if extra == "root_only":
+        trees[3] = random_tree(rng, splits=0, features=WALK_FEATURES, classes=classes, pure=pure)
+    if extra == "chain":
+        trees[5] = random_tree(rng, splits=25, features=WALK_FEATURES, classes=classes, pure=pure,
+                               chain=True)
+    X = rng.normal(size=(WALK_ROWS, WALK_FEATURES)).astype(np.float32)
+    if extra == "nan":
+        X[::3, 2] = np.nan
+    masks = np.eye(WALK_FEATURES, dtype=np.float32)
+    if grouped:
+        masks = np.zeros((4, WALK_FEATURES), np.float32)
+        for g, cols in enumerate([[0, 3], [1, 2, 6], [4], [5]]):
+            masks[g, cols] = 1.0
+    return trees, torch.from_numpy(X), torch.from_numpy(masks)

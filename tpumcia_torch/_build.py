@@ -54,6 +54,14 @@ _SIGNATURES = {
     ),
     # H, W, L, masked, table_bits, num_offsets, items, info (10 host long longs)
     "tpumcia_glcm_workspace_info": (_I, [_I, _I, _I, _I, _I, _I, _Q, ctypes.POINTER(_Q)]),
+    "tpumcia_forest_apply": (
+        _I,
+        # X, N, F, perm, mask, repeats, D, nodes, num_nodes, roots, trees,
+        # values, num_values, classes, out, stream
+        [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P],
+    ),
+    # num_nodes, num_values, classes, trees, lanes, info (5 host ints)
+    "tpumcia_forest_launch_info": (_I, [_I, _I, _I, _I, _Q, ctypes.POINTER(_I)]),
     "tpumcia_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -4,7 +4,9 @@
 Semantics match sklearn's ``permutation_importance``:
 ``importance[g, r] = baseline_score - score(X with group g's columns
 permuted jointly by permutation r)``, scores being mean accuracy. All G*R
-permuted copies are scored in one batched gather + matmul. The
+permuted copies are scored in one batched gather + matmul (a forest
+that the walk kernel scores reads each draw's permuted columns in place,
+:meth:`DeviceForest.apply_permuted`). The
 permutations are an input: :func:`draw_permutations` draws them from a
 seeded ``torch.Generator``, and the tests hand in the JAX package's own.
 :func:`permutation_importance` is the entry for a fitted logistic, MLP or
@@ -87,6 +89,16 @@ def _scaled_forest_apply(forest, dmin, dscale, X):
     return forest.apply((X - dmin) * dscale)
 
 
+def _kernel_forest(apply_fn):
+    """The :class:`DeviceForest` behind a forest head's scoring callable
+    where the walk kernel scores it (form ``'kernel'``: a CUDA forest), else
+    None."""
+    if getattr(apply_fn, "func", None) is not _scaled_forest_apply:
+        return None
+    forest = apply_fn.args[0]
+    return forest if forest.form == "kernel" else None
+
+
 def _device_score_parts(head):
     """(apply_fn, classes) of a fitted head: ``apply_fn(X)`` gives the
     logits (class probabilities for a forest) of raw (unscaled) X on the
@@ -131,7 +143,9 @@ def _perm_sweep(X, y_idx, masks, perms, apply_fn, *, shares=False):
     gives class probabilities, as a forest's does) also (the baseline's mean
     share of the true class, (G, R) drops of that share). The sweep is one
     ``sweep`` span and adds its G*R + 1 evaluations to
-    ``COUNTERS["sweep_evals"]``."""
+    ``COUNTERS["sweep_evals"]``. A forest the walk kernel scores is handed
+    the rows scaled once, each launch's permutations and group masks: no
+    permuted copy of X is made."""
     N, F = X.shape
     G, R, _ = perms.shape
 
@@ -144,15 +158,26 @@ def _perm_sweep(X, y_idx, masks, perms, apply_fn, *, shares=False):
         return torch.stack([acc, share], -1)
 
     with trace("sweep"):
-        baseline = score(apply_fn(X))
-        flat = perms.reshape(G * R, N)
-        group_of = torch.arange(G, device=X.device).repeat_interleave(R)
-        permuted = masks[group_of].to(torch.bool)[:, None, :]  # (G*R, 1, F)
-        step = max(1, _SWEEP_CHUNK_ELEMS // max(1, N * F))
-        scores = torch.cat([X.new_zeros((0, *baseline.shape))] + [
-            score(apply_fn(torch.where(permuted[s:s + step], X[flat[s:s + step]], X)))
-            for s in range(0, G * R, step)
-        ])
+        forest = _kernel_forest(apply_fn)
+        if forest is None:
+            baseline = score(apply_fn(X))
+            flat = perms.reshape(G * R, N)
+            group_of = torch.arange(G, device=X.device).repeat_interleave(R)
+            permuted = masks[group_of].to(torch.bool)[:, None, :]  # (G*R, 1, F)
+            step = max(1, _SWEEP_CHUNK_ELEMS // max(1, N * F))
+            scores = [score(apply_fn(torch.where(permuted[s:s + step], X[flat[s:s + step]], X)))
+                      for s in range(0, G * R, step)]
+        else:
+            # scaling is per element, so scaling X once gives each permuted
+            # copy's floats
+            _, dmin, dscale = apply_fn.args
+            Xs = (X - dmin) * dscale
+            baseline = score(forest.apply(Xs))
+            step = max(1, _SWEEP_CHUNK_ELEMS // max(1, R * N * forest.leaf_proba.shape[-1]))
+            scores = [score(forest.apply_permuted(Xs, perms[g:g + step].reshape(-1, N),
+                                                  masks[g:g + step], R))
+                      for g in range(0, G, step)]
+        scores = torch.cat([X.new_zeros((0, *baseline.shape))] + scores)
     COUNTERS["sweep_evals"] += G * R + 1
     drops = baseline - scores.reshape(G, R, *baseline.shape)
     if shares:
