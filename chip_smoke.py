@@ -59,14 +59,13 @@ Phases (any failure exits nonzero, and no result line is printed):
      fast_path='auto', so the classic path: the forest grown on the card,
      the channel sweep through it on the card, MDI as the feature view;
      checks launches, accuracy, the signal channel in both views, MDI, the
-     inference form, the GEMM and lock-step forms against each other, and a
+     forest's inference of the test rows against its plain version, and a
      small forest grown on the card and on the CPU from one seed (bit-equal
      trees); the walk kernel at ``forest_mdi``'s sweep (the test rows'
      baseline and 690 draws, 69 columns x 10 repeats) through
      ``permutation_importance``, its launches and lanes counted on that
-     call alone, and its (draw, row) shares against its plain version and
-     against the GEMM form over each draw's permuted copy, both timed by
-     CUDA events; times the slice (objects/s) and one staged run;
+     call alone, and its (draw, row) shares against its plain version, both
+     timed by CUDA events; times the slice (objects/s) and one staged run;
  10. cytometry with morphology: phase 5's objects with
      ``include_morphology=True`` (12 x (23 + 8) columns, the classic path),
      the forest head and MDI (``channel_method='auto'``); checks launches,
@@ -205,7 +204,6 @@ BENCH_TIMEOUT_S = 600
 # feature columns that read an f32 wire word (sums in another order on the card and on the CPU)
 FLOAT_DERIVED = ("std_intensity", "kurtosis_intensity", "skew_intensity", "shannon_entropy", "homogeneity")
 FOREST_SMALL = (600, 10)  # phase 9's card-vs-CPU forest: rows, trees
-FOREST_PROBA_ATOL = 1e-6  # GEMM vs lock-step or the walk kernel: the same leaves, f32 sums in another order
 FOREST_SOURCE = "tpumcia_torch/csrc/forest_apply.cu"
 SOURCE = "tpumcia_torch/csrc/glcm_stats.cu"
 # each kernel form and the TPU kernel it replaces
@@ -1123,37 +1121,39 @@ def phase_classic_fields(device, timed_runs=3, n_check=8):
 
 
 def _tree_stats(head) -> dict:
-    """The forest's size and which inference form its DeviceForest runs."""
+    """The forest's size."""
     import numpy as np
 
     nodes = [t.node_count for t in head.trees]
     return {"trees": len(nodes), "nodes_mean": float(np.mean(nodes)), "nodes_max": int(max(nodes)),
-            "depth_max": int(max(t.max_depth for t in head.trees)), "form": head.to_device().form}
+            "depth_max": int(max(t.max_depth for t in head.trees))}
 
 
-def _forest_forms(head, X, reps=5) -> dict:
-    """Both inference forms of ``head``'s forest on the scaled rows ``X``:
-    equal to FOREST_PROBA_ATOL (the lock-step form run directly where the
-    GEMM form is the forest's), and each one's median seconds."""
+def _forest_inference(head, X, reps=5) -> dict:
+    """The walk kernel's class shares of ``head``'s forest on the scaled
+    rows ``X`` (``apply``), bit-equal to its plain version; each one's
+    median seconds."""
     import torch
+
+    from tpumcia_torch.models import forest_device
 
     f = head.to_device()
     x = head.scaler.transform(torch.as_tensor(X, dtype=torch.float32, device=f.device))
+    runs = {"kernel": lambda: f.apply(x),
+            "plain": lambda: forest_device._apply_walk(x, f.nodes, f.roots, f.values)[0]}
     out, secs = {}, {}
-    for form in ("gemm", "lockstep") if f.gemm is not None else ("lockstep",):
-        runs = []
+    for name, run in runs.items():
+        times = []
         for _ in range(reps):
             _sync(f.device)
             t0 = time.perf_counter()
-            out[form] = f.apply(x, form=form)
+            out[name] = run()
             _sync(f.device)
-            runs.append(time.perf_counter() - t0)
-        secs[form] = statistics.median(runs)
-    if "gemm" in out:
-        diff = (out["gemm"] - out["lockstep"]).abs().max().item()
-        if not diff <= FOREST_PROBA_ATOL:
-            raise AssertionError(f"GEMM and lock-step probabilities differ by {diff}")
-        secs["gemm_vs_lockstep"] = diff
+            times.append(time.perf_counter() - t0)
+        secs[name] = statistics.median(times)
+    if not torch.equal(out["kernel"], out["plain"]):
+        diff = (out["kernel"] - out["plain"]).abs().max().item()
+        raise AssertionError(f"the walk kernel's shares differ from its plain version's by {diff}")
     return secs
 
 
@@ -1162,10 +1162,8 @@ def _forest_walk(head, X, y) -> dict:
     over every column of the scaled test rows ``X`` (the reference call:
     10 repeats, seed 42), its walk launches and lanes counted on that call
     alone; then the same draws scored by ``apply_permuted`` against the
-    kernel's plain version (bit for bit) and against the GEMM form over
-    each draw's ``torch.where`` copy as the parent's sweep made them (equal
-    with pure leaves, else within FOREST_PROBA_ATOL), both timed by CUDA
-    events. Returns the kernels line's walk record."""
+    kernel's plain version, bit for bit, both timed by CUDA events. Returns
+    the kernels line's walk record."""
     import torch
 
     from tpumcia_torch.features import cuda_glcm
@@ -1174,8 +1172,6 @@ def _forest_walk(head, X, y) -> dict:
     from tpumcia_torch.utils import profiling
 
     f = head.to_device()
-    if f.form != "kernel":
-        raise AssertionError(f"the forest on the card runs form {f.form!r}, not the walk kernel")
     x = head.scaler.transform(torch.as_tensor(X, dtype=torch.float32, device=f.device)).contiguous()
     N, F = x.shape
     R, T = 10, len(head.trees)
@@ -1185,51 +1181,38 @@ def _forest_walk(head, X, y) -> dict:
     permutation.permutation_importance(head, X, y, n_repeats=R, seed=42)
     _sync(f.device)
     c = dict(profiling.COUNTERS)
-    if not c["forest_kernel_lanes"] == c["forest_lanes"] == T * N * (D + 1):
-        raise AssertionError(f"the sweep's forest lanes {c['forest_lanes']}, the kernel's "
-                             f"{c['forest_kernel_lanes']}, want {T * N * (D + 1)} each")
+    if c["forest_lanes"] != T * N * (D + 1):
+        raise AssertionError(f"the sweep's forest lanes {c['forest_lanes']}, want {T * N * (D + 1)}")
     if c["forest_kernel_launches"] < 2:
         raise AssertionError(f"the sweep launched the walk kernel {c['forest_kernel_launches']} times")
 
     perms = permutation.draw_permutations(D, N, seed=42, device=f.device)
     masks = torch.eye(F, dtype=torch.uint8, device=f.device)
-    group_of = torch.arange(F, device=f.device).repeat_interleave(R)
-    permuted = masks[group_of].to(torch.bool)[:, None, :]
-    step = max(1, permutation._SWEEP_CHUNK_ELEMS // (N * F))
+    nodes, roots, values = f.nodes, f.roots, f.values
 
     def run_kernel():
         return f.apply_permuted(x, perms, masks, R)
 
     def run_plain():
-        return torch.cat([f.apply(torch.where(permuted[s:s + step], x[perms[s:s + step]], x), form="gemm")
-                          for s in range(0, D, step)])
+        return forest_device._apply_walk(x, nodes, roots, values, perms, masks, R)
 
-    got, gemm = run_kernel(), run_plain()
-    plain = forest_device._apply_walk(x, *f.walk[:3], perms, masks, R)
+    got, plain = run_kernel(), run_plain()
     if not (torch.equal(got, run_kernel()) and torch.equal(got, plain)):
         raise AssertionError("the walk kernel differs from its plain version or from its own rerun: "
                              f"max abs diff {(got - plain).abs().max().item()!r}")
-    values = f.walk[2]
     pure = bool(((values == 0) | (values == 1)).all())
-    err = (got - gemm).abs().max().item()
-    base_err = (f.apply(x) - f.apply(x, form="gemm")).abs().max().item()
-    close = err == base_err == 0.0 if pure else max(err, base_err) <= FOREST_PROBA_ATOL
-    if not close:
-        raise AssertionError(f"the walk kernel differs from the GEMM form by {err!r} over the draws, "
-                             f"{base_err!r} on the rows (pure leaves {pure})")
-    del gemm, plain
+    del plain
     (k1, k2), (p1, p2) = _timed_pair(run_kernel, run_plain)
     info = f.kernel_launch_info(D * N)
-    nodes, roots, values, _ = f.walk
     K = values.shape[1]
     # each input and output once: the rows, the permutations, the masks, the
     # forest and the shares
     nbytes = 4 * N * F + 8 * D * N + F * F + (nodes.numel() + roots.numel() + values.numel()) * 4 + 4 * D * N * K
     bound, ms = cuda_glcm.bound_ms(nbytes), min(k1, k2)
     log(f"  walk kernel at {D} draws x {N} rows x {T} trees ({nodes.shape[0]} nodes, {K} classes): "
-        f"{c['forest_kernel_launches']} launches and {c['forest_kernel_lanes']} lanes in the sweep's call; "
-        f"== plain version, vs GEMM form {err!r} (rows {base_err!r}, pure leaves {pure}); kernel {k1!r} / "
-        f"{k2!r} ms, GEMM form over the copies {p1!r} / {p2!r} ms (median of runs, CUDA events); "
+        f"{c['forest_kernel_launches']} launches and {c['forest_lanes']} lanes in the sweep's call; "
+        f"== plain version (pure leaves {pure}); kernel {k1!r} / {k2!r} ms, plain version {p1!r} / "
+        f"{p2!r} ms (median of runs, CUDA events); "
         f"{nbytes} bytes, bound {bound!r} ms; {json.dumps(info)}")
     return {
         "name": "forest_apply walk", "route": "cuda", "source": FOREST_SOURCE,
@@ -1237,7 +1220,7 @@ def _forest_walk(head, X, y) -> dict:
         "at": f"{D}x{N} lanes, {T} trees, {nodes.shape[0]} nodes, {K} classes", "ms": ms,
         "plain_ms": min(p1, p2), "bytes": nbytes, "bound_ms": bound, "bound_by": "bytes",
         "share": bound / ms, "launches_per_run": c["forest_kernel_launches"],
-        "lanes_per_run": c["forest_kernel_lanes"], "max_abs_err": err, "pure_leaves": pure,
+        "lanes_per_run": c["forest_lanes"], "max_abs_err": 0.0, "pure_leaves": pure,
         "library_ms": None, "library": "none: no PyTorch call walks a tree", **info,
     }
 
@@ -1289,7 +1272,7 @@ def phase_forest(device, n_images=N_IMAGES, timed_runs=3):
     trees = _tree_stats(head)
     Xf = np.nan_to_num(X.astype(np.float32))
     tr, te = result.train_idx, result.test_idx
-    forms = _forest_forms(head, Xf[te])
+    forms = _forest_inference(head, Xf[te])
     walk = _forest_walk(head, Xf[te], labels[te])
 
     # a small forest grown on the card and on the CPU from one seed

@@ -331,8 +331,11 @@ def test_extract_features_on_card_matches_cpu():
 
 def test_forest_fit_on_card_equals_cpu_fit():
     """The same seed grows the same forest on the card and on the CPU (every
-    split sum is an integer in float64), and both inference forms give the
-    same probabilities on the card."""
+    split sum is an integer in float64), and the walk kernel's shares on the
+    card equal its plain version's there bit for bit, and the CPU forest's
+    within 1e-6 (the card divides by T as a product with 1/T)."""
+    from tpumcia_torch.models import forest_device
+
     dev = require_cuda()
     from tpumcia_torch.config import HeadConfig
     from tpumcia_torch.models.heads import fit_head
@@ -351,7 +354,9 @@ def test_forest_fit_on_card_equals_cpu_fit():
             np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
     f = card.to_device()
     x = card.scaler.transform(torch.from_numpy(X).to(dev))
-    torch.testing.assert_close(f.apply(x, form="lockstep"), f.apply(x, form="gemm"), rtol=0, atol=1e-6)
+    shares = f.apply(x)
+    assert torch.equal(shares, forest_device._apply_walk(x, f.nodes, f.roots, f.values)[0])
+    torch.testing.assert_close(shares.cpu(), cpu.to_device().apply(x.cpu()), rtol=0, atol=1e-6)
     np.testing.assert_array_equal(card.predict(X), cpu.predict(X))
 
 
@@ -945,11 +950,10 @@ def test_a_loss_that_synchronises_fails_the_capture_loudly():
 @pytest.mark.parametrize("case", sorted(WALK_CASES))
 def test_forest_kernel_matches_plain_and_gemm_on_card(case):
     """The walk kernel against its plain version on the card, bit for bit
-    (the same float32 sums in tree order, the same division by T), and
-    against each draw's permuted copy scored by the GEMM form: equal with
-    pure leaves; with impure ones within 1e-6 (the trees summed in another
-    order) and the argmax equal where the top two shares lie more than 1e-5
-    apart. Two runs are bit-equal and every lane is counted."""
+    (the same float32 sums in tree order, the same division by T), reading
+    the draws in place and scoring each draw's permuted copy ``torch.where(
+    permuted, X[perm], X)``. Two runs are bit-equal, every lane is counted
+    and the kernel launches once a call."""
     from tpumcia_torch.importance.permutation import draw_permutations
     from tpumcia_torch.models import forest_device
     from tpumcia_torch.utils.profiling import COUNTERS
@@ -958,31 +962,27 @@ def test_forest_kernel_matches_plain_and_gemm_on_card(case):
     trees, X, masks = walk_case(case)
     classes, pure = WALK_CASES[case][:2]
     f = forest_device.DeviceForest.from_arrays(trees, np.arange(classes), device=dev)
-    assert f.form == "kernel"
+    assert f.device.type == "cuda"
     X, masks = X.to(dev), masks.to(dev)
     G, T = masks.shape[0], len(trees)
     D = G * WALK_REPEATS
     perms = draw_permutations(D, WALK_ROWS, seed=3, device=dev)
-    before = COUNTERS["forest_kernel_lanes"]
+    lanes, launches = COUNTERS["forest_lanes"], COUNTERS["forest_kernel_launches"]
     got = f.apply_permuted(X, perms, masks, WALK_REPEATS)
     again = f.apply_permuted(X, perms, masks, WALK_REPEATS)
     base = f.apply(X)
     torch.cuda.synchronize()
-    assert COUNTERS["forest_kernel_lanes"] - before == T * (2 * D + 1) * WALK_ROWS
+    assert COUNTERS["forest_lanes"] - lanes == T * (2 * D + 1) * WALK_ROWS
+    assert COUNTERS["forest_kernel_launches"] - launches == 3
     assert torch.equal(got, again)
-    assert torch.equal(got, forest_device._apply_walk(X, *f.walk[:3], perms, masks, WALK_REPEATS))
-    assert torch.equal(base, forest_device._apply_walk(X, *f.walk[:3])[0])
+    walk = (f.nodes, f.roots, f.values)
+    assert torch.equal(got, forest_device._apply_walk(X, *walk, perms, masks, WALK_REPEATS))
+    assert torch.equal(base, forest_device._apply_walk(X, *walk)[0])
     group_of = torch.arange(G, device=dev).repeat_interleave(WALK_REPEATS)
     copies = torch.where(masks[group_of].bool()[:, None, :], X[perms], X)
-    for walked, rows in ((got, copies), (base, X)):
-        gemm = f.apply(rows, form="gemm")
-        if pure:
-            assert torch.equal(walked, gemm)
-        else:
-            torch.testing.assert_close(walked, gemm, rtol=0, atol=1e-6)
-            top = gemm.topk(2, dim=-1).values
-            clear = top[..., 0] - top[..., 1] > 1e-5
-            assert torch.equal(walked.argmax(-1)[clear], gemm.argmax(-1)[clear])
+    on_copies = forest_device._apply_walk(copies.reshape(-1, X.shape[1]), *walk)[0]
+    assert torch.equal(got, on_copies.reshape(got.shape))
+    assert pure == bool(((f.values == 0) | (f.values == 1)).all())
     info = f.kernel_launch_info(D * WALK_ROWS)
     assert info["forest_in_smem"] and info["smem_bytes"] > 0 and info["blocks_per_sm"] >= 1
 
@@ -990,8 +990,8 @@ def test_forest_kernel_matches_plain_and_gemm_on_card(case):
 def test_forest_kernel_reads_a_forest_too_large_for_shared_memory():
     """12 trees of 4,001 nodes (768 KB of nodes) do not fit in shared
     memory: the kernel reads the forest through L1/L2, bit-equal to its
-    plain version and within 1e-6 of the lock-step form (the GEMM form's
-    path matrix is past ``_GEMM_MAX_CELLS`` here)."""
+    plain version reading the draws in place and scoring each draw's
+    permuted copy."""
     from tpumcia_torch.importance.permutation import draw_permutations
     from tpumcia_torch.models import forest_device
 
@@ -1000,7 +1000,6 @@ def test_forest_kernel_reads_a_forest_too_large_for_shared_memory():
     trees = [random_tree(rng, splits=2000, features=WALK_FEATURES, classes=4, pure=True)
              for _ in range(12)]
     f = forest_device.DeviceForest.from_arrays(trees, np.arange(4), device=dev)
-    assert f.form == "kernel" and f.gemm is None
     rows, repeats = 500, 3
     X = torch.from_numpy(rng.normal(size=(rows, WALK_FEATURES)).astype(np.float32)).to(dev)
     masks = torch.eye(WALK_FEATURES, device=dev)
@@ -1008,10 +1007,12 @@ def test_forest_kernel_reads_a_forest_too_large_for_shared_memory():
     info = f.kernel_launch_info(perms.numel())
     assert not info["forest_in_smem"] and info["smem_bytes"] == 0 and info["blocks_per_sm"] >= 1
     got = f.apply_permuted(X, perms, masks, repeats)
-    assert torch.equal(got, forest_device._apply_walk(X, *f.walk[:3], perms, masks, repeats))
+    walk = (f.nodes, f.roots, f.values)
+    assert torch.equal(got, forest_device._apply_walk(X, *walk, perms, masks, repeats))
     group_of = torch.arange(WALK_FEATURES, device=dev).repeat_interleave(repeats)
     copies = torch.where(masks[group_of].bool()[:, None, :], X[perms], X)
-    torch.testing.assert_close(got, f.apply(copies, form="lockstep"), rtol=0, atol=1e-6)
+    on_copies = forest_device._apply_walk(copies.reshape(-1, WALK_FEATURES), *walk)[0]
+    assert torch.equal(got, on_copies.reshape(got.shape))
 
 
 def test_forest_kernel_runs_on_a_second_card():
@@ -1065,28 +1066,35 @@ def _forest_call_config(head):
             "synth": {"noise_channels": 2, "seed": 0}, "fast_path": "never", "batch_size": 64}
 
 
-def test_forest_kernel_scores_every_lane_of_a_forest_call():
+def test_forest_kernel_scores_every_lane_of_a_forest_call(monkeypatch):
     """A forest ``run_pipeline`` call on the card (the classic path, the
     per-feature sweep over 69 columns): every (tree, row) lane the forest
-    scores goes through the walk kernel."""
+    scores goes through the walk kernel, and its plain version is never
+    called."""
     from tpumcia_torch.io.synthetic import synthetic_mednist
+    from tpumcia_torch.models import forest_device
     from tpumcia_torch.pipeline.run import run_pipeline
     from tpumcia_torch.utils import profiling
 
     dev = require_cuda()
     images, labels, _ = synthetic_mednist(30, num_classes=6, seed=3)
     config = _forest_call_config({"kind": "random_forest", "n_estimators": 8, "seed": 0})
+    def refuse(*args, **kwargs):
+        raise AssertionError("a forest on the card reached the walk's plain version")
+
+    monkeypatch.setattr(forest_device, "_apply_walk", refuse)
     profiling.reset_counters()
     res = run_pipeline(images, labels, config=config, device=dev)
     c = profiling.COUNTERS
-    assert c["forest_kernel_lanes"] == c["forest_lanes"] == 8 * len(res.test_idx) * (2 + 69 * 2)
+    assert c["forest_lanes"] == 8 * len(res.test_idx) * (2 + 69 * 2)
     assert c["forest_kernel_launches"] >= 3  # the prediction, the baseline, the draws
 
 
 def test_a_logistic_call_launches_as_without_the_forest_kernel_branch(monkeypatch):
     """A logistic ``run_pipeline`` call on the card launches the same
-    kernels, by name and count, with the sweep's check for the walk kernel as
-    with that check taken out, and scores nothing with the walk kernel."""
+    kernels, by name and count, with the sweep asking the head's scorer for
+    outputs of its own as with a bare callable in the scorer's place, and
+    launches no walk kernel."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -1111,7 +1119,13 @@ def test_a_logistic_call_launches_as_without_the_forest_kernel_branch(monkeypatc
         return Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
 
     with_check = launches()
-    assert profiling.COUNTERS["forest_kernel_lanes"] == 0 and profiling.COUNTERS["sweep_evals"] > 0
+    assert profiling.COUNTERS["forest_kernel_launches"] == 0 and profiling.COUNTERS["sweep_evals"] > 0
     assert sum(with_check.values()) > 0 and not any("forest" in k for k in with_check)
-    monkeypatch.setattr(permutation, "_kernel_forest", lambda apply_fn: None)
+    score_parts = permutation._device_score_parts
+
+    def bare(head):
+        apply_fn, classes = score_parts(head)
+        return (lambda X: apply_fn(X)), classes
+
+    monkeypatch.setattr(permutation, "_device_score_parts", bare)
     assert launches() == with_check

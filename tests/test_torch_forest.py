@@ -1,9 +1,10 @@
 """The random-forest head of tpumcia_torch against sklearn and tpumcia, on
 the CPU: the port's own tree grower (``models/forest_fit.py``) against
 sklearn's trees, a fitted sklearn forest carried across
-(``RandomForestHead.from_sklearn``), its inference forms, MDI, the forest
-sweeps (device and host), the port's own forest against tpumcia's, and the
-classic ``run_pipeline`` slice with the forest head.
+(``RandomForestHead.from_sklearn``), its walk against tpumcia's GEMM and
+lock-step forms, MDI, the forest sweeps (device and host), the port's own
+forest against tpumcia's, and the classic ``run_pipeline`` slice with the
+forest head.
 
 Tolerances:
 - tree structure, ``n_node_samples``: equal; thresholds: bit-equal;
@@ -20,17 +21,22 @@ Tolerances:
 """
 
 import inspect
+from types import SimpleNamespace
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from sklearn.tree import DecisionTreeClassifier
 
-from torch_parity import WALK_CASES, WALK_REPEATS, WALK_ROWS, random_tree, replay_jax_draws, walk_case
+from torch_parity import (WALK_CASES, WALK_FEATURES, WALK_REPEATS, WALK_ROWS, random_tree, replay_jax_draws,
+                          walk_case)
 from tpumcia.config import HeadConfig as JHeadConfig
 from tpumcia.config import ImportanceConfig as JImportanceConfig
 from tpumcia.importance import channels as jchannels
 from tpumcia.importance import permutation as jperm
+from tpumcia.models import forest_device as jforest_device
 from tpumcia.models import heads as jheads
 from tpumcia.models.forest_device import DeviceForest as JDeviceForest
 from tpumcia.pipeline.run import run_pipeline as jax_run_pipeline
@@ -170,75 +176,119 @@ def _port_of(head, device="cpu"):
                                          device=device)
 
 
+_jax_apply_gemm = jax.jit(jforest_device._apply_gemm)
+_jax_apply_lockstep = jax.jit(jforest_device._apply_lockstep)  # depth traced: any bound >= depth holds
+
+
+def _jax_lockstep(forest, X):
+    """tpumcia's lock-step descent of its padded forest arrays."""
+    return np.asarray(_jax_apply_lockstep(
+        forest.feature, forest.threshold, forest.left, forest.right, forest.leaf_proba, forest.depth,
+        jnp.asarray(X)))
+
+
 def test_sklearn_forest_carried_across(sk_head):
     head, X, y = sk_head
     port = _port_of(head)
     for got, est in zip(port.trees, head.model.estimators_):
         _assert_tree_equal(got, est.tree_)
-    # the inference arrays: tpumcia's own layout of the same forest
-    want = JDeviceForest.from_sklearn(head.model, head.classes, head.scaler)
     f = port.to_device()
-    for name in ("feature", "threshold", "left", "right", "leaf_proba"):
-        np.testing.assert_array_equal(getattr(f, name).numpy(), np.asarray(getattr(want, name)), err_msg=name)
-    assert f.depth == want.depth and f.form == "gemm"
-    for g, w in zip(f.gemm, want.gemm):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    # sklearn's probabilities and labels, and both inference forms agree
+    assert f.nodes.shape == (sum(t.node_count for t in port.trees), 4) and f.roots.shape == (8,)
+    # the port's walk, on apply and on predict_proba, against tpumcia's
+    # DeviceForest (its GEMM form) and its lock-step form: equal, every leaf
+    # being pure
+    want = JDeviceForest.from_sklearn(head.model, head.classes, head.scaler)
+    assert want.gemm is not None
     Xs = np.asarray(head.scaler.transform(X))
     proba = port.predict_proba(X).numpy()
+    np.testing.assert_array_equal(f.apply(torch.tensor(Xs)).numpy(), proba)
+    np.testing.assert_array_equal(proba, np.asarray(want.predict_proba(X)))
+    np.testing.assert_array_equal(proba, _jax_lockstep(want, Xs))
+    # sklearn's probabilities and labels
     np.testing.assert_allclose(proba, head.model.predict_proba(Xs), rtol=0, atol=1e-6)
     np.testing.assert_array_equal(port.predict(X), head.predict(X))
-    lock = f.apply(port.scaler.transform(torch.from_numpy(X)), form="lockstep").numpy()
-    np.testing.assert_allclose(lock, proba, rtol=0, atol=1e-6)
     assert port.score(X[160:], y[160:]) == head.score(X[160:], y[160:])
     # MDI
     np.testing.assert_allclose(port.mdi_importance(), head.model.feature_importances_, rtol=0, atol=1e-12)
     np.testing.assert_allclose(mdi.mdi_importance(port), head.mdi_importance(), rtol=0, atol=1e-12)
 
 
-def test_lockstep_form_is_taken_past_the_gemm_cells(sk_head, monkeypatch):
-    """A forest whose (leaves x internal nodes) exceeds ``_GEMM_MAX_CELLS``
-    is laid out for the lock-step descent only, as in tpumcia."""
+def test_walk_equals_tpumcias_lockstep_forest(sk_head, monkeypatch):
+    """Past ``_GEMM_MAX_CELLS`` tpumcia lays a forest out for its lock-step
+    descent only; the port's one walk scores it alike."""
     head, X, _ = sk_head
-    monkeypatch.setattr(forest_device, "_GEMM_MAX_CELLS", 4)
-    port = _port_of(head)
-    assert port.to_device().form == "lockstep" and port.to_device().gemm is None
-    np.testing.assert_allclose(port.predict_proba(X).numpy(),
-                               head.model.predict_proba(np.asarray(head.scaler.transform(X))),
-                               rtol=0, atol=1e-6)
+    monkeypatch.setattr(jforest_device, "_GEMM_MAX_CELLS", 4)
+    want = JDeviceForest.from_sklearn(head.model, head.classes, head.scaler)
+    assert want.gemm is None
+    np.testing.assert_array_equal(_port_of(head).predict_proba(X).numpy(),
+                                  np.asarray(want.predict_proba(X)))
+
+
+# every walk case is scored by tpumcia's forms at one shape, so each form
+# compiles once: padding adds internal nodes with zero path columns, leaves
+# that target -1 (never reached), nodes no child points at, and zero classes
+# and rows, which are cut from the result
+_PAD_INTERNAL, _PAD_NODES = 32, 64
+_PAD_CLASSES = max(c[0] for c in WALK_CASES.values())
+_PAD_ROWS = (WALK_FEATURES * WALK_REPEATS + 1) * WALK_ROWS
+
+
+def _pad(a, *shape, value=0):
+    a = np.asarray(a)
+    return np.pad(a, [(0, s - d) for d, s in zip(a.shape, shape)], constant_values=value)
+
+
+def _jax_forest(trees, classes):
+    """tpumcia's DeviceForest of duck-typed trees (``random_tree``)."""
+    model = SimpleNamespace(
+        estimators_=[SimpleNamespace(tree_=SimpleNamespace(**vars(t), node_count=len(t.feature)))
+                     for t in trees],
+        n_classes_=classes, classes_=np.arange(classes))
+    return JDeviceForest.from_sklearn(model)
 
 
 @pytest.mark.parametrize("case", sorted(WALK_CASES))
 def test_walk_reads_permuted_columns_in_place(case):
     """The walk kernel's plain version (``apply_permuted`` on the CPU)
     against each draw's permuted copy ``torch.where(permuted, X[perm], X)``
-    scored by the GEMM and lock-step forms, and the unpermuted walk against
-    both forms: equal with pure leaves (integer sums over T), within 1e-6
-    with impure ones (the trees summed in another order)."""
+    scored by tpumcia's GEMM and lock-step forms, and the unpermuted walk
+    (``apply``) against both: equal with pure leaves (integer sums over T),
+    within 1e-6 with impure ones (the trees summed in another order)."""
     trees, X, masks = walk_case(case)
     classes, pure, _, extra = WALK_CASES[case]
     f = DeviceForest.from_arrays(trees, np.arange(classes), device="cpu")
-    assert f.form == "gemm" and f.depth == max(t.max_depth for t in trees)
-    assert (f.depth > 19) == (extra == "chain") and bool(X.isnan().any()) == (extra == "nan")
+    want = _jax_forest(trees, classes)
+    assert want.gemm is not None and want.depth == max(t.max_depth for t in trees)
+    assert (want.depth > 19) == (extra == "chain") and bool(X.isnan().any()) == (extra == "nan")
     G = masks.shape[0]
     perms = perm.draw_permutations(G * WALK_REPEATS, WALK_ROWS, seed=3, device="cpu")
     group_of = torch.arange(G).repeat_interleave(WALK_REPEATS)
     copies = torch.where(masks[group_of].bool()[:, None, :], X[perms], X)
     got = f.apply_permuted(X, perms, masks, WALK_REPEATS)
-    plain = forest_device._apply_walk(X, *f.walk[:3])
-    assert got.shape == (G * WALK_REPEATS, WALK_ROWS, classes) and plain.shape == (1, WALK_ROWS, classes)
-    for form in ("gemm", "lockstep"):
-        for walked, want in ((got, f.apply(copies, form=form)), (plain[0], f.apply(X, form=form))):
+    base = f.apply(X)
+    assert got.shape == (G * WALK_REPEATS, WALK_ROWS, classes) and base.shape == (WALK_ROWS, classes)
+    T, K, I, N = len(trees), _PAD_CLASSES, _PAD_INTERNAL, _PAD_NODES
+    g_feature, g_threshold, A, target, g_proba = want.gemm
+    gemm = (_pad(g_feature, T, I), _pad(g_threshold, T, I), _pad(A, T, I + 1, I),
+            _pad(target, T, I + 1, value=-1), _pad(g_proba, T, I + 1, K))
+    lock = (*(_pad(a, T, N) for a in (want.feature, want.threshold, want.left, want.right)),
+            _pad(want.leaf_proba, T, N, K), want.depth)
+    forms = {"gemm": lambda x: _jax_apply_gemm(*gemm, x), "lockstep": lambda x: _jax_apply_lockstep(*lock, x)}
+    rows = torch.cat([copies.reshape(-1, WALK_FEATURES), X]).numpy()  # every draw's rows, then X
+    for form, score in forms.items():
+        wanted = np.asarray(score(_pad(rows, _PAD_ROWS, WALK_FEATURES)))[:len(rows), :classes]
+        pairs = ((got.numpy(), wanted[:-WALK_ROWS].reshape(got.shape)), (base.numpy(), wanted[-WALK_ROWS:]))
+        for w, v in pairs:
             if pure:
-                assert torch.equal(walked, want), form
+                np.testing.assert_array_equal(w, v, err_msg=form)
             else:
-                torch.testing.assert_close(walked, want, rtol=0, atol=1e-6)
+                np.testing.assert_allclose(w, v, rtol=0, atol=1e-6, err_msg=form)
 
 
 def test_walk_layout_refuses_a_child_before_its_parent():
     tree = random_tree(np.random.default_rng(0), splits=3, features=4, classes=2, pure=True)
     f = DeviceForest.from_arrays([tree], np.arange(2), device="cpu")
-    nodes, roots, values, n_features = f.walk
+    nodes, roots, values, n_features = f.nodes, f.roots, f.values, f.n_features
     assert nodes.shape == (7, 4) and roots.tolist() == [0] and values.shape[0] <= 2 and n_features <= 4
     tree.children_left[0], tree.children_right[0] = 0, tree.children_right[0]
     with pytest.raises(ValueError, match="not after its parent"):
@@ -246,14 +296,20 @@ def test_walk_layout_refuses_a_child_before_its_parent():
 
 
 def test_sweep_hands_the_kernel_its_permutations_and_masks(sk_head, monkeypatch):
-    """The sweep's branch for a forest the walk kernel scores, run on the
-    CPU with the kernel's plain version in its place: the baseline, then one
-    launch per chunk of whole groups, and the drops and share drops of the
-    branch that scores permuted copies."""
+    """A forest head's scorer gives the sweep its outputs itself. On a CUDA
+    forest (its device faked, the kernel's plain version in the kernel's
+    place) that is the baseline, then one launch per chunk of whole groups;
+    the drops and share drops equal those of the same scorer as a plain
+    callable, scored on permuted copies."""
     head, X, y = sk_head
-    port = _port_of(head)
+    scorer, classes = perm._device_score_parts(_port_of(head))
+    assert scorer.probabilities
     groups = registry.columns_by_channel_positional(3)
-    want = perm.permutation_importance(port, X[160:], y[160:], n_repeats=3, seed=5, groups=groups)
+    Xt = torch.from_numpy(X[160:])
+    y_idx = torch.from_numpy(perm.labels_to_class_idx(y[160:], classes)).long()
+    masks = torch.from_numpy(perm.group_masks(groups, X.shape[1]))
+    perms = perm.draw_permutations(3 * 3, 80, seed=5, device="cpu").reshape(3, 3, 80)
+    want = perm._perm_sweep(Xt, y_idx, masks, perms, lambda x: scorer(x), shares=True)
     launches = []
 
     def plain_kernel(X, perms, masks, repeats, nodes, roots, values, n_features):
@@ -261,33 +317,50 @@ def test_sweep_hands_the_kernel_its_permutations_and_masks(sk_head, monkeypatch)
         return forest_device._apply_walk(X, nodes, roots, values, perms, masks, repeats)
 
     monkeypatch.setattr(forest_device, "_launch_walk", plain_kernel)
-    monkeypatch.setattr(DeviceForest, "form", property(lambda self: "kernel"))
+    monkeypatch.setattr(DeviceForest, "device", property(lambda self: torch.device("cuda")))
     monkeypatch.setattr(perm, "_SWEEP_CHUNK_ELEMS", 2 * 3 * 80 * 3)  # two groups a launch
-    got = perm.permutation_importance(port, X[160:], y[160:], n_repeats=3, seed=5, groups=groups)
+    got = perm._perm_sweep(Xt, y_idx, masks, perms, scorer, shares=True)
     assert launches == [None, (6, 2, torch.uint8), (3, 1, torch.uint8)]
-    assert got.baseline_score == want.baseline_score and got.baseline_share == want.baseline_share
-    np.testing.assert_array_equal(got.importances, want.importances)
-    np.testing.assert_array_equal(got.share_importances, want.share_importances)
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_a_logistic_sweep_takes_no_forest_branch(monkeypatch):
     """``_perm_sweep`` over a logistic head scores its permuted copies as
-    before: the walk kernel's branch is never asked, even where every
-    forest would take it."""
+    before: importances bit-equal to each draw's ``torch.where`` copy scored
+    by ``_scaled_logistic_apply``, ``_SWEEP_CHUNK_ELEMS // (N * F)`` draws
+    at a time, and no forest is asked."""
     X, y = _graded_matrix(120, 5)
     lg = fit_head(X[:80], y[:80], device="cpu", config=HeadConfig(num_steps=10))
-    want = perm.permutation_importance(lg, X[80:], y[80:], n_repeats=2, seed=1)
-    assert perm._kernel_forest(perm._device_score_parts(lg)[0]) is None
+    apply_fn, classes = perm._device_score_parts(lg)
+    assert not hasattr(apply_fn, "sweep_outputs") and not getattr(apply_fn, "probabilities", False)
 
     def refuse(*args, **kwargs):
-        raise AssertionError("a logistic sweep reached the forest kernel's branch")
+        raise AssertionError("a logistic sweep reached the forest")
 
-    monkeypatch.setattr(DeviceForest, "form", property(lambda self: "kernel"))
     monkeypatch.setattr(DeviceForest, "apply_permuted", refuse)
     monkeypatch.setattr(forest_device, "_launch_walk", refuse)
+    monkeypatch.setattr(perm, "_SWEEP_CHUNK_ELEMS", 7 * 40 * 69)  # 7 draws a chunk
     got = perm.permutation_importance(lg, X[80:], y[80:], n_repeats=2, seed=1)
     assert got.share_importances is None
-    np.testing.assert_array_equal(got.importances, want.importances)
+
+    Xt = torch.from_numpy(X[80:])
+    N, F, R = Xt.shape[0], Xt.shape[1], 2
+    y_idx = torch.from_numpy(perm.labels_to_class_idx(y[80:], classes)).long()
+    perms = perm.draw_permutations(F * R, N, seed=1, device="cpu")
+    permuted = torch.eye(F)[torch.arange(F).repeat_interleave(R)].bool()[:, None, :]
+
+    def accuracy(rows):
+        out = perm._scaled_logistic_apply(lg.params, lg.scaler.data_min, lg.scaler.scale, rows)
+        return (torch.argmax(out, dim=-1) == y_idx).to(torch.float32).mean(-1)
+
+    step = perm._SWEEP_CHUNK_ELEMS // (N * F)
+    scores = torch.cat([accuracy(torch.where(permuted[s:s + step], Xt[perms[s:s + step]], Xt))
+                        for s in range(0, F * R, step)])
+    want = (accuracy(Xt) - scores.reshape(F, R)).numpy().astype(np.float64)
+    assert got.baseline_score == float(accuracy(Xt))
+    np.testing.assert_array_equal(got.importances, want)
 
 
 @pytest.mark.parametrize("grouped", [False, True])

@@ -1,7 +1,8 @@
 """The port's random forest against the benchmark's plain reference
 (``perfbench/reference_forest.py``), on the CPU at a small size: the
 chunked, level-by-level grower (``models/forest_fit.py``) against the
-node-by-node one, inference in both forms, MDI and the per-feature sweep;
+node-by-node one, inference (``apply`` and ``apply_permuted``), MDI and
+the per-feature sweep;
 the reference against sklearn's own tree; and planted faults read as such.
 This file imports no jax.
 
@@ -80,16 +81,22 @@ def test_port_forest_equals_the_reference_node_for_node(seed, per_chunk, monkeyp
         np.testing.assert_array_equal(g.impurity, w["impurity"])
 
 
-@pytest.mark.parametrize("form", ["gemm", "lockstep"])
-def test_device_forest_shares_equal_the_references(form):
+@pytest.mark.parametrize("call", ["apply", "apply_permuted"])
+def test_device_forest_shares_equal_the_references(call):
+    """The forest's class shares on rows it was not grown on, by ``apply``
+    and by ``apply_permuted`` under identity permutations (two groups of
+    all columns, two repeats: each draw the rows as they are)."""
     got, want = _fit_both(2)
     forest = DeviceForest.from_arrays(got, np.arange(CLASSES), device="cpu")
-    assert forest.form == "gemm"
-    X, _ = _matrix(102)  # rows the trees were not grown on
-    shares = forest.apply(torch.from_numpy(X), form=form)
-    ref = reference_forest.class_shares([reference_forest.on_device(t, "cpu") for t in want],
-                                        torch.from_numpy(X))
-    np.testing.assert_allclose(shares.double().numpy(), ref.numpy(), rtol=0, atol=1e-6)
+    X = torch.from_numpy(_matrix(102)[0])
+    if call == "apply":
+        shares = forest.apply(X)[None]
+    else:
+        shares = forest.apply_permuted(X, torch.arange(ROWS).repeat(4, 1), torch.ones((2, COLUMNS)), 2)
+    ref = reference_forest.class_shares([reference_forest.on_device(t, "cpu") for t in want], X)
+    assert shares.shape == (1 if call == "apply" else 4, ROWS, CLASSES)
+    for s in shares:
+        np.testing.assert_allclose(s.double().numpy(), ref.numpy(), rtol=0, atol=1e-6)
 
 
 def test_mdi_equals_the_references():

@@ -36,10 +36,11 @@ INT_WORDS = [w for w in range(hybrid.WIRE_WORDS) if w not in FLOAT_WORDS]
 
 def _masked_batch(small_batch, rng_seed=5):
     """small_batch[:3] with an all-zero channel, and a per-channel mask with
-    an empty (image, channel), a one-pixel one (no pairs at any offset) and
-    a rectangle touching the image edge."""
+    an empty (image, channel), a one-pixel one at a nonzero level (no pairs
+    at any offset) and a rectangle touching the image edge."""
     x = small_batch[:3].copy()
     x[0, :, :, 1] = 0
+    x[2, 7, 9, 2] = max(x[2, 7, 9, 2], 1)
     m = np.random.default_rng(rng_seed).random(x.shape) < 0.8
     m[1, :, :, 0] = False
     m[2, :, :, 2] = False

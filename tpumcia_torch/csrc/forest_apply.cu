@@ -4,10 +4,11 @@
 // Replaces no TPU kernel. tpumcia scores a forest with XLA operations alone
 // (tpumcia/models/forest_device.py: the GEMM form, or the lock-step
 // descent), and its permutation sweep materialises each permuted copy of
-// the rows before scoring it. Both forms carry over to the port as its
-// plain versions (models/forest_device.py). On an H100 the sweep through
-// them moved about 1 GB and ran a dense float32 product per block of trees
-// to answer what a walk answers in about ten comparisons a lane.
+// the rows before scoring it. The port scores a forest by this walk alone;
+// its plain version, _apply_walk (models/forest_device.py), runs off the
+// card. On an H100 the port's GEMM form over the copies moved about 1 GB and
+// ran a dense float32 product per block of trees to answer what a walk
+// answers in about ten comparisons a lane.
 //
 // What it computes. X: (N, F) float32 scaled rows. perm: nullptr, or (D, N)
 // int64 row permutations with mask: (G, F) bytes, draw d belonging to group
@@ -18,8 +19,8 @@
 // right), until a leaf (feature < 0), with no depth cap; it adds the leaf's
 // class fractions to its sums in tree order, in float32, and writes
 // sum * (1 / T) to out[d, n, :] (D = 1 without perm): PyTorch's float32
-// division by a host scalar on the card, so with pure leaves the shares
-// equal the GEMM form's bit for bit. One thread owns each output row and no
+// division by a host scalar on the card, so the shares equal the plain
+// version's (_apply_walk in models/forest_device.py) bit for bit. One thread owns each output row and no
 // atomic is used, so two runs are bit-equal.
 //
 // What bounds it on an H100. Few bytes (X stays in L2, each permutation is

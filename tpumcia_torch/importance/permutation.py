@@ -3,10 +3,10 @@
 
 Semantics match sklearn's ``permutation_importance``:
 ``importance[g, r] = baseline_score - score(X with group g's columns
-permuted jointly by permutation r)``, scores being mean accuracy. All G*R
-permuted copies are scored in one batched gather + matmul (a forest
-that the walk kernel scores reads each draw's permuted columns in place,
-:meth:`DeviceForest.apply_permuted`). The
+permuted jointly by permutation r)``, scores being mean accuracy. The G*R
+permuted copies are scored in batched gathers + matmuls, unless the
+scorer gives the sweep its outputs itself (a forest head's reads the draws
+in place, through :meth:`DeviceForest.apply_permuted`). The
 permutations are an input: :func:`draw_permutations` draws them from a
 seeded ``torch.Generator``, and the tests hand in the JAX package's own.
 :func:`permutation_importance` is the entry for a fitted logistic, MLP or
@@ -85,18 +85,48 @@ def _scaled_mlp_apply(params, dmin, dscale, X):
     return mlp_predict_logits(params, (X - dmin) * dscale)
 
 
-def _scaled_forest_apply(forest, dmin, dscale, X):
-    return forest.apply((X - dmin) * dscale)
+@dataclass
+class _ScaledForest:
+    """A forest head's scoring callable: raw (N, F) rows -> the class
+    probabilities of its forest on the scaled rows. It gives a sweep its
+    outputs itself, reading the draws in place (:meth:`sweep_outputs`), and
+    its outputs are class probabilities, so the sweep also reads the true
+    class's share."""
+
+    forest: object  # DeviceForest
+    dmin: torch.Tensor
+    dscale: torch.Tensor
+    probabilities = True
+
+    def __call__(self, X):
+        return self.forest.apply((X - self.dmin) * self.dscale)
+
+    def sweep_outputs(self, X, masks, perms):
+        """Yields the (N, K) output on X, then the (g * R, N, K) outputs of
+        perms' (G, R, N) draws, whole groups at a time, all from the rows
+        scaled once (scaling is per element, so that gives each permuted
+        copy's floats)."""
+        G, R, N = perms.shape
+        Xs = (X - self.dmin) * self.dscale
+        yield self.forest.apply(Xs)
+        step = max(1, _SWEEP_CHUNK_ELEMS // max(1, R * N * self.forest.values.shape[1]))
+        for g in range(0, G, step):
+            yield self.forest.apply_permuted(Xs, perms[g:g + step].reshape(-1, N), masks[g:g + step], R)
 
 
-def _kernel_forest(apply_fn):
-    """The :class:`DeviceForest` behind a forest head's scoring callable
-    where the walk kernel scores it (form ``'kernel'``: a CUDA forest), else
-    None."""
-    if getattr(apply_fn, "func", None) is not _scaled_forest_apply:
-        return None
-    forest = apply_fn.args[0]
-    return forest if forest.form == "kernel" else None
+def _permuted_copies(apply_fn, X, masks, perms):
+    """Yields ``apply_fn``'s output on X, then its outputs on the permuted
+    copies ``torch.where(permuted, X[perm], X)`` of perms' (G, R, N) draws,
+    ``_SWEEP_CHUNK_ELEMS // (N * F)`` draws at a time."""
+    yield apply_fn(X)
+    N, F = X.shape
+    G, R, _ = perms.shape
+    flat = perms.reshape(G * R, N)
+    group_of = torch.arange(G, device=X.device).repeat_interleave(R)
+    permuted = masks[group_of].to(torch.bool)[:, None, :]  # (G*R, 1, F)
+    step = max(1, _SWEEP_CHUNK_ELEMS // max(1, N * F))
+    for s in range(0, G * R, step):
+        yield apply_fn(torch.where(permuted[s:s + step], X[flat[s:s + step]], X))
 
 
 def _device_score_parts(head):
@@ -109,7 +139,7 @@ def _device_score_parts(head):
     if isinstance(head, RandomForestHead):
         head = head.to_device()
     apply = {LogisticHead: _scaled_logistic_apply, MLPHead: _scaled_mlp_apply,
-             DeviceForest: _scaled_forest_apply}.get(type(head))
+             DeviceForest: _ScaledForest}.get(type(head))
     if apply is None:
         raise TypeError(
             f"head {type(head).__name__} has no device scoring path; use "
@@ -120,7 +150,7 @@ def _device_score_parts(head):
     else:
         dmin, dscale = head.scaler.data_min, head.scaler.scale
     if isinstance(head, DeviceForest):
-        return functools.partial(apply, head, dmin, dscale), head.classes
+        return _ScaledForest(head, dmin, dscale), head.classes
     return functools.partial(apply, head.params, dmin, dscale), head.classes
 
 
@@ -143,10 +173,9 @@ def _perm_sweep(X, y_idx, masks, perms, apply_fn, *, shares=False):
     gives class probabilities, as a forest's does) also (the baseline's mean
     share of the true class, (G, R) drops of that share). The sweep is one
     ``sweep`` span and adds its G*R + 1 evaluations to
-    ``COUNTERS["sweep_evals"]``. A forest the walk kernel scores is handed
-    the rows scaled once, each launch's permutations and group masks: no
-    permuted copy of X is made."""
-    N, F = X.shape
+    ``COUNTERS["sweep_evals"]``. A scorer with a ``sweep_outputs`` method
+    gives the outputs itself (a forest reads the draws in place); any other
+    callable is scored on permuted copies of X."""
     G, R, _ = perms.shape
 
     def score(out):  # (..., N, k) -> (...) accuracy, or (..., 2) with the true class's share
@@ -158,25 +187,8 @@ def _perm_sweep(X, y_idx, masks, perms, apply_fn, *, shares=False):
         return torch.stack([acc, share], -1)
 
     with trace("sweep"):
-        forest = _kernel_forest(apply_fn)
-        if forest is None:
-            baseline = score(apply_fn(X))
-            flat = perms.reshape(G * R, N)
-            group_of = torch.arange(G, device=X.device).repeat_interleave(R)
-            permuted = masks[group_of].to(torch.bool)[:, None, :]  # (G*R, 1, F)
-            step = max(1, _SWEEP_CHUNK_ELEMS // max(1, N * F))
-            scores = [score(apply_fn(torch.where(permuted[s:s + step], X[flat[s:s + step]], X)))
-                      for s in range(0, G * R, step)]
-        else:
-            # scaling is per element, so scaling X once gives each permuted
-            # copy's floats
-            _, dmin, dscale = apply_fn.args
-            Xs = (X - dmin) * dscale
-            baseline = score(forest.apply(Xs))
-            step = max(1, _SWEEP_CHUNK_ELEMS // max(1, R * N * forest.leaf_proba.shape[-1]))
-            scores = [score(forest.apply_permuted(Xs, perms[g:g + step].reshape(-1, N),
-                                                  masks[g:g + step], R))
-                      for g in range(0, G, step)]
+        outputs = getattr(apply_fn, "sweep_outputs", None) or functools.partial(_permuted_copies, apply_fn)
+        baseline, *scores = (score(out) for out in outputs(X, masks, perms))
         scores = torch.cat([X.new_zeros((0, *baseline.shape))] + scores)
     COUNTERS["sweep_evals"] += G * R + 1
     drops = baseline - scores.reshape(G, R, *baseline.shape)
@@ -193,10 +205,10 @@ def _run_sweep(head, X, y, masks, *, n_repeats, seed) -> PermutationResult:
     y_idx = torch.as_tensor(labels_to_class_idx(y, classes), dtype=torch.int64, device=dev)
     G, N = masks.shape[0], X.shape[0]
     perms = draw_permutations(G * R, N, seed=seed, device=dev).reshape(G, R, N)
-    forest = apply_fn.func is _scaled_forest_apply  # scores class probabilities
     with torch.no_grad():
         baseline, drops, *share = _perm_sweep(
-            X, y_idx, torch.as_tensor(masks, device=dev), perms, apply_fn, shares=forest
+            X, y_idx, torch.as_tensor(masks, device=dev), perms, apply_fn,
+            shares=getattr(apply_fn, "probabilities", False),
         )
     imp = drops.cpu().numpy().astype(np.float64)
     return PermutationResult(

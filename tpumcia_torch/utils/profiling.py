@@ -25,9 +25,8 @@ captured CUDA graph), ``sweep_evals`` (evaluations of the head in the
 permutation sweeps, the baseline included), ``forest_levels`` (levels
 grown, each chunk of trees counting its own), ``forest_nodes`` (tree nodes
 grown), ``forest_lanes`` ((tree, row) pairs the forest scored) and
-``forest_kernel_lanes`` (those of them the walk kernel scored: all of them
-on the card, none on the CPU) and ``forest_kernel_launches`` (the walk
-kernel's launches); :func:`reset_counters` zeroes them.
+``forest_kernel_launches`` (the walk kernel's launches: it scores every
+pair on the card, none elsewhere); :func:`reset_counters` zeroes them.
 """
 
 from __future__ import annotations
@@ -41,8 +40,7 @@ import torch
 
 ROOT_SPAN = "run_pipeline"
 COUNTERS = {"adam_steps": 0, "adam_graph_steps": 0, "sweep_evals": 0, "forest_levels": 0,
-            "forest_nodes": 0, "forest_lanes": 0, "forest_kernel_lanes": 0,
-            "forest_kernel_launches": 0}
+            "forest_nodes": 0, "forest_lanes": 0, "forest_kernel_launches": 0}
 
 
 def reset_counters() -> None:
