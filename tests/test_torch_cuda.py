@@ -360,6 +360,67 @@ def test_forest_fit_on_card_equals_cpu_fit():
     np.testing.assert_array_equal(card.predict(X), cpu.predict(X))
 
 
+def test_forest_fit_on_card_waits_once_a_level():
+    """``fit_forest`` on the card makes no blocking call but its one event
+    wait a level: under ``torch.cuda.set_sync_debug_mode("warn")`` nothing
+    else is flagged, and that wait is flagged once a level or never (as
+    this torch flags an event's wait or not; if never, ``"error"`` raises
+    nothing; a read-back after the fit is flagged, so the flags are seen);
+    ``forest_fit_waits`` equals ``forest_levels``, and the trees equal the
+    CPU fit's."""
+    import inspect
+    import os
+    import warnings
+
+    dev = require_cuda()
+    from tpumcia_torch.models import forest_fit
+    from tpumcia_torch.utils import profiling
+
+    rng = np.random.default_rng(1)
+    y = torch.from_numpy(rng.integers(0, 3, 500))
+    X = rng.normal(size=(500, 20)).astype(np.float32)
+    X[:, :2] += y.numpy()[:, None]
+    Xd = torch.from_numpy(X).to(dev)
+    torch.cuda.synchronize()
+
+    def fit(X):
+        return forest_fit.fit_forest(X, y, 3, n_estimators=6, max_depth=None, seed=5)
+
+    lines, first = inspect.getsourcelines(forest_fit._read_back)
+    wait_line = first + [i for i, line in enumerate(lines) if "copied.synchronize()" in line][0]
+    wait_at = f"{os.path.realpath(inspect.getsourcefile(forest_fit))}:{wait_line}"
+    profiling.reset_counters()
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            card = fit(Xd)
+            in_fit = len(seen)
+            Xd.sum().item()  # a read-back, flagged: shows the filter below sees flags
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    def syncs_in(warned):
+        return [f"{os.path.realpath(w.filename)}:{w.lineno}" for w in warned
+                if "called a synchronizing CUDA operation" in str(w.message)]
+
+    assert len(syncs_in(seen[in_fit:])) == 1, [str(w.message) for w in seen]
+    syncs = syncs_in(seen[:in_fit])
+    levels = profiling.COUNTERS["forest_levels"]
+    assert profiling.COUNTERS["forest_fit_waits"] == levels > 5
+    assert [s for s in syncs if s != wait_at] == [] and len(syncs) in (0, levels), (wait_at, levels, syncs)
+    if not syncs:
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            fit(Xd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(card, fit(torch.from_numpy(X)), strict=True):
+        for name in ("children_left", "children_right", "feature", "threshold", "value", "impurity",
+                     "n_node_samples", "weighted_n_node_samples"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
+
+
 def test_morphology_on_card_matches_cpu():
     dev = require_cuda()
     from tpumcia_torch.config import FeatureConfig

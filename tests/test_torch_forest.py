@@ -20,6 +20,7 @@ Tolerances:
   within 0.05, channel rankings equal.
 """
 
+import functools
 import inspect
 from types import SimpleNamespace
 
@@ -51,7 +52,9 @@ from tpumcia_torch.models.forest_device import DeviceForest
 from tpumcia_torch.models.heads import LogisticHead, RandomForestHead, fit_head
 from tpumcia_torch.models.scaler import MinMaxScaler
 from tpumcia_torch.pipeline.run import run_pipeline
+from tpumcia_torch.utils import profiling
 
+TREES_A_FIT = 8
 TREE_ARRAYS = ("children_left", "children_right", "feature", "threshold", "value", "impurity",
                "n_node_samples", "weighted_n_node_samples")
 
@@ -130,6 +133,111 @@ def test_grower_chunks_trees_without_changing_them():
                                      chunk_elems=chunk)
 
     for a, b in zip(grow(1 << 30), grow(1)):
+        for name in TREE_ARRAYS:
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+
+
+class _RecordingOrders(forest_fit.RandomOrders):
+    """``RandomOrders`` that keeps each call's (tree, depth, n)."""
+
+    def __init__(self, generators, num_features):
+        super().__init__(generators, num_features)
+        self.calls = []
+
+    def __call__(self, tree, depth, n):
+        self.calls.append((tree, depth, n))
+        return super().__call__(tree, depth, n)
+
+
+def _five_trees(orders_of, chunk):
+    """Five trees on 120 rows and 10 features, the orders from
+    ``orders_of(generators, num_features)``, ``chunk_elems=chunk``."""
+    X, y, _ = _gaussian(3, n=120)
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(np.stack([np.bincount(rng.integers(0, 120, 120), minlength=120)
+                                   for _ in range(5)]).astype(np.float64))
+    orders = orders_of([torch.Generator().manual_seed(t) for t in range(5)], 10)
+    trees = forest_fit.grow_trees(torch.from_numpy(X), torch.from_numpy(y), 3, w, max_depth=None,
+                                  max_features=3, feature_orders=orders, chunk_elems=chunk)
+    return trees, orders
+
+
+def _nodes_by_depth(tree):
+    """Each depth's node count of a fitted tree."""
+    depth = np.zeros(tree.node_count, np.int64)
+    for i in range(tree.node_count):  # a parent comes before its children
+        for c in (tree.children_left[i], tree.children_right[i]):
+            if c != forest_fit.TREE_LEAF:
+                depth[c] = depth[i] + 1
+    return np.bincount(depth)
+
+
+@pytest.mark.parametrize("per_chunk", [5, 2])  # one chunk; three (2 + 2 + 1 trees)
+def test_orders_are_drawn_level_by_level_in_tree_order(per_chunk):
+    """The draws, now made while the device works, come as before: chunk by
+    chunk, level by level, each level's trees in order, each tree asked at
+    depths 0, 1, 2, ... for its node count there; the trees equal a plain
+    ``RandomOrders`` fit's."""
+    trees, orders = _five_trees(_RecordingOrders, per_chunk * 10 * 120)
+    plain, _ = _five_trees(forest_fit.RandomOrders, 1 << 30)
+    for a, b in zip(trees, plain):
+        for name in TREE_ARRAYS:
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    want = []
+    for t0 in range(0, 5, per_chunk):
+        counts = [_nodes_by_depth(t) for t in trees[t0:t0 + per_chunk]]
+        for depth in range(max(len(c) for c in counts)):
+            want += [(t0 + i, depth, int(c[depth])) for i, c in enumerate(counts) if depth < len(c)]
+    assert orders.calls == want
+    assert max(d for _, d, _ in want) > 3
+
+
+@pytest.mark.parametrize("per_chunk", [TREES_A_FIT, 3])
+def test_the_fit_waits_once_a_level(per_chunk, monkeypatch):
+    """``fit_forest`` reads the device back once a level: the counter of its
+    waits equals the levels grown, in one chunk or in three."""
+    X, y, _ = _gaussian(5, n=150)
+    monkeypatch.setattr(forest_fit, "grow_trees", functools.partial(
+        forest_fit.grow_trees, chunk_elems=per_chunk * X.size))
+    profiling.reset_counters()
+    trees = forest_fit.fit_forest(torch.from_numpy(X), torch.from_numpy(y), 3, n_estimators=TREES_A_FIT,
+                                  max_depth=None, seed=11)
+    levels = sum(max(t.max_depth for t in trees[i:i + per_chunk]) + 1
+                 for i in range(0, TREES_A_FIT, per_chunk))
+    assert profiling.COUNTERS["forest_levels"] == levels > 5
+    assert profiling.COUNTERS["forest_fit_waits"] == profiling.COUNTERS["forest_levels"]
+
+
+def test_the_fit_reads_no_tensor_back_but_its_records(monkeypatch):
+    """Inside ``grow_trees`` no tensor's value reaches the host but through
+    the level's records: no ``item``, ``tolist``, ``cpu``, ``int()``,
+    ``float()``, ``bool()``, ``nonzero``, ``bincount``,
+    ``repeat_interleave`` or boolean-mask index (each a wait on the card);
+    the trees are those of an unguarded fit."""
+    def refused(name):
+        def refuse(*args, **kwargs):
+            raise AssertionError(f"{name} inside the forest fit")
+        return refuse
+
+    def fit():
+        return _five_trees(forest_fit.RandomOrders, 2 * 10 * 120)[0]
+
+    want = fit()
+    for name in ("item", "tolist", "cpu", "nonzero", "__int__", "__float__", "__bool__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, name, refused(name))
+    for name in ("bincount", "repeat_interleave", "nonzero", "masked_select"):
+        monkeypatch.setattr(torch, name, refused(name))
+    getitem = torch.Tensor.__getitem__
+
+    def no_mask(self, index):
+        parts = index if isinstance(index, tuple) else (index,)
+        assert not any(isinstance(p, torch.Tensor) and p.dtype == torch.bool for p in parts), "a mask index"
+        return getitem(self, index)
+
+    monkeypatch.setattr(torch.Tensor, "__getitem__", no_mask)
+    got = fit()
+    monkeypatch.undo()
+    for a, b in zip(got, want):
         for name in TREE_ARRAYS:
             np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
 

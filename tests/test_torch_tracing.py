@@ -167,8 +167,8 @@ def test_reset_counters_zeroes_every_counter():
     profiling.COUNTERS["forest_lanes"] += 5
     profiling.reset_counters()
     assert profiling.COUNTERS == {"adam_steps": 0, "adam_graph_steps": 0, "sweep_evals": 0,
-                                  "forest_levels": 0, "forest_nodes": 0, "forest_lanes": 0,
-                                  "forest_kernel_launches": 0}
+                                  "forest_levels": 0, "forest_fit_waits": 0, "forest_nodes": 0,
+                                  "forest_lanes": 0, "forest_kernel_launches": 0}
 
 
 @pytest.mark.parametrize("timed", [False, True])
@@ -256,6 +256,13 @@ def test_forest_counters_follow_its_trees(forest_traced):
     # the walk kernel runs on the card only
     assert c["forest_kernel_launches"] == 0
     assert c["sweep_evals"] == FEATURES * REPEATS + 1 and c["adam_steps"] == 0
+
+
+def test_a_forest_call_waits_once_a_level(forest_traced):
+    """The fit inside a forest ``run_pipeline`` call reads the device back
+    once a level."""
+    c = forest_traced["counters"]
+    assert c["forest_fit_waits"] == c["forest_levels"] > 1
 
 
 def test_forest_spans_sit_under_their_stages(forest_traced):

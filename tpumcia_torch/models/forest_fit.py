@@ -35,7 +35,9 @@ every boundary, and a segmented max picks each node's split. After a level,
 a stable sort by the rows' new node ids regroups them and cuts off the rows
 that reached a leaf, so each level costs what its active rows cost. The weights are
 bootstrap counts, so every sum is an exact integer in float64 in any order,
-and the card and the CPU pick the same split bit for bit.
+and the card and the CPU pick the same split bit for bit. The host waits on
+the device once a level, for the level's records, and draws each level's
+feature orders while the device works on what needs none.
 
 Randomness comes from CPU ``torch.Generator`` s seeded per tree with
 ``synth_batch_seed(seed, tree)``: first the tree's bootstrap, then a feature
@@ -122,14 +124,15 @@ def fit_forest(
 ) -> list[Tree]:
     """Fit ``n_estimators`` trees on ``X`` ((N, F) f32, on the device the
     fit runs on) and class indices ``y_idx`` ((N,) int64 in [0,
-    num_classes)), with bootstraps and feature orders from ``seed``."""
+    num_classes), on any device), with bootstraps and feature orders from
+    ``seed``."""
     n, f = X.shape
     gens = [torch.Generator().manual_seed(synth_batch_seed(seed, t)) for t in range(n_estimators)]
     counts = torch.stack([
         torch.bincount(torch.randint(0, n, (n,), generator=g), minlength=n) for g in gens
     ])
     return grow_trees(
-        X, y_idx, num_classes, counts.to(device=X.device, dtype=torch.float64),
+        X, y_idx, num_classes, counts.to(torch.float64),
         max_depth=max_depth, max_features=max_features_sqrt(f),
         feature_orders=RandomOrders(gens, f),
     )
@@ -140,10 +143,11 @@ def grow_trees(
     max_depth: int | None, max_features: int, feature_orders, chunk_elems: int = CHUNK_ELEMS,
 ) -> list[Tree]:
     """One tree per row of ``weights`` ((T, N) float64 integer sample
-    weights on X's device). ``feature_orders(tree, depth, n)`` gives the
+    weights on the host). ``feature_orders(tree, depth, n)`` gives the
     (n, F) int64 visit orders of a tree's n nodes at ``depth``, left to
     right, and is called for every tree at every level it reaches, in tree
-    order."""
+    order. A chunk's trees are assembled while the next chunk's first level
+    runs on the device."""
     n, f = X.shape
     if n == 0 or f == 0:
         raise ValueError(f"cannot grow trees on a {tuple(X.shape)} matrix")
@@ -151,40 +155,66 @@ def grow_trees(
     si = torch.argsort(X.t(), dim=1, stable=True)  # (F, N) each column's rows in order
     per = max(1, chunk_elems // (f * n))
     depth_cap = np.iinfo(np.int32).max if max_depth is None else int(max_depth)
-    y_idx = y_idx.to(device=X.device, dtype=torch.int64)
+    y_idx = _to_device(y_idx.to(torch.int64), X.device)
+    bootstrap_rows = (weights > 0).sum(1).numpy()  # each tree's rows of weight > 0
+    weights = _to_device(weights, X.device)
     trees: list[Tree] = []
+    grown = []  # the last chunk's (levels, trees), not yet assembled
+
+    def assemble_grown():
+        while grown:
+            levels, num_trees = grown.pop()
+            trees.extend(_assemble(levels, num_trees=num_trees, num_classes=num_classes))
+
     for t0 in range(0, weights.shape[0], per):
         levels = _grow_chunk(
             X, si, y_idx, num_classes, weights[t0:t0 + per], first_tree=t0,
-            max_depth=depth_cap, max_features=min(max_features, f), feature_orders=feature_orders,
+            rows_in=int(bootstrap_rows[t0:t0 + per].max()), max_depth=depth_cap,
+            max_features=min(max_features, f), feature_orders=feature_orders, while_queued=assemble_grown,
         )
-        trees += _assemble(levels, num_trees=min(per, weights.shape[0] - t0), num_classes=num_classes)
+        grown.append((levels, min(per, weights.shape[0] - t0)))
+    assemble_grown()
     return trees
 
 
-def _grow_chunk(X, si, y, K, w, *, first_tree, max_depth, max_features, feature_orders):
+def _grow_chunk(X, si, y, K, w, *, first_tree, rows_in, max_depth, max_features, feature_orders,
+                while_queued):
     """Grow a chunk of trees level by level; returns each level's node
     records on the host (numpy), nodes ordered by tree, then left to right.
-    ``si``: the rows of each column of X in sorted order. Each level is one
-    ``forest_level`` span and adds 1 to ``COUNTERS["forest_levels"]`` and
-    its nodes to ``COUNTERS["forest_nodes"]``."""
+    ``si``: the rows of each column of X in sorted order; ``rows_in``: the
+    most rows of weight > 0 a tree of the chunk has.
+
+    The host waits on the device once a level, for the level's records, and
+    derives from them all the next level needs on the host: its node count,
+    each node's tree and the most rows a tree keeps growing. A level queues
+    its device work that needs no feature order first, and draws the orders
+    while the device works through it; ``while_queued()`` (the caller's
+    host work) runs before the wait. Each level is one ``forest_level``
+    span and adds 1 to ``COUNTERS["forest_levels"]`` and
+    ``COUNTERS["forest_fit_waits"]``, and its nodes to
+    ``COUNTERS["forest_nodes"]``."""
     dev = X.device
     Tc, N = w.shape
     F = X.shape[1]
-    f64, thr32 = torch.float64, torch.tensor(FEATURE_THRESHOLD, dtype=torch.float32, device=dev)
+    f64 = torch.float64
+    thr32 = torch.full((), FEATURE_THRESHOLD, dtype=torch.float32, device=dev)
     rows = torch.arange(N, device=dev)
+    fidx = torch.arange(F, device=dev)
+    ones_i64 = torch.ones((), dtype=torch.int64, device=dev).expand(Tc * N)
     XT = X.t().contiguous()  # (F, N)
     total_w = w.sum(1)  # the tree's weighted_n_samples
-    tree_of = torch.arange(Tc, device=dev)
+    tree_host = np.arange(Tc)  # each node's tree, on the host
     S = Tc  # nodes at this level; S is also the sentinel id of inactive rows
-    nid = torch.where(w > 0, tree_of[:, None], S)
-    row_s = _regroup(nid, si.expand(Tc, F, N), S)
-    levels, depth = [], 0
+    nid = torch.where(w > 0, torch.arange(Tc, device=dev)[:, None], S)
+    row_s, M = si.expand(Tc, F, N), min(N, max(2, rows_in))
 
-    @trace("forest_level")
-    def grow_level(S, depth, nid, tree_of, row_s):
+    def grow_level(S, depth, M, nid, row_s, tree_host):
+        """Queue one level, wait for its records; returns the next level's
+        ``nid`` and this level's records (its tensors die on return)."""
+        tree_of = _to_device(torch.from_numpy(tree_host), dev)
+
         # per node: rows, class totals, weight, impurity (node_impurity)
-        cnt = torch.bincount(nid.flatten(), minlength=S + 1)[:S]
+        cnt = torch.zeros(S + 1, dtype=torch.int64, device=dev).index_add_(0, nid.flatten(), ones_i64)[:S]
         tot = torch.zeros((S + 1) * K, dtype=f64, device=dev)
         tot.index_add_(0, (nid * K + y[None, :]).flatten(), w.flatten())
         tot = tot.view(S + 1, K)[:S]
@@ -200,9 +230,6 @@ def _grow_chunk(X, si, y, K, w, *, first_tree, max_depth, max_features, feature_
         first = torch.searchsorted(tree_of, tree_of)
         start = excl - excl[first]
 
-        # the active rows of every (tree, feature), grouped by node, each
-        # node's in feature order; M = the most active rows of a tree
-        M = row_s.shape[2]
         node_s = torch.gather(nid[:, None, :].expand(Tc, F, N), 2, row_s)
         x_s = torch.gather(XT[None].expand(Tc, F, N), 2, row_s)
         w_s = torch.gather(w[:, None, :].expand(Tc, F, N), 2, row_s)
@@ -235,7 +262,7 @@ def _grow_chunk(X, si, y, K, w, *, first_tree, max_depth, max_features, feature_
         proxy = torch.where(valid, -w_r * imp_r - w_l * imp_l, -math.inf)
 
         # each (node, feature)'s best proxy and its first position
-        seg = (node_s * F + torch.arange(F, device=dev)[None, :, None]).flatten()
+        seg = (node_s * F + fidx[None, :, None]).flatten()
         best = torch.full(((S + 1) * F,), -math.inf, dtype=f64, device=dev)
         best.scatter_reduce_(0, seg, proxy.flatten(), "amax")
         pos = torch.arange(M, device=dev).expand(node_s.shape)
@@ -243,13 +270,14 @@ def _grow_chunk(X, si, y, K, w, *, first_tree, max_depth, max_features, feature_
         first_pos = torch.full(((S + 1) * F,), M, dtype=torch.int64, device=dev)
         first_pos.scatter_reduce_(0, seg, torch.where(hit, pos, M).flatten(), "amin")
         best, first_pos = best[:S * F].view(S, F), first_pos[:S * F].view(S, F)
-
-        # the features each node visits, in its order
-        fidx = torch.arange(F, device=dev)
         x_min = x_s[tree_of[:, None], fidx[None, :], start[:, None]]
         x_max = x_s[tree_of[:, None], fidx[None, :], (start + cnt - 1)[:, None]]
+
+        # the features each node visits, in its order: drawn on the host
+        # while the device works through the above
+        counts = _tree_sums(tree_host, 1, Tc)
+        orders = _to_device(_level_orders(feature_orders, first_tree, counts, depth, F), dev)
         nonconst = x_max > x_min + thr32
-        orders = _level_orders(feature_orders, first_tree, tree_of, depth, F).to(dev)
         rank = torch.empty_like(orders).scatter_(1, orders, fidx.expand(S, F).contiguous())
         first_nc = torch.where(nonconst, rank, F).amin(1)
         visits = torch.clamp(torch.maximum(torch.full_like(first_nc, max_features), first_nc + 1), max=F)
@@ -274,48 +302,90 @@ def _grow_chunk(X, si, y, K, w, *, first_tree, max_depth, max_features, feature_
         leaf = leaf | ~has_split | (improvement + EPSILON < 0.0)
         split = ~leaf
 
-        levels.append({k: v.cpu().numpy() for k, v in dict(
-            tree=tree_of, leaf=leaf, feature=fstar, threshold=thr, impurity=imp,
-            n=cnt, weight=W, totals=tot,
-        ).items()})
-        # the children of the j-th splitting node are nodes 2j, 2j+1 next level
+        # the children of the j-th splitting node are nodes 2j, 2j+1 next
+        # level; rows in no growing node take its node count, the sentinel
         j = torch.cumsum(split.to(torch.int64), 0) - 1
-        S_next = 2 * int(split.sum())
         active = nid < S
         node = torch.where(active, nid, 0)
         xv = X[rows[None, :], fstar[node]]
         go_right = ~(xv.to(f64) <= thr[node])
-        nid = torch.where(active & split[node], 2 * j[node] + go_right, S_next)
-        tree_of = torch.repeat_interleave(tree_of[split], 2)
+        nid = torch.where(active & split[node], 2 * j[node] + go_right, 2 * split.sum())
+
+        record = _read_back(dict(leaf=leaf, feature=fstar, threshold=thr, impurity=imp, n=cnt,
+                                 weight=W, totals=tot), dev, while_queued)
+        record["tree"] = tree_host
+        return nid, record
+
+    levels, depth = [], 0
+    while S:
+        with trace("forest_level"):
+            # the active rows of every (tree, feature), grouped by node, each
+            # node's in feature order; M = the most active rows of a tree
+            row_s = _regroup(nid, row_s, M)
+            nid, record = grow_level(S, depth, M, nid, row_s, tree_host)
+        levels.append(record)
         COUNTERS["forest_levels"] += 1
         COUNTERS["forest_nodes"] += S
-        S, depth = S_next, depth + 1
-        row_s = _regroup(nid, row_s, S)
-        return S, depth, nid, tree_of, row_s
-
-    while S:
-        S, depth, nid, tree_of, row_s = grow_level(S, depth, nid, tree_of, row_s)
+        grows = ~record["leaf"]
+        # every row of a splitting node moves to one of its children
+        rows_on = _tree_sums(tree_host[grows], record["n"][grows], Tc)
+        S, depth, M = 2 * int(grows.sum()), depth + 1, min(M, max(2, int(rows_on.max())))
+        tree_host = np.repeat(tree_host[grows], 2)
     return levels
 
 
-def _regroup(nid, row_s, S) -> torch.Tensor:
-    """(Tc, F, M) rows of each (tree, feature), in feature order within each
+def _tree_sums(tree: np.ndarray, values, num_trees: int) -> np.ndarray:
+    """Per tree of a chunk, the sum of ``values`` over its nodes (``tree``:
+    each node's tree; host arrays, int64)."""
+    sums = np.zeros(num_trees, np.int64)
+    np.add.at(sums, tree, values)
+    return sums
+
+
+def _to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on ``dev``: a host tensor goes to a CUDA device from pinned
+    memory, without waiting for the device."""
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def _read_back(tensors: dict, dev: torch.device, while_queued) -> dict:
+    """A level's records as numpy arrays, after the fit's one wait of the
+    level (``COUNTERS["forest_fit_waits"]``, counted on every device): on a
+    CUDA device copied into pinned host memory without blocking, then
+    ``while_queued()`` run, then a wait on an event behind the copies."""
+    COUNTERS["forest_fit_waits"] += 1
+    if dev.type != "cuda":
+        while_queued()
+        return {k: v.numpy() for k, v in tensors.items()}
+    host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
+            for k, v in tensors.items()}
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(dev))
+    while_queued()
+    copied.synchronize()
+    return {k: v.numpy() for k, v in host.items()}
+
+
+def _regroup(nid, row_s, M) -> torch.Tensor:
+    """(Tc, F, ·) rows of each (tree, feature), in feature order within each
     node of the previous grouping -> the same sorted stably by their node id
-    ``nid`` (so still in feature order within a node), with the rows of the
-    sentinel ``S`` (in no growing node) cut off: the result's last axis is
-    the most rows a tree has in growing nodes (at least 2 where the chunk has
-    2 rows, so a split position and the one before it index into it)."""
+    ``nid`` (so still in feature order within a node) and cut to (Tc, F,
+    M): ``M`` is the most rows a tree has in growing nodes (at least 2 where
+    the chunk has 2 rows, so a split position and the one before it index
+    into it), and the rows in no growing node hold the sentinel, sorting
+    last."""
     key = torch.gather(nid[:, None, :].expand(-1, row_s.shape[1], -1), 2, row_s)
     order = torch.argsort(key, dim=2, stable=True)
-    M = min(row_s.shape[2], max(2, int((nid < S).sum(1).max())))
     return torch.gather(row_s, 2, order[..., :M])
 
 
-def _level_orders(feature_orders, first_tree, tree_of, depth, F) -> torch.Tensor:
-    """The (S, F) visit orders of one level's nodes (tree-ordered)."""
-    counts = torch.bincount(tree_of).cpu().tolist()
+def _level_orders(feature_orders, first_tree, counts, depth, F) -> torch.Tensor:
+    """The (S, F) visit orders of one level's nodes (tree-ordered), on the
+    host; ``counts``: each tree's nodes at this level (a host array)."""
     parts = [
-        feature_orders(first_tree + t, depth, c).to(torch.int64).reshape(c, F)
+        feature_orders(first_tree + t, depth, int(c)).to(torch.int64).reshape(int(c), F)
         for t, c in enumerate(counts) if c
     ]
     return torch.cat(parts)

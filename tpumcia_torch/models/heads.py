@@ -601,7 +601,7 @@ class RandomForestHead:
         cfg = config or HeadConfig(kind="random_forest")
         classes, y_idx = np.unique(np.asarray(y), return_inverse=True)
         Xs = scaler.transform(X) if scaler is not None else X
-        trees = fit_forest(Xs, torch.as_tensor(y_idx, device=X.device), len(classes),
+        trees = fit_forest(Xs, torch.from_numpy(y_idx), len(classes),
                            n_estimators=cfg.n_estimators, max_depth=cfg.max_depth, seed=cfg.seed)
         return cls(trees, classes, num_features=X.shape[1], scaler=scaler, config=cfg,
                    device=X.device)

@@ -23,7 +23,9 @@ counts the head's work where it is done: ``adam_steps`` (Adam steps, added
 once a fit), ``adam_graph_steps`` (those of them run by replaying a
 captured CUDA graph), ``sweep_evals`` (evaluations of the head in the
 permutation sweeps, the baseline included), ``forest_levels`` (levels
-grown, each chunk of trees counting its own), ``forest_nodes`` (tree nodes
+grown, each chunk of trees counting its own), ``forest_fit_waits`` (the
+host's blocking waits on the device in the forest fit: one a level, for the
+level's records, counted on every device), ``forest_nodes`` (tree nodes
 grown), ``forest_lanes`` ((tree, row) pairs the forest scored) and
 ``forest_kernel_launches`` (the walk kernel's launches: it scores every
 pair on the card, none elsewhere); :func:`reset_counters` zeroes them.
@@ -40,7 +42,7 @@ import torch
 
 ROOT_SPAN = "run_pipeline"
 COUNTERS = {"adam_steps": 0, "adam_graph_steps": 0, "sweep_evals": 0, "forest_levels": 0,
-            "forest_nodes": 0, "forest_lanes": 0, "forest_kernel_launches": 0}
+            "forest_fit_waits": 0, "forest_nodes": 0, "forest_lanes": 0, "forest_kernel_launches": 0}
 
 
 def reset_counters() -> None:
